@@ -28,6 +28,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "timeout(seconds): per-test watchdog limit "
         f"(default {DEFAULT_TEST_TIMEOUT_S}s via REPRO_TEST_TIMEOUT_S)")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; skipped at run time without "
+        "one (run them on the card with `pytest -m gpu`)")
 
 
 @pytest.fixture(autouse=True)

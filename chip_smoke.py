@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one H100; exits non-zero on any failure
-    python3 chip_smoke.py --trace    # phases 1-2, then one fused drive under
+    python3 chip_smoke.py --trace    # phases 1-2, then one fused drive of
+                                     # each served model under
                                      # torch.profiler: device busy share and
                                      # the largest device-time entries
 
@@ -9,18 +10,26 @@ Phases:
   1. require CUDA; print the card's name and power limit;
   2. build every CUDA kernel of the port from ``src/repro_torch/csrc``;
   3. hold the paged-decode and flash-prefill kernels against their plain
-     PyTorch versions in bf16 at the serving path's shapes, and time
-     kernel, plain version and the library yardstick (SDPA);
-  4. serve at the full width of llama3.2-1b (random weights from a
-     seed): SageSched with the CUDA Gittins backend, 8 slots x 2048
-     tokens, 16 greedy requests in two waves so that the scheduler
-     preempts and swaps; once fused, once orchestrated.  Every request
-     must finish in both, the streams must agree under the tolerance
-     contract, and every kernel must have launched during the runs;
+     PyTorch versions in bf16 at the serving path's shapes (llama3.2-1b's
+     GQA decode and 512-token prefill chunks; zamba2-1.2b's MHA decode and
+     whole-prompt prefill), and time kernel, plain version and the
+     library yardstick (SDPA) at llama's; hold the SSD scan kernel
+     against its two plain versions (chunked and sequential) at the
+     mamba2-2.7b and zamba2-1.2b prefill shapes, with short- and
+     long-memory decays, check that end padding leaves its result
+     bit-unchanged, and time it;
+  4. serve at full width, from random weights of a seed, llama3.2-1b,
+     mamba2-2.7b (SSM) and zamba2-1.2b (hybrid): SageSched with the
+     CUDA Gittins backend, 8 slots x 2048 tokens, 16 greedy requests in
+     two waves so that the scheduler preempts and swaps; each once
+     fused, once orchestrated.  Every request must finish, the scheduler
+     must preempt and swap, the streams must agree under the tolerance
+     contract, and every kernel of the model's path must have launched;
   5. hold the Gittins kernel against its plain version at the largest
-     refresh shape the run gave it, and time it beside the numpy float64
+     refresh shape the runs gave it, and time it beside the numpy float64
      oracle at n = 4096, k = 64;
-  6. print one JSON line of per-kernel results, then the result line.
+  6. print one JSON line of per-kernel results (launches summed over
+     every serve drive), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -55,6 +64,10 @@ from repro_torch.kernels.gittins.ops import (  # noqa: E402
     GITTINS_KERNEL, gittins_attained)
 from repro_torch.kernels.gittins.ref import (  # noqa: E402
     gittins_attained_reference)
+from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
+    SSD_SCAN_KERNEL, ssd_scan)
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_chunked_reference, ssd_sequential_reference)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (RequestState, ServeRequest,  # noqa: E402
                                  ServingEngine)
@@ -67,6 +80,9 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 BF16_TOL = 2e-2          # bf16 kernel vs plain version (tests/test_kernels.py)
 GITTINS_RTOL = 1e-4      # f32 kernel vs plain version
+# SSD final state (f32, sums of up to a chunk's terms in another order)
+SSD_STATE_TOL = 1e-3
+SERVED = ("llama3.2-1b", "mamba2-2.7b", "zamba2-1.2b")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -126,18 +142,30 @@ def decode_case(cfg, dev, gen):
     return q, kp, vp, tables, cache_len
 
 
-def phase_decode(cfg, dev, gen) -> dict:
-    q, kp, vp, tables, cl = decode_case(cfg, dev, gen)
-    got = decode_attention_paged_op(q, kp, vp, tables, cl)
-    want = decode_attention_paged_reference(q, kp, vp, tables, cl)
-    torch.cuda.synchronize()
-    err = check("paged decode (bf16, 8 lanes, cache_len 32..1280)", got, want,
-                BF16_TOL)
-    # windowed variant: same kernel, logical sliding window of 256
-    got_w = decode_attention_paged_op(q, kp, vp, tables, cl, window=256)
-    want_w = decode_attention_paged_reference(q, kp, vp, tables, cl,
-                                              window=256)
-    err = max(err, check("paged decode, window 256", got_w, want_w, BF16_TOL))
+def phase_decode(cfgs, dev, gen) -> dict:
+    """Checks at the shapes of every served model with attention (llama:
+    32 heads over 8 kv heads, dh 64; zamba2: 32 over 32, dh 64); times at
+    the first's."""
+    err = 0.0
+    for cfg in reversed(cfgs):      # the first model's inputs stay for timing
+        q, kp, vp, tables, cl = decode_case(cfg, dev, gen)
+        got = decode_attention_paged_op(q, kp, vp, tables, cl)
+        want = decode_attention_paged_reference(q, kp, vp, tables, cl)
+        torch.cuda.synchronize()
+        shape = f"H{cfg.n_heads}/KV{cfg.n_kv_heads}, dh {cfg.head_dim}"
+        err = max(err, check(f"paged decode {cfg.name} (bf16, {shape}, 8 "
+                             f"lanes, cache_len 32..1280)", got, want,
+                             BF16_TOL))
+        # windowed variant: same kernel, logical sliding window of 256
+        got_w = decode_attention_paged_op(q, kp, vp, tables, cl, window=256)
+        want_w = decode_attention_paged_reference(q, kp, vp, tables, cl,
+                                                  window=256)
+        err = max(err, check(f"paged decode {cfg.name}, window 256", got_w,
+                             want_w, BF16_TOL))
+        if cfg is not cfgs[0]:
+            ms = cuda_ms(lambda: decode_attention_paged_op(q, kp, vp, tables,
+                                                           cl))
+            print(f"  paged decode {cfg.name}: kernel {ms:.4f} ms")
     ms = cuda_ms(lambda: decode_attention_paged_op(q, kp, vp, tables, cl))
     plain_ms = cuda_ms(lambda: decode_attention_paged_reference(
         q, kp, vp, tables, cl), iters=5)
@@ -159,8 +187,9 @@ def phase_decode(cfg, dev, gen) -> dict:
                + cl.numel() * 4 + q.numel() * 2)
     flops = 4.0 * valid * h * dh
     bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
-    print(f"  paged decode: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA on gathered cache {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
+    print(f"  paged decode {cfg.name}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA on gathered cache {lib_ms:.4f} ms, bound "
+          f"{bnd:.5f} ms ({by})")
     return {"name": "decode_attention_paged", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:232",
@@ -184,18 +213,29 @@ def flash_case(cfg, dev, gen, s_past: int, start: int, c: int):
     return q, k, v, pos, kv_pos
 
 
-def phase_flash(cfg, dev, gen) -> dict:
+def phase_flash(cfgs, dev, gen) -> dict:
+    """Checks at the prefill shapes of every served model with attention;
+    times at the first's (llama's second 512-token chunk)."""
     err = 0.0
-    # (S_past, start, C): a first chunk (no past), the second 512-token
-    # chunk of a 1024-token prompt, and a chunk whose gathered prefix
-    # carries masked rows past its start
-    for s_past, start, c in ((0, 0, 512), (512, 512, 512), (512, 448, 256)):
+    # (cfg, S_past, start, C): llama's chunked prefill -- a first chunk
+    # (no past), the second 512-token chunk of a 1024-token prompt, and a
+    # chunk whose gathered prefix carries masked rows past its start;
+    # zamba2's atomic prefill -- one whole pow2-bucketed prompt
+    cases = [(cfgs[0], 0, 0, 512), (cfgs[0], 512, 512, 512),
+             (cfgs[0], 512, 448, 256)] + [(c, 0, 0, 1024) for c in cfgs[1:]]
+    for cfg, s_past, start, c in cases:
         q, k, v, pos, kv_pos = flash_case(cfg, dev, gen, s_past, start, c)
         got = flash_attention(q, k, v, pos, kv_pos)
         want = attention_reference(q, k, v, pos, kv_pos)
         torch.cuda.synchronize()
-        err = max(err, check(f"flash prefill (bf16, C={c}, S_past={s_past}, "
-                             f"start={start})", got, want, BF16_TOL))
+        err = max(err, check(f"flash prefill {cfg.name} (bf16, H"
+                             f"{cfg.n_heads}/KV{cfg.n_kv_heads}, C={c}, "
+                             f"S_past={s_past}, start={start})", got, want,
+                             BF16_TOL))
+        if cfg is not cfgs[0]:
+            ms = cuda_ms(lambda: flash_attention(q, k, v, pos, kv_pos))
+            print(f"  flash prefill {cfg.name} (C={c}): kernel {ms:.4f} ms")
+    cfg = cfgs[0]
     q, k, v, pos, kv_pos = flash_case(cfg, dev, gen, 512, 512, 512)
     ms = cuda_ms(lambda: flash_attention(q, k, v, pos, kv_pos))
     plain_ms = cuda_ms(lambda: attention_reference(q, k, v, pos, kv_pos),
@@ -210,13 +250,89 @@ def phase_flash(cfg, dev, gen) -> dict:
         + (pos.numel() + kv_pos.numel()) * 4
     flops = 4.0 * pairs * h * dh
     bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
-    print(f"  flash prefill (C=512, S_past=512): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
+    print(f"  flash prefill {cfg.name} (C=512, S_past=512): kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+          f"{bnd:.5f} ms ({by})")
     return {"name": "flash_attention_prefill", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+
+
+def ssd_case(cfg, dev, gen, s: int, init: bool = False,
+             a_range=(0.5, 0.999)):
+    """Inputs of one prefill scan of ``cfg`` (B = 1) in the model path's
+    types: x, B, C bf16; dt, a and the state f32.  Decays near 1 (long
+    memory, as trained Mamba2 dt gives) carry the initial state and the
+    chunk-to-chunk carry into the final state and most rows of y."""
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x = torch.randn(1, s, h, p, generator=gen, device=dev).bfloat16()
+    dt = torch.rand(1, s, h, generator=gen, device=dev) * 0.99 + 0.01
+    lo, hi = a_range
+    a = torch.rand(1, s, h, generator=gen, device=dev) * (hi - lo) + lo
+    bm = (torch.randn(1, s, n, generator=gen, device=dev) * 0.5).bfloat16()
+    cm = (torch.randn(1, s, n, generator=gen, device=dev) * 0.5).bfloat16()
+    st = torch.randn(1, h, p, n, generator=gen, device=dev) if init else None
+    return x, dt, a, bm, cm, st
+
+
+def phase_ssd(dev, gen) -> dict:
+    err = 0.0
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        cfg = get_config(arch)
+        chunk = cfg.ssm_chunk
+        for s, init, a_range in ((1024, False, (0.5, 0.999)),
+                                 (777, False, (0.5, 0.999)),
+                                 (777, True, (0.5, 0.999)),
+                                 (1024, True, (0.99, 1.0))):
+            x, dt, a, bm, cm, st = ssd_case(cfg, dev, gen, s, init, a_range)
+            y, fin = ssd_scan(x, dt, a, bm, cm, st, chunk=chunk)
+            torch.cuda.synchronize()
+            for name, (ry, rst) in (
+                    ("chunked", ssd_chunked_reference(x, dt, a, bm, cm, st,
+                                                      chunk=chunk)),
+                    ("sequential", ssd_sequential_reference(x, dt, a, bm,
+                                                            cm, st))):
+                what = (f"ssd scan {arch} (S={s}, a in [{a_range[0]}, "
+                        f"{a_range[1]}]{', init state' if init else ''}) vs "
+                        f"{name}")
+                err = max(err, check(f"{what}: y (bf16)", y, ry, BF16_TOL))
+                check(f"{what}: final state (f32)", fin, rst, SSD_STATE_TOL)
+        # end padding as the model makes it (dt = 0, a = 1, real x, B, C)
+        # leaves the valid rows and the state bit-unchanged
+        x, dt, a, bm, cm, _ = ssd_case(cfg, dev, gen, 1024)
+        dt[:, 777:], a[:, 777:] = 0.0, 1.0
+        y0, s0 = ssd_scan(x[:, :777], dt[:, :777], a[:, :777], bm[:, :777],
+                          cm[:, :777], chunk=chunk)
+        y1, s1 = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+        same = torch.equal(y0, y1[:, :777]) and torch.equal(s0, s1)
+        print(f"  ssd scan {arch}: S=777 vs padded to 1024 with dt=0, a=1: "
+              f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise SystemExit("FAIL ssd scan: end padding changed the result")
+    cfg = get_config("mamba2-2.7b")
+    x, dt, a, bm, cm, _ = ssd_case(cfg, dev, gen, 1024)
+    ms = cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm))
+    plain_ms = cuda_ms(lambda: ssd_chunked_reference(x, dt, a, bm, cm),
+                       iters=5)
+    b, s, h, p = x.shape
+    n, q = bm.shape[-1], cfg.ssm_chunk
+    n_bytes = (2 * x.numel() * 2 + (dt.numel() + a.numel()) * 4
+               + (bm.numel() + cm.numel()) * 2 + b * h * p * n * 4)
+    # causal pairs per chunk; C.B^T once per chunk (one group), then per
+    # head the weighted sum over pairs, the state read-out and update
+    pairs = (s // q) * q * (q + 1) / 2
+    flops = b * (pairs * 2 * n + h * (pairs * 2 * p + 2 * s * 2 * p * n))
+    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    print(f"  ssd scan (mamba2-2.7b, S=1024): kernel {ms:.4f} ms, plain "
+          f"chunked {plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
+          f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:64",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
 # --------------------------------------------------------------- phase 4
@@ -282,10 +398,24 @@ def serve(cfg, params, dev, step_mode: str, *, n_slots=8, max_seq_len=2048,
     return engine, reqs, seconds, backend
 
 
+def path_kernels(cfg) -> tuple:
+    """The kernels a served model's main path launches."""
+    attn = (PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL)
+    return (GITTINS_KERNEL,) + {"dense": attn, "ssm": (SSD_SCAN_KERNEL,),
+                                "hybrid": (SSD_SCAN_KERNEL,) + attn
+                                }[cfg.family]
+
+
+def swap_bytes(engine) -> int:
+    """Bytes of one request's recurrent state in a swap payload."""
+    ssm = engine._cache.get("ssm", {})
+    return sum(t[:, 0].numel() * t.element_size() for t in ssm.values())
+
+
 def phase_serve(cfg, dev) -> tuple[dict, tuple]:
     gen = torch.Generator(device=dev).manual_seed(0)
     params = build_model(cfg).init(gen)
-    kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL)
+    kernels = path_kernels(cfg)
     streams, launches, max_shape = {}, {}, (0, 0)
     for mode in ("fused", "orchestrated"):
         for kern in kernels:
@@ -307,6 +437,16 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
               f"{m['prefill_chunks']}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
               f"launches {launches[mode]}")
+        if engine._slot_state:
+            per = swap_bytes(engine)
+            print(f"    recurrent state per swap payload {per / 1e6:.1f} MB; "
+                  f"{(m['swap_outs'] + m['swap_ins']) * per / 1e9:.3f} GB "
+                  f"moved by {m['swap_outs']} swap outs + {m['swap_ins']} "
+                  f"swap ins")
+        if m["preemptions"] == 0 or m["swap_outs"] == 0:
+            raise SystemExit(f"FAIL serve[{mode}]: the scheduler did not "
+                             f"preempt and swap ({m['preemptions']} "
+                             f"preemptions, {m['swap_outs']} swap outs)")
         for shape in backend.shapes:
             if shape[0] * shape[1] > max_shape[0] * max_shape[1]:
                 max_shape = shape
@@ -321,6 +461,8 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
                                       streams["orchestrated"]))
     print(f"  fused vs orchestrated: assert_tokens_close OK, {same}/"
           f"{len(streams['fused'])} streams identical")
+    del params
+    torch.cuda.empty_cache()
     total = {s: launches["fused"][s] + launches["orchestrated"][s]
              for s in launches["fused"]}
     return total, max_shape
@@ -384,7 +526,9 @@ def phase_trace(cfg, dev) -> None:
 
     params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, reqs, secs, _ = serve(cfg, params, dev, "fused")
+        engine, reqs, secs, _ = serve(cfg, params, dev, "fused")
+    del engine, params
+    torch.cuda.empty_cache()
 
     def device_us(e) -> float:
         return float(getattr(e, "self_device_time_total", 0.0)
@@ -392,7 +536,8 @@ def phase_trace(cfg, dev) -> None:
 
     events = sorted(prof.key_averages(), key=device_us, reverse=True)
     busy_s = sum(device_us(e) for e in events) / 1e6
-    print(f"  traced fused drive: wall {secs:.3f} s (profiler on), device "
+    print(f"  traced fused drive of {cfg.name}: wall {secs:.3f} s (profiler "
+          f"on), device "
           f"busy {busy_s:.3f} s = {100 * busy_s / secs:.1f}% of wall, "
           f"{sum(r.generated for r in reqs)} tokens")
     for e in events[:12]:
@@ -430,23 +575,36 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    cfg = get_config("llama3.2-1b")
     if trace:
-        print("trace: one fused serve drive under torch.profiler")
-        phase_trace(cfg, dev)
+        for arch in SERVED:
+            print(f"trace: one fused serve drive of {arch} under "
+                  f"torch.profiler")
+            phase_trace(get_config(arch), dev)
         return 0
+    cfg = get_config("llama3.2-1b")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    print("phase 3: attention kernels vs plain versions")
-    rows = [phase_decode(cfg, dev, gen), phase_flash(cfg, dev, gen)]
+    print("phase 3: attention and SSD scan kernels vs plain versions")
+    attn = [cfg, get_config("zamba2-1.2b")]
+    rows = [phase_decode(attn, dev, gen), phase_flash(attn, dev, gen),
+            phase_ssd(dev, gen)]
 
-    print(f"phase 4: serving {cfg.name} at full width "
-          f"({cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size})")
-    launches, shape = phase_serve(cfg, dev)
+    launches, shape = {}, (0, 0)
+    for arch in SERVED:
+        cfg = get_config(arch)
+        print(f"phase 4: serving {cfg.name} at full width "
+              f"({cfg.n_layers} layers, d {cfg.d_model}, vocab "
+              f"{cfg.vocab_size})")
+        got, shp = phase_serve(cfg, dev)
+        for sym, n in got.items():
+            launches[sym] = launches.get(sym, 0) + n
+        if shp[0] * shp[1] > shape[0] * shape[1]:
+            shape = shp
     print(f"phase 5: gittins kernel (largest main-path refresh {shape})")
     rows.insert(0, phase_gittins(dev, shape))
     symbols = {"gittins_attained": GITTINS_KERNEL.symbol,
                "decode_attention_paged": PAGED_DECODE_KERNEL.symbol,
-               "flash_attention_prefill": FLASH_PREFILL_KERNEL.symbol}
+               "flash_attention_prefill": FLASH_PREFILL_KERNEL.symbol,
+               "ssd_scan": SSD_SCAN_KERNEL.symbol}
     for row in rows:
         row["launches"] = launches[symbols[row["name"]]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

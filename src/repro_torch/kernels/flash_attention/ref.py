@@ -5,6 +5,9 @@ positions, used by the tests and by CPU runs."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from ..bucketing import pow2_bucket
 
 __all__ = ["attention_reference"]
 
@@ -17,9 +20,20 @@ def attention_reference(q, k, v, positions, kv_positions, *,
     kv_positions: (Sk,), where a negative position masks its key row.
     f32 scores, masked at -1e30, unnormalised exp, late divide.  GQA by
     grouping query heads (no repeated K/V).  Returns (B, Sq, H, dh) in q's
-    dtype."""
+    dtype.
+
+    The key axis is padded with masked zero rows to a power of two (at
+    least 64) first: the CPU products then contract over the same length
+    whether or not the caller padded its sequence, so a valid row's output
+    does not depend on the end padding (the engine's pow2 prefill
+    buckets), bit for bit."""
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
+    pad = pow2_bucket(sk, floor=64) - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=-1)
     rep = h // kvh
     qg = q.float().reshape(b, sq, kvh, rep, dh)
     scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k.float()) * dh ** -0.5

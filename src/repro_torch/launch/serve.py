@@ -1,9 +1,11 @@
-"""Serving launcher of the port: run the end-to-end engine on any dense
---arch, on the card by default (``--device cpu`` for a reduced run on the
-CPU).  The same flags as ``repro.launch.serve`` plus ``--device``.
+"""Serving launcher of the port: run the end-to-end engine on any --arch of
+the dense, SSM (mamba2-2.7b) or hybrid (zamba2-1.2b) families, on the card
+by default (``--device cpu`` for a reduced run on the CPU).  The same
+flags as ``repro.launch.serve`` plus ``--device``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --full --n-slots 8 --max-seq-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Model zoo of the port (dense decoder family so far)."""
+"""Model zoo of the port (dense, SSM and hybrid decoder families)."""
 
 from .config import FAMILIES, ModelConfig
 from .model import Model, build_model

@@ -25,7 +25,7 @@ __all__ = [
 class ParamSpec(NamedTuple):
     shape: tuple
     dtype: torch.dtype
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | ssm_a
 
 
 def iter_specs(template, prefix: tuple = ()):
@@ -43,8 +43,9 @@ def init_from_template(template, generator: torch.Generator,
                        scale: float = 0.02):
     """Materialise parameters from a template tree on the generator's
     device: normal(0, min(scale, fan_in^-1/2)) drawn in f32 and cast, or
-    zeros / ones.  Same distributions as the JAX package, not the same
-    numbers (the weight bridge carries exact weights across)."""
+    zeros / ones, or ``ssm_a`` (Mamba2's A_log = log U[1, 16]).  Same
+    distributions as the JAX package, not the same numbers (the weight
+    bridge carries exact weights across)."""
     device = generator.device
     out: dict = {}
     for path, spec in iter_specs(template):
@@ -52,6 +53,10 @@ def init_from_template(template, generator: torch.Generator,
             t = torch.zeros(spec.shape, dtype=spec.dtype, device=device)
         elif spec.init == "ones":
             t = torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        elif spec.init == "ssm_a":
+            u = torch.rand(spec.shape, generator=generator,
+                           dtype=torch.float32, device=device) * 15.0 + 1.0
+            t = torch.log(u).to(spec.dtype)
         elif spec.init == "normal":
             fan_in = spec.shape[-2] if len(spec.shape) >= 2 \
                 else spec.shape[-1]

@@ -1,6 +1,8 @@
-"""Decoder-only transformer, dense GQA family: full-sequence forward,
-paged decode step and chunked prefill, as plain functions over a params
-dict with the reference's stacked ``(L, ...)`` layout and tree keys
+"""Decoder-only transformer: the dense GQA, Mamba2 SSD (``ssm``) and hybrid
+(Mamba2 backbone plus one shared attention block every
+``hybrid_attn_every`` layers) families.  Full-sequence forward, paged
+decode step and chunked prefill, as plain functions over a params dict
+with the reference's stacked ``(L, ...)`` layout and tree keys
 (``repro.models.transformer``).  Layers run as a Python loop over the
 stacked axis.  The reference's sharding hooks (``repro.sharding.context``)
 are the identity on one card and are left out.
@@ -17,21 +19,22 @@ from .attention import decode_attention_paged, gqa_attention
 from .config import ModelConfig
 from .layers import (ParamSpec, apply_rope, attention_template, linear, mlp,
                      mlp_template, norm_template, rms_norm)
+from .ssm import (mamba2_block, mamba2_decode_step, ssm_state_shape,
+                  ssm_template)
 
 __all__ = ["decoder_template", "decoder_forward", "decoder_decode_step_paged",
            "decoder_prefill_chunk", "paged_cache_shapes", "require_ported"]
 
+_PORTED = ("dense", "ssm", "hybrid")
 _NOT_PORTED = {
     "moe": "ROADMAP Queue A 6 (MoE and VLM families)",
     "vlm": "ROADMAP Queue A 6 (MoE and VLM families)",
-    "ssm": "ROADMAP Queue A 7 (SSM and hybrid)",
-    "hybrid": "ROADMAP Queue A 7 (SSM and hybrid)",
     "encdec": "ROADMAP Queue A 12 (encoder-decoder)",
 }
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"repro_torch yet ({_NOT_PORTED.get(cfg.family, 'ROADMAP')})")
@@ -47,7 +50,24 @@ def _window(cfg: ModelConfig) -> int:
     return cfg.window if cfg.attention_kind == "sliding_window" else 0
 
 
+def _groups(cfg: ModelConfig) -> list[range]:
+    """The Mamba2 layers of each group: for the hybrid, the shared
+    attention block runs after each group (G = ceil(L / every) groups);
+    the SSM family is one group with no attention."""
+    every, L = cfg.hybrid_attn_every, cfg.n_layers
+    if cfg.family != "hybrid":
+        return [range(L)]
+    return [range(s, min(s + every, L)) for s in range(0, L, every)]
+
+
 # ------------------------------------------------------------------ template
+
+def _dense_template(cfg: ModelConfig, layers: int | None):
+    D = cfg.d_model
+    return {"ln1": norm_template(D, layers), "ln2": norm_template(D, layers),
+            "attn": attention_template(cfg, layers),
+            "mlp": mlp_template(D, cfg.d_ff, cfg.activation, layers)}
+
 
 def decoder_template(cfg: ModelConfig):
     require_ported(cfg)
@@ -55,10 +75,14 @@ def decoder_template(cfg: ModelConfig):
     t = {
         "embed": ParamSpec((V, D), torch.bfloat16),
         "final_norm": norm_template(D),
-        "layers": {"ln1": norm_template(D, L), "ln2": norm_template(D, L),
-                   "attn": attention_template(cfg, L),
-                   "mlp": mlp_template(D, cfg.d_ff, cfg.activation, L)},
     }
+    if cfg.family == "dense":
+        t["layers"] = _dense_template(cfg, L)
+    else:
+        t["layers"] = {"ln": norm_template(D, L),
+                       "ssm": ssm_template(cfg, L)}
+        if cfg.family == "hybrid":
+            t["shared_attn"] = _dense_template(cfg, None)   # one block
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamSpec((D, V), torch.bfloat16)
     return t
@@ -93,47 +117,97 @@ def _logits(params, cfg, h):
 
 # ------------------------------------------------------- sequence forward
 
+def _dense_block_seq(cfg, lp, h, positions, window):
+    """One attention + MLP block over a sequence; returns (h, k, v)."""
+    q, k, v = _qkv(cfg, lp["attn"], rms_norm(lp["ln1"], h, cfg.norm_eps),
+                   positions)
+    o = gqa_attention(q, k, v, causal=True, window=window,
+                      positions=positions)
+    h = h + _wo_proj(lp["attn"], o)
+    h = h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
+                cfg.activation)
+    return h, k, v
+
+
+def _ssm_block_seq(cfg, lp, h, lengths):
+    out, state = mamba2_block(lp["ssm"], rms_norm(lp["ln"], h, cfg.norm_eps),
+                              cfg, None, lengths=lengths)
+    return h + out, state
+
+
 def decoder_forward(params, cfg: ModelConfig, tokens, positions=None, *,
-                    collect_cache: bool = False):
+                    collect_cache: bool = False, lengths=None):
     """Full-sequence forward (prefill).  tokens: (B, S) int.
+    ``lengths`` (B,) int: true row lengths of an end-padded batch, threaded
+    into the SSM recurrence (pads leave the state unchanged); the
+    attention is causal, so end pads never reach a valid position.
     Returns (logits (B, S, V), cache or None, aux loss 0).  The cache is
-    {"k", "v"}: (L, B, S, KV, dh) in the compute dtype."""
+    {"k", "v"}: (L or G, B, S, KV, dh) in the compute dtype, and for the
+    recurrent families {"ssm": {"ssd": (L, B, H, P, N) f32,
+    "conv": (L, B, K-1, DI)}}."""
     require_ported(cfg)
     h = params["embed"][tokens.long()]
     s = h.shape[1]
     if positions is None:
         positions = torch.arange(s, device=h.device)
     window = _window(cfg)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        q, k, v = _qkv(cfg, lp["attn"],
-                       rms_norm(lp["ln1"], h, cfg.norm_eps), positions)
-        o = gqa_attention(q, k, v, causal=True, window=window,
-                          positions=positions)
-        h = h + _wo_proj(lp["attn"], o)
-        h = h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
-                    cfg.activation)
-        if collect_cache:
+    ks, vs, states = [], [], []
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            h, k, v = _dense_block_seq(cfg, _layer(params["layers"], i), h,
+                                       positions, window)
             ks.append(k)
             vs.append(v)
+    else:
+        for group in _groups(cfg):
+            for i in group:
+                h, st = _ssm_block_seq(cfg, _layer(params["layers"], i), h,
+                                       lengths)
+                states.append(st)
+            if cfg.family == "hybrid":
+                h, k, v = _dense_block_seq(cfg, params["shared_attn"], h,
+                                           positions, window)
+                ks.append(k)
+                vs.append(v)
     logits = _logits(params, cfg, h)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} \
-        if collect_cache else None
+    if not collect_cache:
+        return logits, None, torch.zeros((), device=h.device)
+    cache = {}
+    if ks:
+        cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
+    if states:
+        cache["ssm"] = {name: torch.stack([st[name] for st in states])
+                        for name in ("ssd", "conv")}
     return logits, cache, torch.zeros((), device=h.device)
 
 
 # ---------------------------------------------------------- paged serving
 
 def paged_cache_shapes(cfg: ModelConfig, n_pages: int, page_size: int,
-                       n_slots: int):
-    """{name: (shape, dtype)} of the paged KV pool: one
-    (L, n_pages, page, KV, dh) bf16 pool for K and one for V, shared by
-    the batch through block tables (page 0 is the engine's scratch page).
-    ``n_slots`` sizes per-slot state, which the dense family has none of."""
+                       n_slots: int, conv_dtype: torch.dtype = torch.bfloat16):
+    """{name: (shape, dtype)} of the paged decode cache, nested as the
+    reference's: attention KV in one (L, n_pages, page, KV, dh) bf16 pool
+    for K and one for V, shared by the batch through block tables (page
+    0 is the engine's scratch page), with G = ceil(L / every) group
+    layers for the hybrid; recurrent state, which has nothing to page,
+    per decode slot under {"ssm": {"ssd", "conv"}}.  The conv tail is
+    held in the compute dtype ``conv_dtype`` (bf16 on the card, as the
+    reference declares it), the dtype the decode step returns it in: a
+    bf16 tail under f32 weights would round the state every step."""
     require_ported(cfg)
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
+    out = {}
+    if cfg.family in ("dense", "hybrid"):
+        n_kv = len(_groups(cfg)) if cfg.family == "hybrid" else cfg.n_layers
+        shape = (n_kv, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        out["k"] = (shape, torch.bfloat16)
+        out["v"] = (shape, torch.bfloat16)
+    if cfg.family in ("ssm", "hybrid"):
+        ss = ssm_state_shape(cfg, n_slots)
+        out["ssm"] = {
+            "ssd": ((cfg.n_layers,) + ss["ssd"], torch.float32),
+            "conv": ((cfg.n_layers,) + ss["conv"], conv_dtype),
+        }
+    return out
 
 
 def _attn_decode_paged(cfg, p, x, k_pool, v_pool, cache_len, block_tables,
@@ -158,22 +232,58 @@ def _attn_decode_paged(cfg, p, x, k_pool, v_pool, cache_len, block_tables,
     return _wo_proj(p, o)
 
 
+def _dense_block_decode(cfg, lp, h, k_pool, v_pool, cache_len, block_tables,
+                        *, window: int, page: int):
+    h = h + _attn_decode_paged(
+        cfg, lp["attn"], rms_norm(lp["ln1"], h, cfg.norm_eps), k_pool,
+        v_pool, cache_len, block_tables, window=window, page=page)
+    return h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
+                   cfg.activation)
+
+
+def _ssm_decode(cfg, lp, h, ssm_cache, i, active):
+    """One Mamba2 layer's decode; writes layer i's new state into the
+    per-slot cache in place."""
+    st = {"ssd": ssm_cache["ssd"][i], "conv": ssm_cache["conv"][i]}
+    out, new = mamba2_decode_step(lp["ssm"],
+                                  rms_norm(lp["ln"], h, cfg.norm_eps), cfg,
+                                  st, active=active)
+    st["ssd"].copy_(new["ssd"])
+    st["conv"].copy_(new["conv"])
+    return h + out
+
+
 def decoder_decode_step_paged(params, cfg: ModelConfig, token, cache,
-                              cache_len, block_tables, *, page_size: int):
+                              cache_len, block_tables, *, page_size: int,
+                              active=None):
     """One decode step over the paged pool.  token: (B,1) int; cache_len:
     (B,) int; block_tables: (B, P) int32.  Returns (logits (B,1,V),
-    cache); the pools in ``cache`` are updated in place."""
+    cache); the pools and the per-slot recurrent state in ``cache`` are
+    updated in place.  The SSM family ignores cache_len and the tables,
+    and advances every row's state, as the reference does.
+
+    ``active`` (B,) bool, optional (recurrent families): rows where it is
+    False keep their recurrent state bit-unchanged, which is what the
+    reference's fused step gets by selecting the old state back."""
     require_ported(cfg)
     h = params["embed"][token.long()]                      # (B,1,D)
     window = _window(cfg)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        h = h + _attn_decode_paged(
-            cfg, lp["attn"], rms_norm(lp["ln1"], h, cfg.norm_eps),
-            cache["k"][i], cache["v"][i], cache_len, block_tables,
-            window=window, page=page_size)
-        h = h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
-                    cfg.activation)
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            h = _dense_block_decode(
+                cfg, _layer(params["layers"], i), h, cache["k"][i],
+                cache["v"][i], cache_len, block_tables, window=window,
+                page=page_size)
+        return _logits(params, cfg, h), cache
+    for gi, group in enumerate(_groups(cfg)):
+        for i in group:
+            h = _ssm_decode(cfg, _layer(params["layers"], i), h,
+                            cache["ssm"], i, active)
+        if cfg.family == "hybrid":
+            h = _dense_block_decode(
+                cfg, params["shared_attn"], h, cache["k"][gi],
+                cache["v"][gi], cache_len, block_tables, window=window,
+                page=page_size)
     return _logits(params, cfg, h), cache
 
 
@@ -190,6 +300,8 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, tokens, past_k, past_v,
     true prefix and ``start`` (the chunk's first position) masks the tail.
     Returns (k_chunk, v_chunk): (L, 1, C, KV, dh)."""
     require_ported(cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"chunked prefill unsupported for {cfg.family}")
     h = params["embed"][tokens.long()]                     # (1, C, D)
     c = h.shape[1]
     dev = h.device

@@ -12,8 +12,11 @@ device sees.
         1. select the running set under the block budget and slot limit;
         2. preempt displaced requests (swap: gather their KV blocks to a
            host tensor; recompute: drop them);
-        3. admit newcomers (swap-ins scatter their saved blocks back;
-           others prefill in chunks through ``Model.prefill_chunk``);
+        3. admit newcomers (swap-ins scatter their saved blocks and
+           recurrent state back; others prefill, in chunks through
+           ``Model.prefill_chunk`` for the dense family, whole and padded
+           to a pow2 bucket through ``Model.prefill`` for the recurrent
+           SSM and hybrid families);
         4. relieve capacity pressure by forced eviction;
         5. decode every ready slot through the paged pool;
         6. sample and feed completions back to the scheduler.
@@ -26,14 +29,17 @@ gets one (tokens, emitted, finished) transfer per call.
 samples with numpy, as the reference's parity oracle does.
 
 KV memory is a paged pool: (L, n_pages, page, KV, dh) bf16 tensors shared
-by the batch, a per-slot block table mapping logical positions to
-physical pages (page 0 = scratch, where masked lanes write), and host
-tensors holding preempted requests' KV.  The pool is updated in place.
+by the batch (G group layers for the hybrid), a per-slot block table
+mapping logical positions to physical pages (page 0 = scratch, where
+masked lanes write), and host tensors holding preempted requests' KV.
+Recurrent state (``cache["ssm"]``) is per slot, so the fused lanes of the
+recurrent families are slot-positional (lane = slot) and the state of an
+inactive lane is frozen exactly.  The pool and the state are updated in
+place.
 
 Not ported yet, and refused rather than ignored: tensor-parallel serving
 (``tp``/``mesh``, ROADMAP Queue A 10), the memory preflight
-(``device_memory_gb``, Queue A 11), prefix sharing (Queue A 5) and the
-atomic (non-chunked) prefill of the recurrent families (Queue A 7).
+(``device_memory_gb``, Queue A 11) and prefix sharing (Queue A 5).
 """
 
 from __future__ import annotations
@@ -162,10 +168,6 @@ class ServingEngine:
         if self.prefix_sharing:
             raise NotImplementedError(
                 "prefix sharing is not ported yet: ROADMAP Queue A 5")
-        if not self.model.supports_chunked_prefill:
-            raise NotImplementedError(
-                "atomic prefill (recurrent families) is not ported yet: "
-                "ROADMAP Queue A 7")
         self.device = torch.device(self.device)
         self.kv = KVCacheManager(
             self.n_slots, self.max_seq_len, self.capacity_tokens,
@@ -180,7 +182,11 @@ class ServingEngine:
         self._rng = np.random.default_rng(self.seed)
         self._cache = self.model.init_paged_cache(
             self.kv.pool_blocks, self.block_size, self.n_slots,
-            device=self.device)
+            device=self.device, conv_dtype=self.params["embed"].dtype)
+        self._has_kv = "k" in self._cache
+        # recurrent families carry per-slot state inside the cache: their
+        # fused lanes are slot-positional (a single lane bucket)
+        self._slot_state = "ssm" in self._cache
         self._max_pages = -(-self.max_seq_len // self.block_size)
         self._block_tables = np.full((self.n_slots, self._max_pages),
                                      SCRATCH_BLOCK, np.int32)
@@ -297,24 +303,34 @@ class ServingEngine:
 
     def _gather_payload(self, r: ServeRequest, blocks: list[int]) -> dict:
         slot = r.slot
-        idx = self._to_dev(np.asarray(blocks, np.int64))
-        return {
+        payload = {
             "cache_len": int(self._cache_len[slot]),
             "last_token": int(self._last_token[slot]),
             "prefill_pos": r.prefill_pos,
-            "k": self._cache["k"][:, idx].cpu(),
-            "v": self._cache["v"][:, idx].cpu(),
         }
+        if self._has_kv:
+            idx = self._to_dev(np.asarray(blocks, np.int64))
+            payload["k"] = self._cache["k"][:, idx].cpu()
+            payload["v"] = self._cache["v"][:, idx].cpu()
+        if self._slot_state:
+            # a copy even on the CPU, where .cpu() would return a view of
+            # the live state that the next decode step overwrites
+            payload["ssm"] = {name: t[:, slot].to("cpu", copy=True)
+                              for name, t in self._cache["ssm"].items()}
+        return payload
 
     def _restore_payload(self, r: ServeRequest, payload: dict) -> None:
         slot = r.slot
         blocks = self.kv.block_table(r.request_id)
         skip = self.kv.adopted_blocks_of(r.request_id)
-        if len(blocks) > skip:
+        if self._has_kv and len(blocks) > skip:
             idx = self._to_dev(np.asarray(blocks[skip:], np.int64))
             # in place: the saved pages go straight back into the pool
             self._cache["k"][:, idx] = payload["k"][:, skip:].to(self.device)
             self._cache["v"][:, idx] = payload["v"][:, skip:].to(self.device)
+        if self._slot_state:
+            for name, t in self._cache["ssm"].items():
+                t[:, slot] = payload["ssm"][name].to(self.device)
         self._cache_len[slot] = payload["cache_len"]
         self._last_token[slot] = payload["last_token"]
         r.prefill_pos = payload["prefill_pos"]
@@ -473,6 +489,31 @@ class ServingEngine:
         if s1 >= len(ctx):
             self._finalize_prefill(r, ctx)
 
+    def _prefill_atomic(self, r: ServeRequest) -> None:
+        """Whole-context prefill for the recurrent families (their state
+        cannot replay a chunk), padded to a pow2 bucket.  The true length
+        rides along as ``lengths``, which gives the pad positions dt = 0,
+        so the state equals an unpadded run's.  The slot's recurrent state
+        is written in place; the hybrid's KV is scattered into the pool for
+        valid positions only (pad positions land in scratch)."""
+        ctx = r.prompt_tokens + r.output_tokens
+        n = len(ctx)
+        spad = _pad_len(n, quantum=32)
+        toks = np.zeros((1, spad), np.int64)
+        toks[0, :n] = ctx
+        _, cache = self.model.prefill(
+            self.params, {"tokens": self._to_dev(toks),
+                          "lengths": self._to_dev(np.asarray([n]))})
+        if self._has_kv:
+            self._scatter(cache["k"], cache["v"], self._to_dev(
+                self._phys_positions(r, 0, n, spad)))
+        for name, t in self._cache["ssm"].items():
+            t[:, r.slot] = cache["ssm"][name][:, 0].to(t.dtype)
+        r.prefill_pos = n
+        self.metrics.prefill_chunks += 1
+        self.metrics.prefill_tokens += n
+        self._finalize_prefill(r, ctx)
+
     def _run_prefills(self) -> None:
         """Advance every prefilling slot under the step's token budget:
         decode-ready slots each consume one budget token, the remainder
@@ -487,6 +528,9 @@ class ServingEngine:
             budget = max(0, self.max_tokens_per_step - n_decoding)
         for rid in prefilling:
             r = self._requests[rid]
+            if not self.model.supports_chunked_prefill:
+                self._prefill_atomic(r)
+                continue
             remaining = r.context_len - r.prefill_pos
             cap = self.prefill_chunk or remaining
             if budget is not None:
@@ -681,11 +725,13 @@ class ServingEngine:
         for i in range(n_steps):
             act = (~fin) & (budgets > i)
             # inactive lanes (finished mid-loop, budget-paused, pad) ride
-            # the scratch page: their KV write lands harmlessly
+            # the scratch page: their KV write lands harmlessly; recurrent
+            # state has no scratch page, so the step freezes their rows
             bt = torch.where(act[:, None], tables, scratch)
             logits, self._cache = self.model.decode_step_paged(
                 self.params, last[:, None], self._cache, cl, bt,
-                page_size=self.block_size)
+                page_size=self.block_size,
+                active=act if self._slot_state else None)
             tok = torch.argmax(logits, dim=-1)
             if not all_greedy:
                 # Gumbel-max draws keyed by (request seed, position):
@@ -709,7 +755,9 @@ class ServingEngine:
         EOS / length bookkeeping on the device); the host gets back one
         transfer and only does block accounting + scheduler feedback.
         Ready slots gather into a pow2 lane bucket (floor 8), and the
-        table width rides its own pow2 ladder (floor 4)."""
+        table width rides its own pow2 ladder (floor 4); the recurrent
+        families' lanes are slot-positional (nb = n_slots, lane = slot),
+        since their state lives per slot."""
         n_steps = self.decode_steps
         plan = []                              # (slot, rid, budget, cap)
         for slot, rid in ready:
@@ -723,8 +771,12 @@ class ServingEngine:
                 self._sync_block_table(r)
             plan.append((slot, rid, grant + 1, cap))
 
-        nb = _pow2_bucket(len(ready), floor=8, cap=self.n_slots)
-        lane_of = {slot: j for j, (slot, _) in enumerate(ready)}
+        if self._slot_state:
+            nb = self.n_slots
+            lane_of = {slot: slot for slot, _ in ready}
+        else:
+            nb = _pow2_bucket(len(ready), floor=8, cap=self.n_slots)
+            lane_of = {slot: j for j, (slot, _) in enumerate(ready)}
         p_used = max(len(self.kv.block_table(rid)) for _, rid in ready)
         pb = _pow2_bucket(p_used, floor=4, cap=self._max_pages)
 

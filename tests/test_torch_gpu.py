@@ -1,6 +1,7 @@
 """CUDA kernels and the engine on the card: each hand-written kernel
-against its plain PyTorch version in bf16, and the engine's fused path
-against its orchestrated path under the tolerance contract.
+against its plain PyTorch version(s) in bf16, and the engine's fused path
+against its orchestrated path under the tolerance contract, for the dense,
+SSM and hybrid families.
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -26,6 +27,9 @@ from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
                                              gittins_attained)
 from repro_torch.kernels.gittins.ref import gittins_attained_reference
+from repro_torch.kernels.ssd_scan.ops import SSD_SCAN_KERNEL, ssd_scan
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_reference,
+                                              ssd_sequential_reference)
 from repro_torch.models import build_model
 from repro_torch.testing import assert_tokens_close
 
@@ -102,6 +106,116 @@ def test_cuda_gittins_vs_plain(cuda, n, k):
     want = gittins_attained_reference(*args)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,p,n,chunk,init", [
+    (777, 80, 64, 128, 256, False),   # mamba2-2.7b, ragged
+    (300, 64, 64, 64, 256, True),     # zamba2-1.2b, initial state
+    (45, 16, 32, 16, 16, True),       # the reduced configs
+])
+def test_cuda_ssd_scan_vs_plain(cuda, s, h, p, n, chunk, init):
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    x = torch.randn(1, s, h, p, generator=g, device=cuda).bfloat16()
+    dt = torch.rand(1, s, h, generator=g, device=cuda) * 0.99 + 0.01
+    a = torch.rand(1, s, h, generator=g, device=cuda) * 0.499 + 0.5
+    bm = (torch.randn(1, s, n, generator=g, device=cuda) * 0.5).bfloat16()
+    cm = (torch.randn(1, s, n, generator=g, device=cuda) * 0.5).bfloat16()
+    st = torch.randn(1, h, p, n, generator=g, device=cuda) if init else None
+    n0 = SSD_SCAN_KERNEL.launches
+    y, fin = ssd_scan(x, dt, a, bm, cm, st, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SSD_SCAN_KERNEL.launches == n0 + 1
+    for ry, rst in (ssd_chunked_reference(x, dt, a, bm, cm, st, chunk=chunk),
+                    ssd_sequential_reference(x, dt, a, bm, cm, st)):
+        torch.testing.assert_close(y.float(), ry.float(), **BF16_TOL)
+        torch.testing.assert_close(fin, rst, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_cuda_ssd_scan_long_memory_vs_plain(cuda, arch):
+    """Decays near 1 (a in [0.99, 1]), as trained Mamba2 dt gives, so the
+    initial state and the chunk-to-chunk carry reach the final state."""
+    cfg = get_config(arch)
+    s, h, p, n = 1024, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    g = torch.Generator(device=cuda).manual_seed(h + n)
+    x = torch.randn(1, s, h, p, generator=g, device=cuda).bfloat16()
+    dt = torch.rand(1, s, h, generator=g, device=cuda) * 0.99 + 0.01
+    a = torch.rand(1, s, h, generator=g, device=cuda) * 0.01 + 0.99
+    bm = (torch.randn(1, s, n, generator=g, device=cuda) * 0.5).bfloat16()
+    cm = (torch.randn(1, s, n, generator=g, device=cuda) * 0.5).bfloat16()
+    st = torch.randn(1, h, p, n, generator=g, device=cuda)
+    y, fin = ssd_scan(x, dt, a, bm, cm, st, chunk=cfg.ssm_chunk)
+    for ry, rst in (ssd_chunked_reference(x, dt, a, bm, cm, st,
+                                          chunk=cfg.ssm_chunk),
+                    ssd_sequential_reference(x, dt, a, bm, cm, st)):
+        torch.testing.assert_close(y.float(), ry.float(), **BF16_TOL)
+        torch.testing.assert_close(fin, rst, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_kernels_at_zamba2_shapes(cuda):
+    """zamba2-1.2b's shared attention block: 32 heads over 32 kv heads
+    (rep = 1), dh 64; paged decode over the 2048-token table, and the
+    atomic prefill's whole-prompt flash call (S_past = 0, C = 1024)."""
+    cfg = get_config("zamba2-1.2b")
+    h, kvh, dh, page = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16
+    g = torch.Generator(device=cuda).manual_seed(32)
+    b, p, n_pages = 8, 2048 // page, 8 * 2048 // page + 1
+    q = torch.randn(b, h, dh, generator=g, device=cuda).bfloat16()
+    kp = torch.randn(n_pages, page, kvh, dh, generator=g,
+                     device=cuda).bfloat16()
+    vp = torch.randn(n_pages, page, kvh, dh, generator=g,
+                     device=cuda).bfloat16()
+    tables = (torch.randperm(n_pages - 1, generator=g, device=cuda)[:b * p]
+              + 1).reshape(b, p).to(torch.int32).contiguous()
+    cl = torch.randint(1, p * page + 1, (b,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    got = decode_attention_paged_op(q, kp, vp, tables, cl)
+    want = decode_attention_paged_reference(q, kp, vp, tables, cl)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    c = 1024
+    q = torch.randn(1, c, h, dh, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, c, kvh, dh, generator=g, device=cuda).bfloat16()
+    v = torch.randn(1, c, kvh, dh, generator=g, device=cuda).bfloat16()
+    pos = torch.arange(c, device=cuda, dtype=torch.int32)
+    got = flash_attention(q, k, v, pos, pos)
+    want = attention_reference(q, k, v, pos, pos)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_cuda_recurrent_engine_fused_close_to_orchestrated(cuda, arch):
+    """Reduced SSM / hybrid on the card: the SSD kernel on the prefill
+    path, every request finishing in both step modes, streams within the
+    tolerance contract."""
+    cfg = get_config(arch, reduced=True)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    out = {}
+    for mode in ("fused", "orchestrated"):
+        eng = port_serving.ServingEngine(
+            model=build_model(cfg),
+            scheduler=port_core.Scheduler(policy="sagesched",
+                                          priority_backend="cuda",
+                                          bucket_size=8),
+            n_slots=2, max_seq_len=96, capacity_tokens=48, block_size=8,
+            step_mode=mode, params=params, device=cuda)
+        rng = np.random.default_rng(7)
+        reqs = [port_serving.ServeRequest(
+            f"r{i}", f"p{i}", [int(t) for t in rng.integers(3, 500, 12)],
+            max_new_tokens=6 + 3 * i, temperature=0.0, eos_token=1)
+            for i in range(4)]
+        n0 = SSD_SCAN_KERNEL.launches
+        eng.submit_batch(reqs)
+        eng.run_until_done(max_steps=4000)
+        assert SSD_SCAN_KERNEL.launches > n0
+        assert all(r.state == port_serving.RequestState.FINISHED
+                   for r in reqs)
+        out[mode] = [r.output_tokens for r in reqs]
+    assert_tokens_close(out["fused"], out["orchestrated"])
 
 
 @pytest.mark.gpu

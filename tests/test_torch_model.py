@@ -188,7 +188,7 @@ def test_greedy_tokens_identical_16_steps(pair):
 
 def test_other_families_not_ported():
     for arch, item in (("olmoe-1b-7b", "Queue A 6"),
-                       ("mamba2-2.7b", "Queue A 7"),
+                       ("internvl2-76b", "Queue A 6"),
                        ("seamless-m4t-medium", "Queue A 12")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(get_config(arch, reduced=True))

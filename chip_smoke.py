@@ -10,14 +10,23 @@ Phases:
   1. require CUDA; print the card's name and power limit;
   2. build every CUDA kernel of the port from ``src/repro_torch/csrc``;
   3. hold the paged-decode and flash-prefill kernels against their plain
-     PyTorch versions in bf16 at the serving path's shapes (llama3.2-1b's
+     PyTorch versions in bf16 (``attn_check``: BF16_TOL, its absolute part
+     capped at a tenth of the output's RMS) at the serving path's shapes (llama3.2-1b's
      GQA decode and 512-token prefill chunks; zamba2-1.2b's MHA decode and
      whole-prompt prefill), and time kernel, plain version and the
-     library yardstick (SDPA) at llama's; hold the SSD scan kernel
-     against its two plain versions (chunked and sequential) at the
-     mamba2-2.7b and zamba2-1.2b prefill shapes, with short- and
-     long-memory decays, check that end padding leaves its result
-     bit-unchanged, and time it;
+     library yardstick (SDPA) at llama's; hold the dense-cache decode
+     kernel against its plain version at seamless-m4t-medium's decode
+     shape, llama3.2-1b's long-context ring (some rows wrapped) and an MQA
+     shape (48 heads of 128 over one kv head), and time it with SDPA at
+     seamless's; hold the flash kernel at seamless's three non-causal
+     shapes (encoder self-attention over 4096 frames, a prompt's and one
+     decode step's cross-attention over them) and time the encoder's;
+     each new shape with a flat draw (a wide softmax) and a peaked one
+     (q scaled by 3: O(1) outputs that a wrong tile or rescale moves);
+     hold the SSD scan kernel against its two plain versions (chunked and
+     sequential) at the mamba2-2.7b and zamba2-1.2b prefill shapes, with
+     short- and long-memory decays, check that end padding leaves its
+     result bit-unchanged, and time it;
   4. serve at full width, from random weights of a seed, llama3.2-1b,
      mamba2-2.7b (SSM) and zamba2-1.2b (hybrid): SageSched with the
      CUDA Gittins backend, 8 slots x 2048 tokens, 16 greedy requests in
@@ -25,11 +34,26 @@ Phases:
      fused, once orchestrated.  Every request must finish, the scheduler
      must preempt and swap, the streams must agree under the tolerance
      contract, and every kernel of the model's path must have launched;
-  5. hold the Gittins kernel against its plain version at the largest
+  5. generate at full width through Model.prefill -> Model.decode_step
+     over the dense cache, from random weights of a seed:
+     seamless-m4t-medium (all 12 + 12 layers; 8 x 4096 frames, 128-token
+     prompts, a dense cache of 512, 256 greedy steps), llama3.2-1b (all
+     16 layers; 8 x 512-token prompts, a cache of 1024, 128 steps),
+     mamba2-2.7b and zamba2-1.2b (8 x 512-token prompts, a cache of 1024,
+     64 steps; all layers, and cut to 2 layers).  Every logit must be
+     finite, the logits and greedy streams must agree under the
+     tolerance contract with a teacher-forced Model.forward over prompt +
+     generated tokens (see
+     ``repro_torch.testing.generate.teacher_forced_check``, at each
+     drive's bar in GENERATE_DRIVES; printed but not held for the
+     recurrent families at full depth), and the dense-decode, flash and
+     SSD kernels must have launched exactly as often as the path calls
+     them;
+  6. hold the Gittins kernel against its plain version at the largest
      refresh shape the runs gave it, and time it beside the numpy float64
      oracle at n = 4096, k = 64;
-  6. print one JSON line of per-kernel results (launches summed over
-     every serve drive), then the result line.
+  7. print one JSON line of per-kernel results (launches summed over
+     every serve and generate drive), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -37,6 +61,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,9 +78,10 @@ from repro_torch.core import (CudaPriorityBackend, Scheduler,  # noqa: E402
                               gittins_index_batch, make_policy)
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
-    PAGED_DECODE_KERNEL, decode_attention_paged_op)
+    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, decode_attention_op,
+    decode_attention_paged_op)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
-    decode_attention_paged_reference)
+    decode_attention_dense_reference, decode_attention_paged_reference)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     FLASH_PREFILL_KERNEL, flash_attention)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -69,9 +95,12 @@ from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked_reference, ssd_sequential_reference)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.encdec import encode  # noqa: E402
 from repro_torch.serving import (RequestState, ServeRequest,  # noqa: E402
                                  ServingEngine)
 from repro_torch.testing import assert_tokens_close  # noqa: E402
+from repro_torch.testing.generate import (  # noqa: E402
+    greedy_generate, teacher_forced_check)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores
@@ -79,10 +108,42 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 BF16_TOL = 2e-2          # bf16 kernel vs plain version (tests/test_kernels.py)
+# attention kernels: BF16_TOL, but the absolute part never above this
+# fraction of the compared output's RMS (a wide softmax over thousands of
+# keys gives outputs of about sqrt(e / n), the size of BF16_TOL itself)
+ATTN_RMS_FRACTION = 0.1
+# q scale of the peaked draws: scores of std 3, so a few keys carry the
+# softmax and the outputs are O(1)
+PEAKED_Q = 3.0
 GITTINS_RTOL = 1e-4      # f32 kernel vs plain version
 # SSD final state (f32, sums of up to a chunk's terms in another order)
 SSD_STATE_TOL = 1e-3
 SERVED = ("llama3.2-1b", "mamba2-2.7b", "zamba2-1.2b")
+# phase 5: (arch, depth cut, drive) through Model.prefill ->
+# Model.decode_step.  ``logit_ulps`` is the drive's teacher-forced logit
+# bar in bf16 steps (``teacher_forced_check``): its drift on an H100,
+# rounded up to a whole step (seamless 2.06, llama 2.25, the cut mamba2
+# 3.25, the cut zamba2 1.75; the drives are deterministic).  None prints
+# the comparison without holding it: at random weights bf16 rounding
+# differences grow with Mamba2 depth (3.25 steps at 2 layers, 226.5 at
+# 64 on an H100), so at full depth the decode and a forward agree no
+# better than unrelated logits; the recurrent families are held cut to
+# 2 layers (zamba2 with its shared attention after each, two group
+# layers)
+GENERATE_DRIVES = (
+    ("seamless-m4t-medium", {}, dict(b=8, prompt=128, max_len=512,
+                                     steps=256, n_frames=4096,
+                                     logit_ulps=3)),
+    ("llama3.2-1b", {}, dict(b=8, prompt=512, max_len=1024, steps=128,
+                             logit_ulps=3)),
+    ("mamba2-2.7b", {}, dict(b=8, prompt=512, max_len=1024, steps=64,
+                             logit_ulps=None)),
+    ("zamba2-1.2b", {}, dict(b=8, prompt=512, max_len=1024, steps=64,
+                             logit_ulps=None)),
+    ("mamba2-2.7b", dict(n_layers=2), dict(b=8, prompt=512, max_len=1024,
+                                           steps=64, logit_ulps=4)),
+    ("zamba2-1.2b", dict(n_layers=2, hybrid_attn_every=1),
+     dict(b=8, prompt=512, max_len=1024, steps=64, logit_ulps=2)))
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -106,21 +167,32 @@ def bound_ms(n_bytes: float, flops: float, peak_flops: float):
 
 
 def check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float,
-          rel: bool = False) -> float:
+          rel: bool = False, atol: float | None = None) -> float:
+    """Elementwise |got - want| <= tol * |want| + atol (atol = tol unless
+    given; 0 with ``rel``)."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise SystemExit(f"FAIL {name}: non-finite kernel output")
     err = (got - want).abs()
     max_abs = float(err.max())
-    limit = tol * want.abs() + (0.0 if rel else tol)
+    atol = 0.0 if rel else (tol if atol is None else atol)
+    limit = tol * want.abs() + atol
     bad = int((err > limit).sum())
     max_rel = float((err / want.abs().clamp(min=1e-6)).max())
     print(f"  {name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
-          f"tol={tol:g}{' rel' if rel else ' abs+rel'} "
+          f"tol=rel {tol:g} + abs {atol:.3e} "
           f"{'OK' if bad == 0 else f'{bad} elements out of tolerance'}")
     if bad:
         raise SystemExit(f"FAIL {name}: kernel disagrees with plain version")
     return max_abs
+
+
+def attn_check(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """An attention kernel against its plain version: BF16_TOL, with the
+    absolute part capped at ATTN_RMS_FRACTION of want's RMS."""
+    rms = float(want.float().pow(2).mean().sqrt())
+    return check(f"{name} [output RMS {rms:.3e}]", got, want, BF16_TOL,
+                 atol=min(BF16_TOL, ATTN_RMS_FRACTION * rms))
 
 
 # --------------------------------------------------------------- phase 3
@@ -153,15 +225,14 @@ def phase_decode(cfgs, dev, gen) -> dict:
         want = decode_attention_paged_reference(q, kp, vp, tables, cl)
         torch.cuda.synchronize()
         shape = f"H{cfg.n_heads}/KV{cfg.n_kv_heads}, dh {cfg.head_dim}"
-        err = max(err, check(f"paged decode {cfg.name} (bf16, {shape}, 8 "
-                             f"lanes, cache_len 32..1280)", got, want,
-                             BF16_TOL))
+        err = max(err, attn_check(f"paged decode {cfg.name} (bf16, {shape}, "
+                                  f"8 lanes, cache_len 32..1280)", got, want))
         # windowed variant: same kernel, logical sliding window of 256
         got_w = decode_attention_paged_op(q, kp, vp, tables, cl, window=256)
         want_w = decode_attention_paged_reference(q, kp, vp, tables, cl,
                                                   window=256)
-        err = max(err, check(f"paged decode {cfg.name}, window 256", got_w,
-                             want_w, BF16_TOL))
+        err = max(err, attn_check(f"paged decode {cfg.name}, window 256",
+                                  got_w, want_w))
         if cfg is not cfgs[0]:
             ms = cuda_ms(lambda: decode_attention_paged_op(q, kp, vp, tables,
                                                            cl))
@@ -228,10 +299,10 @@ def phase_flash(cfgs, dev, gen) -> dict:
         got = flash_attention(q, k, v, pos, kv_pos)
         want = attention_reference(q, k, v, pos, kv_pos)
         torch.cuda.synchronize()
-        err = max(err, check(f"flash prefill {cfg.name} (bf16, H"
-                             f"{cfg.n_heads}/KV{cfg.n_kv_heads}, C={c}, "
-                             f"S_past={s_past}, start={start})", got, want,
-                             BF16_TOL))
+        err = max(err, attn_check(f"flash prefill {cfg.name} (bf16, H"
+                                  f"{cfg.n_heads}/KV{cfg.n_kv_heads}, C={c}, "
+                                  f"S_past={s_past}, start={start})", got,
+                                  want))
         if cfg is not cfgs[0]:
             ms = cuda_ms(lambda: flash_attention(q, k, v, pos, kv_pos))
             print(f"  flash prefill {cfg.name} (C={c}): kernel {ms:.4f} ms")
@@ -258,6 +329,136 @@ def phase_flash(cfgs, dev, gen) -> dict:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+
+
+def dense_decode_case(dev, gen, b, h, kvh, dh, s_max, hi, q_scale=1.0):
+    """q and dense (B, S_max, KV, dh) caches; cache_len in [1, hi], with
+    row 0 at hi and row 1 at exactly S_max, so that a ring (hi > S_max)
+    has a wrapped row and one at the wrap point."""
+    q = (torch.randn(b, h, dh, generator=gen, device=dev)
+         * q_scale).bfloat16()
+    k = torch.randn(b, s_max, kvh, dh, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, s_max, kvh, dh, generator=gen, device=dev).bfloat16()
+    cl = torch.randint(1, hi + 1, (b,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    cl[0], cl[1] = hi, s_max
+    return q, k, v, cl
+
+
+def dense_decode_bytes_flops(q, k, cl):
+    """Bytes the call must move (q and the output once, each row's
+    min(cache_len, S_max) K and V rows once, cache_len) and its flops."""
+    b, h, dh = q.shape
+    s_max, kvh = k.shape[1], k.shape[2]
+    rows = float(torch.clamp(cl.long(), max=s_max).sum())
+    n_bytes = 2 * q.numel() * 2 + rows * kvh * dh * 2 * 2 + cl.numel() * 4
+    return n_bytes, 4.0 * rows * h * dh
+
+
+def phase_dense_decode(dev, gen) -> dict:
+    """The dense-cache decode kernel at seamless-m4t-medium's decode shape
+    (8 rows, H16/KV16, dh 64, 512 slots), llama3.2-1b's long-context ring
+    (its window of 8192 slots, cache_len up to 8392 so some rows wrapped)
+    and an MQA shape (H48/KV1, dh 128); timed at seamless's."""
+    seam = get_config("seamless-m4t-medium")
+    llama = get_config("llama3.2-1b", long_context=True)
+    cases = [("seamless-m4t-medium", seam.n_heads, seam.n_kv_heads,
+              seam.head_dim, 512, 512, 0),
+             ("llama3.2-1b long-context ring", llama.n_heads,
+              llama.n_kv_heads, llama.head_dim, llama.window,
+              llama.window + 200, llama.window),
+             ("MQA", 48, 1, 128, 1024, 1024, 0)]
+    err, inputs = 0.0, {}
+    for name, h, kvh, dh, s_max, hi, window in cases:
+        # a flat draw (scores ~ N(0, 1), a wide softmax) and a peaked one
+        # (O(1) outputs: a wrong tile or rescale moves them by O(1))
+        for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+            q, k, v, cl = dense_decode_case(dev, gen, 8, h, kvh, dh, s_max,
+                                            hi, q_scale)
+            got = decode_attention_op(q, k, v, cl, window=window)
+            want = decode_attention_dense_reference(q, k, v, cl,
+                                                    window=window)
+            torch.cuda.synchronize()
+            ring = (f", window {window}, {int((cl > s_max).sum())} rows "
+                    f"wrapped" if window else "")
+            err = max(err, attn_check(
+                f"dense decode {name} {draw} (bf16, H{h}/KV{kvh}, dh {dh}, "
+                f"S_max {s_max}, cache_len 1..{hi}{ring})", got, want))
+            if draw == "flat":
+                inputs[name] = (q, k, v, cl, window)
+    for name in list(inputs)[1:]:
+        q, k, v, cl, window = inputs[name]
+        ms = cuda_ms(lambda: decode_attention_op(q, k, v, cl, window=window))
+        bnd, by = bound_ms(*dense_decode_bytes_flops(q, k, cl), BF16_FLOPS)
+        print(f"  dense decode {name}: kernel {ms:.4f} ms, bound {bnd:.5f} "
+              f"ms ({by})")
+    q, k, v, cl, _ = inputs["seamless-m4t-medium"]
+    ms = cuda_ms(lambda: decode_attention_op(q, k, v, cl))
+    plain_ms = cuda_ms(lambda: decode_attention_dense_reference(q, k, v, cl),
+                       iters=5)
+    s_max = k.shape[1]
+    kd, vd = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = (torch.arange(s_max, device=dev)[None, :] < cl[:, None].long()
+            )[:, None, None, :]
+    qd = q[:, :, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+    n_bytes, flops = dense_decode_bytes_flops(q, k, cl)
+    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    print(f"  dense decode seamless-m4t-medium: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA with a boolean mask {lib_ms:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by}; {n_bytes / 1e6:.2f} MB)")
+    return {"name": "decode_attention_dense", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:79",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_flash_noncausal(dev, gen) -> float:
+    """The flash kernel at seamless-m4t-medium's bidirectional shapes: the
+    encoder's self-attention over 4096 frames, a 128-token prompt's
+    cross-attention over them, and one decode step's (Sq = 1); times the
+    encoder's beside SDPA.  Returns the largest max abs error."""
+    cfg = get_config("seamless-m4t-medium")
+    h, kvh, dh, s_enc = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 4096
+    err = 0.0
+    for what, b, sq in (("encoder self-attention", 1, s_enc),
+                        ("prompt cross-attention", 8, 128),
+                        ("decode cross-attention", 8, 1)):
+        for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+            q = (torch.randn(b, sq, h, dh, generator=gen, device=dev)
+                 * q_scale).bfloat16()
+            k = torch.randn(b, s_enc, kvh, dh, generator=gen,
+                            device=dev).bfloat16()
+            v = torch.randn(b, s_enc, kvh, dh, generator=gen,
+                            device=dev).bfloat16()
+            pos = torch.arange(sq, device=dev, dtype=torch.int32)
+            kv_pos = torch.arange(s_enc, device=dev, dtype=torch.int32)
+            got = flash_attention(q, k, v, pos, kv_pos, causal=False)
+            want = attention_reference(q, k, v, pos, kv_pos, causal=False)
+            torch.cuda.synchronize()
+            err = max(err, attn_check(
+                f"flash {cfg.name} {what} {draw} (bf16, non-causal, B {b}, "
+                f"Sq {sq}, Sk {s_enc}, H{h}/KV{kvh})", got, want))
+            if sq == s_enc and draw == "flat":
+                enc = (q, k, v, pos, kv_pos)
+            del want
+            torch.cuda.empty_cache()
+    q, k, v, pos, kv_pos = enc
+    ms = cuda_ms(lambda: flash_attention(q, k, v, pos, kv_pos, causal=False),
+                 iters=5)
+    plain_ms = cuda_ms(lambda: attention_reference(q, k, v, pos, kv_pos,
+                                                   causal=False), iters=2)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    flops = 4.0 * s_enc * s_enc * h * dh
+    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    print(f"  flash {cfg.name} encoder self-attention (B 1, S {s_enc}): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
+          f"ms, bound {bnd:.5f} ms ({by})")
+    return err
 
 
 def ssd_case(cfg, dev, gen, s: int, init: bool = False,
@@ -470,6 +671,85 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
 
 # --------------------------------------------------------------- phase 5
 
+def generate_launches(cfg, steps: int) -> dict:
+    """The kernel launches the dense-cache path makes: per step, one dense
+    decode per attention layer (the hybrid's G group layers) and, for the
+    encoder-decoder, one flash cross-attention per decoder layer; in the
+    prefill, flash for each attention layer's self-attention (plus the
+    encoder's layers and the cross-attention of the encoder-decoder), and
+    one SSD scan per Mamba2 layer."""
+    attn = {"dense": cfg.n_layers, "encdec": cfg.n_layers, "ssm": 0,
+            "hybrid": -(-cfg.n_layers // cfg.hybrid_attn_every)}[cfg.family]
+    flash = attn
+    if cfg.family == "encdec":
+        flash += cfg.n_encoder_layers + cfg.n_layers + steps * cfg.n_layers
+    return {DENSE_DECODE_KERNEL.symbol: steps * attn,
+            FLASH_PREFILL_KERNEL.symbol: flash,
+            SSD_SCAN_KERNEL.symbol: cfg.n_layers
+            if cfg.family in ("ssm", "hybrid") else 0}
+
+
+def phase_generate(cfg, dev, *, b: int, prompt: int, max_len: int,
+                   steps: int, logit_ulps: int | None,
+                   n_frames: int = 0) -> dict:
+    """Drive Model.prefill -> Model.decode_step at full width from random
+    weights of a seeded generator on the card; returns the launches of
+    the drive's kernels.  The teacher-forced comparison is held at
+    ``logit_ulps`` bf16 steps, or printed but not held where it is None."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = build_model(cfg)
+    params = model.init(gen)
+    batch = {"tokens": torch.randint(3, cfg.vocab_size, (b, prompt),
+                                     generator=gen, device=dev)}
+    encdec = cfg.family == "encdec"
+    if encdec:
+        batch["frames"] = (torch.randn(b, n_frames, cfg.d_model,
+                                       generator=gen, device=dev)
+                           * 0.02).bfloat16()
+        enc_ms = cuda_ms(lambda: encode(params, cfg, batch["frames"]),
+                         iters=1, warmup=1)
+    kernels = (DENSE_DECODE_KERNEL, FLASH_PREFILL_KERNEL, SSD_SCAN_KERNEL)
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    run = greedy_generate(model, params, batch, max_len, steps)
+    launches = {k.symbol: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not run["finite"]:
+        raise SystemExit(f"FAIL generate {cfg.name}: non-finite logits")
+    want = generate_launches(cfg, steps)
+    if launches != want:
+        raise SystemExit(f"FAIL generate {cfg.name}: launches {launches}, "
+                         f"the path calls {want}")
+    held = logit_ulps is not None
+    bars = dict(logit_ulps=logit_ulps) if held else \
+        dict(logit_ulps=math.inf, flip_ulps=math.inf)
+    stats = teacher_forced_check(model, params, batch, run,
+                                 f"generate {cfg.name}", **bars)
+    toks = b * steps
+    print(f"  generate {cfg.name} {torch.cuda.get_device_name(0)}: B {b}, "
+          + (f"{n_frames} frames, encode {enc_ms:.3f} ms, " if encdec else "")
+          + f"prompt {prompt}, cache {max_len}, {steps} steps: prefill "
+          f"{run['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{run['decode_s'] * 1e3 / steps:.3f} ms per step = "
+          f"{toks / run['decode_s']:.1f} tok/s, peak memory {peak:.3f} GiB, "
+          f"launches {launches}; all logits finite; vs teacher-forced "
+          f"forward ({'held' if held else 'printed, not held'}): max logit "
+          f"diff {stats['max_logit_diff']:.4e} = "
+          f"{stats['drift_ulps']:.2f} bf16 steps (bar "
+          f"{stats['logit_bar']:.4e}), {stats['matched']}/"
+          f"{stats['compared']} positions matched, {stats['divergences']} "
+          f"divergences; argmax identical at {stats['exact']}/"
+          f"{stats['positions']}, exact top-1 ties at {stats['ties']}, "
+          f"{stats['coin_tosses']} flips excused, largest flip margin "
+          f"{stats['flip_ulps_max']:.2f} bf16 steps")
+    del params, model, run
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------- phase 6
+
 def gittins_case(n: int, k: int, seed: int):
     rng = np.random.default_rng(seed)
     sup = np.sort(rng.uniform(1, 1e5, (n, k)), axis=1)
@@ -586,7 +866,9 @@ def main() -> int:
     print("phase 3: attention and SSD scan kernels vs plain versions")
     attn = [cfg, get_config("zamba2-1.2b")]
     rows = [phase_decode(attn, dev, gen), phase_flash(attn, dev, gen),
-            phase_ssd(dev, gen)]
+            phase_dense_decode(dev, gen), phase_ssd(dev, gen)]
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
+                                 phase_flash_noncausal(dev, gen))
 
     launches, shape = {}, (0, 0)
     for arch in SERVED:
@@ -599,14 +881,29 @@ def main() -> int:
             launches[sym] = launches.get(sym, 0) + n
         if shp[0] * shp[1] > shape[0] * shape[1]:
             shape = shp
-    print(f"phase 5: gittins kernel (largest main-path refresh {shape})")
+    for arch, cut, kw in GENERATE_DRIVES:
+        cfg = get_config(arch).with_overrides(**cut)
+        layers = (f"{cfg.n_encoder_layers} + {cfg.n_layers}"
+                  if cfg.family == "encdec" else f"{cfg.n_layers}")
+        print(f"phase 5: generating with {cfg.name} at full width ({layers} "
+              f"layers{f', cut by {cut}' if cut else ''}, d {cfg.d_model}, "
+              f"vocab {cfg.vocab_size}) through Model.prefill -> "
+              f"Model.decode_step")
+        for sym, n in phase_generate(cfg, dev, **kw).items():
+            launches[sym] = launches.get(sym, 0) + n
+    print(f"phase 6: gittins kernel (largest main-path refresh {shape})")
     rows.insert(0, phase_gittins(dev, shape))
     symbols = {"gittins_attained": GITTINS_KERNEL.symbol,
                "decode_attention_paged": PAGED_DECODE_KERNEL.symbol,
                "flash_attention_prefill": FLASH_PREFILL_KERNEL.symbol,
+               "decode_attention_dense": DENSE_DECODE_KERNEL.symbol,
                "ssd_scan": SSD_SCAN_KERNEL.symbol}
     for row in rows:
         row["launches"] = launches[symbols[row["name"]]]
+    idle = [r["name"] for r in rows if r["launches"] == 0]
+    if idle:
+        raise SystemExit(f"FAIL: kernels never launched on a main path: "
+                         f"{idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

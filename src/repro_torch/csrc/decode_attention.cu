@@ -1,5 +1,10 @@
-// Paged decode attention: one query token per batch row over the shared
-// (n_pages, page, KV, dh) KV pool, through (B, P) block tables.
+// Decode attention: one query token per batch row, in two kernels that
+// share this file's helpers.  decode_attention_paged (below) reads the
+// shared (n_pages, page, KV, dh) KV pool through (B, P) block tables;
+// decode_attention_dense (after it) reads dense per-row (B, S_max, KV, dh)
+// caches and has its own header further down.
+//
+// The paged kernel.
 //
 // Replaces src/repro/kernels/decode_attention/kernel.py::
 // decode_attention_paged_kernel (its pl.pallas_call at kernel.py:266); the
@@ -178,5 +183,217 @@ REPRO_EXPORT int decode_attention_paged(const void* q, const void* k_pool,
   if (dh == 128)
     return launch<128>(q, k_pool, v_pool, tables, cache_len, out, B, H, KV,
                        page, P, window, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// Dense-cache decode attention: one query token per batch row over dense
+// per-row (B, S_max, KV, dh) K and V caches, which may be ring buffers.
+//
+// Replaces src/repro/kernels/decode_attention/kernel.py::
+// decode_attention_kernel (its pl.pallas_call at kernel.py:113); the
+// function is src/repro/models/attention.py::decode_attention, which
+// Model.decode_step runs in every attention layer: f32 scores of q.k scaled
+// by dh^-1/2, slot idx valid iff idx < cache_len or (window > 0 and
+// cache_len >= S_max), invalid slots at -1e30, unnormalised exp, f32 p into
+// the value sum, one late divide by max(l, 1e-30).  The ring rule is over
+// physical slots (once a ring has wrapped every slot holds one of the last
+// S_max tokens), unlike the paged kernel's logical window: for any window
+// it reduces to "the first min(cache_len, S_max) slots", so the kernel
+// takes no window at all and walks exactly those rows.
+//
+// What bounds it on the H100: bytes.  Each (row, kv head) reads its
+// min(cache_len, S_max) K and V rows once (2 * dh * 2 bytes each) and does
+// 4 flops per element read, about 1 flop per byte, so the cache read is the
+// whole cost.  This first kernel walks a row's cache in one block, in
+// sequence, one tile at a time with no loads in flight across tiles, so at
+// decode batch sizes (B * KV blocks: 128 for seamless-m4t-medium at 8 rows,
+// 64 for llama3.2-1b) it is latency bound well above the byte bound.
+// Split-KV and cp.async double buffering are later work.
+//
+// Design: one block per (kv head, query-head group, batch row).  The
+// rep = H / KV query heads of a kv head share every K/V tile the block
+// loads; where rep * dh > 1024 (granite's MQA: 48 heads of 128) they are
+// split into the fewest equal groups of at most 1024 / dh heads, one block
+// each, which re-read the same K/V (from L2 where it fits).  64-row tiles of
+// K and V go to shared memory with 16-byte loads.  Each tile: scores into
+// shared memory (one thread a (head, slot)); one warp per head takes the
+// tile max, rescales the head's running max and sum and writes p = exp(s -
+// m) back once (one exp per (head, slot), not per output); then each thread
+// updates its up to 8 (head, dh) accumulators in registers.  Shared rows are
+// padded by one word so threads reading different rows hit different banks.
+//
+// Differs from the reference only for a row with cache_len == 0 (every
+// slot masked): the reference averages all S_max values uniformly
+// (exp(-1e30 - -1e30) = 1), this kernel visits no slot and writes 0.  Every
+// caller passes cache_len + 1 >= 1 (transformer.py _attn_decode).
+
+namespace {
+
+constexpr int kDenseTile = 64;                 // cache rows per tile
+constexpr int kDenseWarps = kThreads / 32;
+
+template <int DH>
+__global__ void dense_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                                    const __nv_bfloat16* __restrict__ k_cache,
+                                    const __nv_bfloat16* __restrict__ v_cache,
+                                    const int* __restrict__ cache_len,
+                                    __nv_bfloat16* __restrict__ out, int H,
+                                    int KV, int S_max, int hpb, float scale) {
+  constexpr int kRowWords = DH / 2 + 1;  // padded row of bf16 pairs
+  constexpr int kVecPerRow = DH / 8;     // 16-byte vectors per K/V row
+  const int rep = H / KV;
+  const int n_groups = (rep + hpb - 1) / hpb;
+  const int g = blockIdx.x / n_groups;   // kv head
+  const int h_first = g * rep + (blockIdx.x % n_groups) * hpb;
+  const int nh = min(hpb, g * rep + rep - h_first);  // query heads here
+  const int b = blockIdx.y;              // batch row
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);   // [hpb][DH]
+  float* s_s = q_s + hpb * DH;                       // [hpb][kDenseTile]
+  float* m_s = s_s + hpb * kDenseTile;               // [hpb] running max
+  float* l_s = m_s + hpb;                            // [hpb] running sum
+  float* c_s = l_s + hpb;                            // [hpb] tile correction
+  unsigned* k_s = reinterpret_cast<unsigned*>(c_s + hpb);  // [tile][kRowWords]
+  unsigned* v_s = k_s + kDenseTile * kRowWords;            // [tile][kRowWords]
+
+  const __nv_bfloat16* q_row = q + (static_cast<size_t>(b) * H + h_first) * DH;
+  for (int i = tid; i < nh * DH; i += kThreads)
+    q_s[i] = __bfloat162float(q_row[i]);
+  for (int r = tid; r < nh; r += kThreads) {
+    m_s[r] = kNeg;
+    l_s[r] = 0.0f;
+  }
+  __syncthreads();
+
+  // the ring rule over physical slots: the first min(cache_len, S_max)
+  const int n_valid = max(0, min(cache_len[b], S_max));
+  const size_t row_stride = static_cast<size_t>(KV) * DH;
+  const size_t base = (static_cast<size_t>(b) * S_max * KV + g) * DH;
+  const __nv_bfloat16* k_row0 = k_cache + base;
+  const __nv_bfloat16* v_row0 = v_cache + base;
+  const int n_out = nh * DH;
+
+  float acc[kMaxOutPerThread];
+#pragma unroll
+  for (int j = 0; j < kMaxOutPerThread; ++j) acc[j] = 0.0f;
+
+  for (int t0 = 0; t0 < n_valid; t0 += kDenseTile) {
+    const int rows = min(kDenseTile, n_valid - t0);
+    __syncthreads();  // the previous tile's smem reads are done
+    for (int i = tid; i < rows * kVecPerRow; i += kThreads) {
+      const int t = i / kVecPerRow, c = i % kVecPerRow;
+      const size_t off = static_cast<size_t>(t0 + t) * row_stride;
+      const uint4 kv4 = reinterpret_cast<const uint4*>(k_row0 + off)[c];
+      const uint4 vv4 = reinterpret_cast<const uint4*>(v_row0 + off)[c];
+      unsigned* kd = k_s + t * kRowWords + c * 4;
+      unsigned* vd = v_s + t * kRowWords + c * 4;
+      kd[0] = kv4.x; kd[1] = kv4.y; kd[2] = kv4.z; kd[3] = kv4.w;
+      vd[0] = vv4.x; vd[1] = vv4.y; vd[2] = vv4.z; vd[3] = vv4.w;
+    }
+    __syncthreads();
+    for (int i = tid; i < nh * kDenseTile; i += kThreads) {
+      const int r = i / kDenseTile, t = i % kDenseTile;
+      if (t >= rows) continue;
+      const float* qr = q_s + r * DH;
+      const unsigned* kr = k_s + t * kRowWords;
+      float dot = 0.0f;
+#pragma unroll 8
+      for (int d2 = 0; d2 < DH / 2; ++d2) {
+        const float2 kk = bf16x2_to_float2(kr[d2]);
+        dot += qr[2 * d2] * kk.x + qr[2 * d2 + 1] * kk.y;
+      }
+      s_s[r * kDenseTile + t] = dot * scale;
+    }
+    __syncthreads();
+    for (int r = warp; r < nh; r += kDenseWarps) {
+      float* sr = s_s + r * kDenseTile;
+      const float s0 = lane < rows ? sr[lane] : kNeg;
+      const float s1 = lane + 32 < rows ? sr[lane + 32] : kNeg;
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
+      const float p0 = lane < rows ? expf(s0 - m_new) : 0.0f;
+      const float p1 = lane + 32 < rows ? expf(s1 - m_new) : 0.0f;
+      if (lane < rows) sr[lane] = p0;
+      if (lane + 32 < rows) sr[lane + 32] = p1;
+      const float psum = warp_sum(p0 + p1);
+      __syncwarp();
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        c_s[r] = corr;
+        l_s[r] = l_s[r] * corr + psum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kMaxOutPerThread; ++j) {
+      const int idx = tid + j * kThreads;
+      if (idx >= n_out) break;
+      const int r = idx / DH, d = idx % DH;
+      const float* pr = s_s + r * kDenseTile;
+      float pv = 0.0f;
+      for (int t = 0; t < rows; ++t) {
+        const float2 vv = bf16x2_to_float2(v_s[t * kRowWords + (d >> 1)]);
+        pv += pr[t] * ((d & 1) ? vv.y : vv.x);
+      }
+      acc[j] = acc[j] * c_s[r] + pv;
+    }
+  }
+  __nv_bfloat16* o_row = out + (static_cast<size_t>(b) * H + h_first) * DH;
+#pragma unroll
+  for (int j = 0; j < kMaxOutPerThread; ++j) {
+    const int idx = tid + j * kThreads;
+    if (idx >= n_out) break;
+    o_row[idx] = __float2bfloat16(acc[j] / fmaxf(l_s[idx / DH], 1e-30f));
+  }
+}
+
+template <int DH>
+int launch_dense(const void* q, const void* k_cache, const void* v_cache,
+                 const void* cache_len, void* out, int B, int H, int KV,
+                 int S_max, float scale, cudaStream_t stream) {
+  constexpr int kMaxHeads = kThreads * kMaxOutPerThread / DH;
+  const int rep = H / KV;
+  const int n_groups = (rep + kMaxHeads - 1) / kMaxHeads;
+  const int hpb = (rep + n_groups - 1) / n_groups;  // <= kMaxHeads
+  const size_t smem = (static_cast<size_t>(hpb) * DH + hpb * kDenseTile +
+                       3 * hpb) * sizeof(float) +
+                      2 * static_cast<size_t>(kDenseTile) * (DH / 2 + 1) *
+                          sizeof(unsigned);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(KV * n_groups, B);
+  dense_decode_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_cache),
+      static_cast<const __nv_bfloat16*>(v_cache),
+      static_cast<const int*>(cache_len), static_cast<__nv_bfloat16*>(out), H,
+      KV, S_max, hpb, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q: (B, H, dh) bf16; k_cache, v_cache: (B, S_max, KV, dh) bf16, 16-byte
+// aligned; cache_len: (B,) i32; out: (B, H, dh) bf16.  All contiguous.  dh
+// is 64 or 128; any S_max >= 1 (no padding).
+REPRO_EXPORT int decode_attention_dense(const void* q, const void* k_cache,
+                                        const void* v_cache,
+                                        const void* cache_len, void* out,
+                                        int B, int H, int KV, int dh,
+                                        int S_max, float scale,
+                                        void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || S_max <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64)
+    return launch_dense<64>(q, k_cache, v_cache, cache_len, out, B, H, KV,
+                            S_max, scale, s);
+  if (dh == 128)
+    return launch_dense<128>(q, k_cache, v_cache, cache_len, out, B, H, KV,
+                             S_max, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,10 +1,12 @@
-"""Paged decode attention: the hand-written CUDA kernel
-(``csrc/decode_attention.cu``) for CUDA tensors, the plain version in
+"""Decode attention, paged and dense: the hand-written CUDA kernels
+(``csrc/decode_attention.cu``) for CUDA tensors, the plain versions in
 ``ref.py`` for CPU tensors.
 
-As in the JAX op, the block tables are padded to a pow2 width with
+Paged: as in the JAX op, the block tables are padded to a pow2 width with
 scratch page 0 first; the padded entries sit past every row's
-``cache_len`` and are masked.
+``cache_len`` and are masked.  Dense: the JAX op pads S_max to a
+``block_s`` multiple for its grid; the CUDA kernel takes any S_max and
+pads nothing (a pad would copy the whole cache on every call).
 """
 
 from __future__ import annotations
@@ -12,10 +14,12 @@ from __future__ import annotations
 import torch
 
 from ..bucketing import pow2_bucket
-from .kernel import PAGED_DECODE_KERNEL
-from .ref import decode_attention_paged_reference
+from .kernel import DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL
+from .ref import (decode_attention_dense_reference,
+                  decode_attention_paged_reference)
 
-__all__ = ["decode_attention_paged_op", "PAGED_DECODE_KERNEL"]
+__all__ = ["decode_attention_op", "decode_attention_paged_op",
+           "DENSE_DECODE_KERNEL", "PAGED_DECODE_KERNEL"]
 
 _HEAD_DIMS = (64, 128)
 
@@ -72,4 +76,64 @@ def decode_attention_paged_op(q, k_pool, v_pool, block_tables, cache_len, *,
                         out.data_ptr(), b, h, kvh, dh, page, pb, int(window),
                         dh ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     PAGED_DECODE_KERNEL.launches += 1
+    return out
+
+
+def _check_dense(q, k_cache, v_cache, cache_len):
+    dev = q.device
+    b, h, dh = q.shape
+    b2, s_max, kvh, dh2 = k_cache.shape
+    if dh not in _HEAD_DIMS or dh2 != dh or b2 != b or h % kvh \
+            or s_max < 1:
+        raise ValueError(f"decode_attention: unsupported shapes q "
+                         f"{tuple(q.shape)} cache {tuple(k_cache.shape)} "
+                         f"(head dim must be one of {_HEAD_DIMS}, H a "
+                         f"multiple of KV, S_max >= 1)")
+    if v_cache.shape != k_cache.shape or cache_len.shape != (b,):
+        raise ValueError("decode_attention: mismatched shapes "
+                         f"{tuple(v_cache.shape)} {tuple(cache_len.shape)}")
+    for name, t, dtype in (("q", q, torch.bfloat16),
+                           ("k_cache", k_cache, torch.bfloat16),
+                           ("v_cache", v_cache, torch.bfloat16),
+                           ("cache_len", cache_len, torch.int32)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} must be a "
+                             f"contiguous {dtype} tensor on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be 16-byte "
+                             "aligned (the kernel loads 16-byte vectors)")
+
+
+def decode_attention_op(q, k_cache, v_cache, cache_len, *,
+                        window: int = 0) -> torch.Tensor:
+    """q: (B, H, dh); k_cache/v_cache: (B, S_max, KV, dh), ring buffers
+    when ``window > 0``; cache_len (B,) int32.  Returns (B, H, dh) in q's
+    dtype.
+
+    On CUDA everything is bf16 (q, caches, output), dh is 64 or 128 and
+    any S_max and H / KV are taken (query heads beyond 1024 / dh per kv
+    head go to further blocks).  The result differs from the plain
+    version only for a row with cache_len == 0, which no caller passes
+    (see ``csrc/decode_attention.cu``).  The ring rule (every slot valid
+    once cache_len >= S_max) is the first min(cache_len, S_max) slots
+    for any window, so the kernel takes no window: ``window`` changes no
+    result and is accepted only for parity with the reference's
+    signature."""
+    dev = q.device
+    if dev.type == "cpu":
+        return decode_attention_dense_reference(q, k_cache, v_cache,
+                                                cache_len, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {dev}")
+    _check_dense(q, k_cache, v_cache, cache_len)
+    b, h, dh = q.shape
+    _, s_max, kvh, _ = k_cache.shape
+    out = torch.empty_like(q)
+    DENSE_DECODE_KERNEL(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                        cache_len.data_ptr(), out.data_ptr(), b, h, kvh, dh,
+                        s_max, dh ** -0.5,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    DENSE_DECODE_KERNEL.launches += 1
     return out

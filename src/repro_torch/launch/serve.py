@@ -1,7 +1,10 @@
 """Serving launcher of the port: run the end-to-end engine on any --arch of
 the dense, SSM (mamba2-2.7b) or hybrid (zamba2-1.2b) families, on the card
 by default (``--device cpu`` for a reduced run on the CPU).  The same
-flags as ``repro.launch.serve`` plus ``--device``.
+flags as ``repro.launch.serve`` plus ``--device``.  The encoder-decoder
+(seamless-m4t-medium) is refused, as the reference's CLI refuses it: the
+paged engine does not take it, and it runs through ``Model.prefill`` and
+``Model.decode_step``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --full --n-slots 8 --max-seq-len 2048
@@ -67,6 +70,9 @@ def main(argv=None):
         raise NotImplementedError(
             "--gateway: the gateway is not ported yet (ROADMAP Queue A 8)")
     cfg = get_config(args.arch, reduced=not args.full)
+    if cfg.family == "encdec":
+        raise SystemExit("the CLI serving demo drives decoder-only archs; "
+                         "see tests/test_models_smoke.py for enc-dec paths")
     tok = ByteTokenizer()
     engine = ServingEngine(
         model=build_model(cfg),

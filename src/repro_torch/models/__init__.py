@@ -1,4 +1,4 @@
-"""Model zoo of the port (dense, SSM and hybrid decoder families)."""
+"""Model zoo of the port (dense, SSM and hybrid decoders; encoder-decoder)."""
 
 from .config import FAMILIES, ModelConfig
 from .model import Model, build_model

@@ -1,20 +1,24 @@
 """Attention entry points of the model, dispatching to the port's kernels.
 
-``gqa_attention`` (prefill and chunked prefill) goes to
-``kernels.flash_attention`` and ``decode_attention_paged`` (one decode
-token over the paged pool) to ``kernels.decode_attention``: the CUDA
-kernels for CUDA tensors, their plain versions for CPU tensors.  The
-functions and layouts are those of ``repro.models.attention``.
+``gqa_attention`` (prefill and chunked prefill) and ``encoder_attention``
+(bidirectional encoder and cross attention) go to
+``kernels.flash_attention``; ``decode_attention_paged`` (one decode token
+over the paged pool) and ``decode_attention`` (one decode token over dense
+per-row caches) to ``kernels.decode_attention``: the CUDA kernels for CUDA
+tensors, their plain versions for CPU tensors.  The functions and layouts
+are those of ``repro.models.attention``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.decode_attention.ops import decode_attention_paged_op
+from ..kernels.decode_attention.ops import (decode_attention_op,
+                                            decode_attention_paged_op)
 from ..kernels.flash_attention.ops import flash_attention
 
-__all__ = ["gqa_attention", "decode_attention_paged", "combine_lse_partials"]
+__all__ = ["gqa_attention", "decode_attention", "decode_attention_paged",
+           "encoder_attention", "combine_lse_partials"]
 
 _NEG = -1e30
 
@@ -53,6 +57,32 @@ def gqa_attention(q, k, v, *, causal: bool = True, window: int = 0,
                            positions.to(torch.int32).contiguous(),
                            kv_positions.to(torch.int32).contiguous(),
                            causal=causal, window=window)
+
+
+def encoder_attention(q, k, v, *, kv_mask=None):
+    """Bidirectional (encoder or cross) attention.  q: (B, Sq, H, dh);
+    k, v: (B, Sk, KV, dh).  ``kv_mask`` is not supported, as in the
+    reference: padding is the caller's, through kv positions."""
+    if kv_mask is not None:
+        raise ValueError("encoder_attention: kv_mask is not supported; use "
+                         "kv_positions-based masking")
+    return gqa_attention(q, k, v, causal=False)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
+    """One-token decode attention over dense per-row caches.
+
+    q: (B, 1, H, dh); k_cache/v_cache: (B, S_max, KV, dh), ring buffers
+    when ``window > 0``; cache_len: (B,) valid tokens (for a ring, the
+    write cursor: every slot is valid once cache_len >= S_max).  The
+    valid slots are the first min(cache_len, S_max) for any ``window``,
+    which is taken for parity with the reference's signature and changes
+    no result.  Returns (B, 1, H, dh)."""
+    b, _, h, dh = q.shape
+    out = decode_attention_op(q.reshape(b, h, dh).contiguous(), k_cache,
+                              v_cache, cache_len.to(torch.int32).contiguous(),
+                              window=window)
+    return out.reshape(b, 1, h, dh)
 
 
 def decode_attention_paged(q, k_pool, v_pool, block_tables, cache_len, *,

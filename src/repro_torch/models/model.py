@@ -1,10 +1,11 @@
 """Model facade: one object per architecture with a uniform API
-(the port of ``repro.models.model``; decoder-only dense, SSM and hybrid
-families).
+(the port of ``repro.models.model``; the decoder-only dense, SSM and
+hybrid families and the encoder-decoder).
 
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     logits, cache = model.prefill(params, {"tokens": tokens})
+    logits, cache = model.decode_step(params, tok, cache, cache_len)
     k, v = model.prefill_chunk(params, tokens, past_k, past_v, start)
     logits, cache = model.decode_step_paged(params, tok, cache, cache_len,
                                             tables, page_size=16)
@@ -17,9 +18,12 @@ from dataclasses import dataclass
 import torch
 
 from .config import ModelConfig
+from .encdec import (encdec_cache_shapes, encdec_decode_step, encdec_forward,
+                     encdec_template)
 from .layers import init_from_template
-from .transformer import (decoder_decode_step_paged, decoder_forward,
-                          decoder_prefill_chunk, decoder_template,
+from .transformer import (decoder_decode_step, decoder_decode_step_paged,
+                          decoder_forward, decoder_prefill_chunk,
+                          decoder_template, init_cache_shapes,
                           paged_cache_shapes, require_ported)
 
 __all__ = ["Model", "build_model"]
@@ -35,6 +39,8 @@ class Model:
     # ------------------------------------------------------------- params
 
     def template(self):
+        if self.cfg.family == "encdec":
+            return encdec_template(self.cfg)
         return decoder_template(self.cfg)
 
     def init(self, generator: torch.Generator):
@@ -44,6 +50,12 @@ class Model:
     # ------------------------------------------------------------ forward
 
     def forward(self, params, batch, *, collect_cache: bool = False):
+        """Batches are dicts: {"tokens": (B, S)} for the decoder
+        families, plus "frames": (B, S_enc, D) for the encoder-decoder."""
+        if self.cfg.family == "encdec":
+            return encdec_forward(params, self.cfg, batch["frames"],
+                                  batch["tokens"],
+                                  collect_cache=collect_cache)
         return decoder_forward(params, self.cfg, batch["tokens"],
                                collect_cache=collect_cache,
                                lengths=batch.get("lengths"))
@@ -58,6 +70,29 @@ class Model:
         position's, which the engine never reads."""
         logits, cache, _ = self.forward(params, batch, collect_cache=True)
         return logits[:, -1, :], cache
+
+    # ------------------------------------------------ dense-cache decode
+
+    def decode_step(self, params, token, cache, cache_len):
+        """token: (B,1); cache_len: (B,).  Returns ((B,V) logits, cache),
+        the cache updated in place (the reference returns a new one)."""
+        if self.cfg.family == "encdec":
+            logits, cache = encdec_decode_step(params, self.cfg, token,
+                                               cache, cache_len)
+        else:
+            logits, cache = decoder_decode_step(params, self.cfg, token,
+                                                cache, cache_len)
+        return logits[:, -1, :], cache
+
+    def cache_shapes(self, batch: int, max_len: int, enc_len: int = 0):
+        """{name: (shape, dtype)} of the dense decode cache."""
+        if self.cfg.family == "encdec":
+            return encdec_cache_shapes(self.cfg, batch, max_len, enc_len)
+        return init_cache_shapes(self.cfg, batch, max_len)
+
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0,
+                   device: str | torch.device = "cuda"):
+        return _zeros(self.cache_shapes(batch, max_len, enc_len), device)
 
     # ----------------------------------------------------- paged serving
 
@@ -78,13 +113,8 @@ class Model:
     def init_paged_cache(self, n_pages: int, page_size: int, n_slots: int,
                          device: str | torch.device = "cuda",
                          conv_dtype: torch.dtype = torch.bfloat16):
-        def zeros(node):
-            if isinstance(node, dict):
-                return {k: zeros(v) for k, v in node.items()}
-            shape, dtype = node
-            return torch.zeros(shape, dtype=dtype, device=device)
-        return zeros(self.paged_cache_shapes(n_pages, page_size, n_slots,
-                                             conv_dtype))
+        return _zeros(self.paged_cache_shapes(n_pages, page_size, n_slots,
+                                              conv_dtype), device)
 
     def decode_step_paged(self, params, token, cache, cache_len,
                           block_tables, *, page_size: int, active=None):
@@ -102,6 +132,14 @@ class Model:
         chunk's (k, v): (L, 1, C, KV, dh) for the engine to scatter."""
         return decoder_prefill_chunk(params, self.cfg, tokens, past_k,
                                      past_v, start)
+
+
+def _zeros(node, device):
+    """Zero tensors for a nested {name: (shape, dtype)} tree."""
+    if isinstance(node, dict):
+        return {k: _zeros(v, device) for k, v in node.items()}
+    shape, dtype = node
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def build_model(cfg: ModelConfig) -> Model:

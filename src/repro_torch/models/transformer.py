@@ -1,13 +1,15 @@
 """Decoder-only transformer: the dense GQA, Mamba2 SSD (``ssm``) and hybrid
 (Mamba2 backbone plus one shared attention block every
-``hybrid_attn_every`` layers) families.  Full-sequence forward, paged
-decode step and chunked prefill, as plain functions over a params dict
+``hybrid_attn_every`` layers) families.  Full-sequence forward, decode step
+over dense per-row caches, paged decode step and chunked prefill, as plain
+functions over a params dict
 with the reference's stacked ``(L, ...)`` layout and tree keys
 (``repro.models.transformer``).  Layers run as a Python loop over the
 stacked axis.  The reference's sharding hooks (``repro.sharding.context``)
 are the identity on one card and are left out.
 
-Other families are not ported yet: building them raises
+The encoder-decoder family is in ``encdec.py``.  The MoE and VLM
+families are not ported yet: building them raises
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -15,21 +17,22 @@ from __future__ import annotations
 
 import torch
 
-from .attention import decode_attention_paged, gqa_attention
+from .attention import decode_attention, decode_attention_paged, \
+    gqa_attention
 from .config import ModelConfig
 from .layers import (ParamSpec, apply_rope, attention_template, linear, mlp,
                      mlp_template, norm_template, rms_norm)
 from .ssm import (mamba2_block, mamba2_decode_step, ssm_state_shape,
                   ssm_template)
 
-__all__ = ["decoder_template", "decoder_forward", "decoder_decode_step_paged",
-           "decoder_prefill_chunk", "paged_cache_shapes", "require_ported"]
+__all__ = ["decoder_template", "decoder_forward", "decoder_decode_step",
+           "decoder_decode_step_paged", "decoder_prefill_chunk",
+           "init_cache_shapes", "paged_cache_shapes", "require_ported"]
 
-_PORTED = ("dense", "ssm", "hybrid")
+_PORTED = ("dense", "ssm", "hybrid", "encdec")
 _NOT_PORTED = {
     "moe": "ROADMAP Queue A 6 (MoE and VLM families)",
     "vlm": "ROADMAP Queue A 6 (MoE and VLM families)",
-    "encdec": "ROADMAP Queue A 12 (encoder-decoder)",
 }
 
 
@@ -181,6 +184,92 @@ def decoder_forward(params, cfg: ModelConfig, tokens, positions=None, *,
     return logits, cache, torch.zeros((), device=h.device)
 
 
+# ------------------------------------------------------- dense-cache decode
+
+def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    """{name: (shape, dtype)} of the dense decode cache, nested as the
+    reference's: per-row attention KV (L or G, B, max_len, KV, dh) bf16
+    (G = ceil(L / every) group layers for the hybrid; a ring of max_len
+    slots under a sliding window) and, for the recurrent families,
+    {"ssm": {"ssd" f32, "conv" bf16}} per row."""
+    require_ported(cfg)
+    out = {}
+    if cfg.family in ("dense", "hybrid"):
+        n_kv = len(_groups(cfg)) if cfg.family == "hybrid" else cfg.n_layers
+        shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        out["k"] = (shape, torch.bfloat16)
+        out["v"] = (shape, torch.bfloat16)
+    if cfg.family in ("ssm", "hybrid"):
+        ss = ssm_state_shape(cfg, batch)
+        out["ssm"] = {
+            "ssd": ((cfg.n_layers,) + ss["ssd"], torch.float32),
+            "conv": ((cfg.n_layers,) + ss["conv"], torch.bfloat16),
+        }
+    return out
+
+
+def _update_cache(cache_l, new, pos):
+    """cache_l: (B, S, KV, dh); new: (B, 1, KV, dh); pos: (B,) write
+    index, clamped to S - 1 as ``lax.dynamic_update_slice`` clamps it.
+    Writes in place."""
+    b, s_max = cache_l.shape[:2]
+    rows = torch.arange(b, device=cache_l.device)
+    cache_l[rows, torch.clamp(pos.long(), max=s_max - 1)] = \
+        new[:, 0].to(cache_l.dtype)
+
+
+def _attn_decode(cfg, p, h, k_cache, v_cache, cache_len, *, window: int):
+    """h: (B,1,D); k_cache/v_cache: (B, S_max, KV, dh) of one layer.
+    Writes this step's KV at ``cache_len`` (at ``cache_len % S_max`` in a
+    ring, ``window > 0``), in place, then attends with ``cache_len + 1``."""
+    q, k, v = _qkv(cfg, p, h, cache_len[:, None])
+    write = cache_len % k_cache.shape[1] if window > 0 else cache_len
+    _update_cache(k_cache, k, write)
+    _update_cache(v_cache, v, write)
+    o = decode_attention(q, k_cache, v_cache, cache_len + 1, window=window)
+    return _wo_proj(p, o)
+
+
+def _dense_block_decode(cfg, lp, h, k_cache, v_cache, cache_len, *,
+                        window: int):
+    h = h + _attn_decode(cfg, lp["attn"],
+                         rms_norm(lp["ln1"], h, cfg.norm_eps), k_cache,
+                         v_cache, cache_len, window=window)
+    return h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
+                   cfg.activation)
+
+
+def decoder_decode_step(params, cfg: ModelConfig, token, cache, cache_len):
+    """One decode step over the dense per-row cache.  token: (B,1) int;
+    cache_len: (B,) int, tokens already in the cache.  Returns (logits
+    (B,1,V), cache).
+
+    Unlike the reference, which is functional and returns a new cache,
+    the KV and recurrent state in ``cache`` are updated in place (as the
+    paged step updates its pools): the returned cache is the same dict,
+    and the caller's cache is no longer the pre-step cache.  The
+    recurrent families advance every row's state whatever ``cache_len``
+    is, as the reference does."""
+    require_ported(cfg)
+    h = params["embed"][token.long()]                      # (B,1,D)
+    window = _window(cfg)
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            h = _dense_block_decode(
+                cfg, _layer(params["layers"], i), h, cache["k"][i],
+                cache["v"][i], cache_len, window=window)
+        return _logits(params, cfg, h), cache
+    for gi, group in enumerate(_groups(cfg)):
+        for i in group:
+            h = _ssm_decode(cfg, _layer(params["layers"], i), h,
+                            cache["ssm"], i, None)
+        if cfg.family == "hybrid":
+            h = _dense_block_decode(
+                cfg, params["shared_attn"], h, cache["k"][gi],
+                cache["v"][gi], cache_len, window=window)
+    return _logits(params, cfg, h), cache
+
+
 # ---------------------------------------------------------- paged serving
 
 def paged_cache_shapes(cfg: ModelConfig, n_pages: int, page_size: int,
@@ -232,8 +321,8 @@ def _attn_decode_paged(cfg, p, x, k_pool, v_pool, cache_len, block_tables,
     return _wo_proj(p, o)
 
 
-def _dense_block_decode(cfg, lp, h, k_pool, v_pool, cache_len, block_tables,
-                        *, window: int, page: int):
+def _dense_block_decode_paged(cfg, lp, h, k_pool, v_pool, cache_len,
+                              block_tables, *, window: int, page: int):
     h = h + _attn_decode_paged(
         cfg, lp["attn"], rms_norm(lp["ln1"], h, cfg.norm_eps), k_pool,
         v_pool, cache_len, block_tables, window=window, page=page)
@@ -270,7 +359,7 @@ def decoder_decode_step_paged(params, cfg: ModelConfig, token, cache,
     window = _window(cfg)
     if cfg.family == "dense":
         for i in range(cfg.n_layers):
-            h = _dense_block_decode(
+            h = _dense_block_decode_paged(
                 cfg, _layer(params["layers"], i), h, cache["k"][i],
                 cache["v"][i], cache_len, block_tables, window=window,
                 page=page_size)
@@ -280,7 +369,7 @@ def decoder_decode_step_paged(params, cfg: ModelConfig, token, cache,
             h = _ssm_decode(cfg, _layer(params["layers"], i), h,
                             cache["ssm"], i, active)
         if cfg.family == "hybrid":
-            h = _dense_block_decode(
+            h = _dense_block_decode_paged(
                 cfg, params["shared_attn"], h, cache["k"][gi],
                 cache["v"][gi], cache_len, block_tables, window=window,
                 page=page_size)

@@ -1,7 +1,9 @@
 """CUDA kernels and the engine on the card: each hand-written kernel
-against its plain PyTorch version(s) in bf16, and the engine's fused path
+against its plain PyTorch version(s) in bf16, the engine's fused path
 against its orchestrated path under the tolerance contract, for the dense,
-SSM and hybrid families.
+SSM and hybrid families, and the dense-cache Model.decode_step (the
+encoder-decoder, mamba2 and zamba2 held to a teacher-forced forward, and
+llama3.2-1b against its paged decode).
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -18,9 +20,10 @@ import repro_torch.core as port_core
 import repro_torch.serving as port_serving
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import (
-    PAGED_DECODE_KERNEL, decode_attention_paged_op)
+    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, decode_attention_op,
+    decode_attention_paged_op)
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_paged_reference)
+    decode_attention_dense_reference, decode_attention_paged_reference)
 from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
                                                      flash_attention)
 from repro_torch.kernels.flash_attention.ref import attention_reference
@@ -32,9 +35,24 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_reference,
                                               ssd_sequential_reference)
 from repro_torch.models import build_model
 from repro_torch.testing import assert_tokens_close
+from repro_torch.testing.generate import (dense_cache_from_prefill,
+                                          greedy_generate,
+                                          teacher_forced_check)
 
 ARCH = "llama3.2-1b"
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# q scale of a peaked draw: scores of std 3, O(1) attention outputs
+PEAKED_Q = 3.0
+
+
+def _attn_close(got, want):
+    """An attention kernel against its plain version: BF16_TOL, with the
+    absolute part capped at a tenth of want's RMS (a wide softmax over n
+    keys gives outputs of about sqrt(e / n), the size of BF16_TOL)."""
+    got, want = got.float(), want.float()
+    rms = float(want.pow(2).mean().sqrt())
+    torch.testing.assert_close(got, want, rtol=BF16_TOL["rtol"],
+                               atol=min(BF16_TOL["atol"], 0.1 * rms))
 
 
 @pytest.fixture
@@ -63,7 +81,7 @@ def test_cuda_flash_vs_plain(cuda, s_past, start, c, window):
     torch.cuda.synchronize()
     assert FLASH_PREFILL_KERNEL.launches == n0 + 1
     want = attention_reference(q, k, v, pos, kv_pos, window=window)
-    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    _attn_close(got, want)
 
 
 @pytest.mark.gpu
@@ -86,7 +104,7 @@ def test_cuda_paged_decode_vs_plain(cuda, dh, window):
     assert PAGED_DECODE_KERNEL.launches == n0 + 1
     want = decode_attention_paged_reference(q, kp, vp, tables, cl,
                                             window=window)
-    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    _attn_close(got, want)
 
 
 @pytest.mark.gpu
@@ -174,7 +192,7 @@ def test_cuda_attention_kernels_at_zamba2_shapes(cuda):
                        dtype=torch.int32)
     got = decode_attention_paged_op(q, kp, vp, tables, cl)
     want = decode_attention_paged_reference(q, kp, vp, tables, cl)
-    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    _attn_close(got, want)
     c = 1024
     q = torch.randn(1, c, h, dh, generator=g, device=cuda).bfloat16()
     k = torch.randn(1, c, kvh, dh, generator=g, device=cuda).bfloat16()
@@ -182,7 +200,7 @@ def test_cuda_attention_kernels_at_zamba2_shapes(cuda):
     pos = torch.arange(c, device=cuda, dtype=torch.int32)
     got = flash_attention(q, k, v, pos, pos)
     want = attention_reference(q, k, v, pos, pos)
-    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    _attn_close(got, want)
 
 
 @pytest.mark.gpu
@@ -246,3 +264,159 @@ def test_cuda_engine_fused_close_to_orchestrated(cuda):
                    for r in reqs)
         out[mode] = [r.output_tokens for r in reqs]
     assert_tokens_close(out["fused"], out["orchestrated"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,dh", [(32, 8, 64), (16, 16, 64),
+                                      (12, 2, 128), (48, 1, 128)])
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("q_scale", [1.0, PEAKED_Q])
+def test_cuda_dense_decode_vs_plain(cuda, h, kvh, dh, window, q_scale):
+    """The dense-cache decode kernel: GQA, MHA, dh 128 and granite's MQA
+    (48 heads of 128 over one kv head, split over blocks); with a ring of
+    300 slots some rows have wrapped (cache_len up to S_max + 200), and
+    S_max is not a multiple of the kernel's 64-row tile.  A flat draw (a
+    wide softmax) and a peaked one (O(1) outputs)."""
+    g = torch.Generator(device=cuda).manual_seed(h + dh + window)
+    b, s_max = 8, 300
+    q = (torch.randn(b, h, dh, generator=g, device=cuda)
+         * q_scale).bfloat16()
+    k = torch.randn(b, s_max, kvh, dh, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, s_max, kvh, dh, generator=g, device=cuda).bfloat16()
+    hi = s_max + 200 if window else s_max
+    cl = torch.randint(1, hi + 1, (b,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    cl[0], cl[1] = hi, 1
+    n0 = DENSE_DECODE_KERNEL.launches
+    got = decode_attention_op(q, k, v, cl, window=window)
+    torch.cuda.synchronize()
+    assert DENSE_DECODE_KERNEL.launches == n0 + 1
+    want = decode_attention_dense_reference(q, k, v, cl, window=window)
+    _attn_close(got, want)
+    # a per-layer view of a stacked (L, B, S_max, KV, dh) cache, no copy
+    stacked = torch.stack([k, k])
+    got = decode_attention_op(q, stacked[1], torch.stack([v, v])[1], cl,
+                              window=window)
+    _attn_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq", [(1, 4096), (8, 128), (8, 1)])
+@pytest.mark.parametrize("q_scale", [1.0, PEAKED_Q])
+def test_cuda_flash_noncausal_at_seamless_shapes(cuda, b, sq, q_scale):
+    """Bidirectional flash at seamless-m4t-medium's shapes (H16/KV16, dh
+    64, 4096 encoder frames): encoder self-attention, a prompt's
+    cross-attention and one decode step's; a flat and a peaked draw."""
+    cfg = get_config("seamless-m4t-medium")
+    h, kvh, dh, sk = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 4096
+    g = torch.Generator(device=cuda).manual_seed(b + sq)
+    q = (torch.randn(b, sq, h, dh, generator=g, device=cuda)
+         * q_scale).bfloat16()
+    k = torch.randn(b, sk, kvh, dh, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, sk, kvh, dh, generator=g, device=cuda).bfloat16()
+    pos = torch.arange(sq, device=cuda, dtype=torch.int32)
+    kv_pos = torch.arange(sk, device=cuda, dtype=torch.int32)
+    n0 = FLASH_PREFILL_KERNEL.launches
+    got = flash_attention(q, k, v, pos, kv_pos, causal=False)
+    torch.cuda.synchronize()
+    assert FLASH_PREFILL_KERNEL.launches == n0 + 1
+    want = attention_reference(q, k, v, pos, kv_pos, causal=False)
+    _attn_close(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_encdec_decode_matches_forward(cuda):
+    """seamless-m4t-medium at full width, cut to 2 encoder and 2 decoder
+    layers: 1024 frames, 64-token prompts, 32 greedy decode steps over a
+    dense cache, held to a teacher-forced forward under the tolerance
+    contract, through the dense-decode and flash kernels."""
+    cfg = get_config("seamless-m4t-medium").with_overrides(
+        n_layers=2, n_encoder_layers=2)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = build_model(cfg)
+    params = model.init(g)
+    b, prompt, steps = 4, 64, 32
+    batch = {"tokens": torch.randint(3, cfg.vocab_size, (b, prompt),
+                                     generator=g, device=cuda),
+             "frames": (torch.randn(b, 1024, cfg.d_model, generator=g,
+                                    device=cuda) * 0.02).bfloat16()}
+    n_dense, n_flash = DENSE_DECODE_KERNEL.launches, \
+        FLASH_PREFILL_KERNEL.launches
+    run = greedy_generate(model, params, batch, 128, steps)
+    assert run["finite"]
+    assert DENSE_DECODE_KERNEL.launches - n_dense == steps * 2
+    # encoder 2, decoder self 2, prefill cross 2, one cross per step-layer
+    assert FLASH_PREFILL_KERNEL.launches - n_flash == 6 + steps * 2
+    stats = teacher_forced_check(model, params, batch, run, "encdec")
+    assert stats["positions"] == b * (steps + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,cut", [
+    ("mamba2-2.7b", dict(n_layers=2)),
+    ("zamba2-1.2b", dict(n_layers=2, hybrid_attn_every=1))])
+def test_cuda_recurrent_dense_decode_matches_forward(cuda, arch, cut):
+    """The SSM and hybrid families at full width, cut to 2 layers (zamba2
+    with the shared attention after each: two group layers, two KV views
+    through the dense-decode kernel; at random weights bf16 rounding
+    differences grow with Mamba2 depth, so deeper cuts stop being
+    comparable, see chip_smoke.py): 64-token prompts, 32 greedy steps
+    over the dense cache, the recurrent state updated in place, held to
+    a teacher-forced forward under the tolerance contract."""
+    cfg = get_config(arch).with_overrides(**cut)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    model = build_model(cfg)
+    params = model.init(g)
+    b, prompt, steps = 4, 64, 32
+    batch = {"tokens": torch.randint(3, cfg.vocab_size, (b, prompt),
+                                     generator=g, device=cuda)}
+    groups = -(-cfg.n_layers // cfg.hybrid_attn_every) \
+        if cfg.family == "hybrid" else 0
+    n0 = (DENSE_DECODE_KERNEL.launches, FLASH_PREFILL_KERNEL.launches,
+          SSD_SCAN_KERNEL.launches)
+    run = greedy_generate(model, params, batch, 128, steps)
+    assert run["finite"]
+    assert DENSE_DECODE_KERNEL.launches - n0[0] == steps * groups
+    assert FLASH_PREFILL_KERNEL.launches - n0[1] == groups
+    assert SSD_SCAN_KERNEL.launches - n0[2] == cfg.n_layers
+    stats = teacher_forced_check(model, params, batch, run, arch)
+    assert stats["positions"] == b * (steps + 1)
+
+
+@pytest.mark.gpu
+def test_cuda_dense_cache_decode_matches_paged(cuda):
+    """llama3.2-1b at full width, cut to 4 layers: from one prefill, 16
+    steps over the dense cache and over the paged pool (block tables of
+    16-token pages), both fed the dense path's greedy tokens, give logits
+    within the tolerance contract's max_logit_diff (5e-2)."""
+    cfg = get_config(ARCH).with_overrides(n_layers=4)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    model = build_model(cfg)
+    params = model.init(g)
+    b, prompt, page, steps = 4, 100, 16, 16
+    tokens = torch.randint(3, cfg.vocab_size, (b, prompt), generator=g,
+                           device=cuda)
+    last, pre = model.prefill(params, {"tokens": tokens})
+    dense = dense_cache_from_prefill(model, pre, b, 128)
+    p_max = 128 // page
+    paged = model.init_paged_cache(b * p_max + 1, page, b, device=cuda)
+    tables = (torch.arange(b * p_max, device=cuda, dtype=torch.int32)
+              .reshape(b, p_max) + 1).contiguous()
+    for name in ("k", "v"):
+        flat = paged[name].view(cfg.n_layers, -1, cfg.n_kv_heads,
+                                cfg.head_dim)
+        for r in range(b):
+            pos = torch.arange(prompt, device=cuda)
+            slot = tables[r, pos // page].long() * page + pos % page
+            flat[:, slot] = pre[name][:, r]
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    n0 = DENSE_DECODE_KERNEL.launches
+    for i in range(steps):
+        cl = torch.full((b,), prompt + i, dtype=torch.int32, device=cuda)
+        ld, dense = model.decode_step(params, tok, dense, cl)
+        lp, paged = model.decode_step_paged(params, tok, paged, cl, tables,
+                                            page_size=page)
+        torch.testing.assert_close(ld.float(), lp.float(), rtol=0,
+                                   atol=5e-2)
+        tok = torch.argmax(ld, dim=-1).to(torch.int32)[:, None]
+    assert DENSE_DECODE_KERNEL.launches - n0 == steps * cfg.n_layers

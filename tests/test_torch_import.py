@@ -44,12 +44,12 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(name)\n"
         "from repro_torch.kernels.gittins.kernel import GITTINS_KERNEL\n"
         "from repro_torch.kernels.decode_attention.kernel import "
-        "PAGED_DECODE_KERNEL\n"
+        "DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL\n"
         "from repro_torch.kernels.flash_attention.kernel import "
         "FLASH_PREFILL_KERNEL\n"
         "from repro_torch.kernels.ssd_scan.kernel import SSD_SCAN_KERNEL\n"
         "for k in (GITTINS_KERNEL, PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL,\n"
-        "          SSD_SCAN_KERNEL):\n"
+        "          SSD_SCAN_KERNEL, DENSE_DECODE_KERNEL):\n"
         "    assert k._lib is None, k.symbol\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -60,9 +60,10 @@ def test_every_module_imports_with_jax_blocked():
 def test_module_names_mirror_the_reference():
     """``repro_torch.X`` is the counterpart of ``repro.X``: every ported
     module has a twin of the same name (kernels.build, models.bridge and
-    the CUDA bindings are the port's own additions)."""
+    the CUDA bindings are the port's own additions, and so is
+    testing.generate, the dense-cache generate drive and its check)."""
     own = {"repro_torch.kernels.build", "repro_torch.models.bridge",
-           "repro_torch.launch"}
+           "repro_torch.launch", "repro_torch.testing.generate"}
     ref = {p.relative_to(ROOT / "src").with_suffix("").as_posix()
            .replace("/", ".").removesuffix(".__init__")
            for p in (ROOT / "src" / "repro").rglob("*.py")}

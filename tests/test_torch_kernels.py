@@ -13,22 +13,32 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.decode_attention.ops import decode_attention_op \
+    as jax_dense_op
 from repro.kernels.decode_attention.ops import decode_attention_paged_op \
     as jax_paged_op
+from repro.kernels.decode_attention.ref import decode_attention_reference \
+    as jax_dense_oracle
 from repro.kernels.flash_attention.ops import flash_attention \
     as jax_flash
+from repro.models.attention import decode_attention as jax_decode_dense
 from repro.models.attention import decode_attention_paged \
     as jax_decode_paged
+from repro.models.attention import encoder_attention as jax_encoder_attn
 from repro.models.attention import gqa_attention as jax_gqa
 from repro_torch.kernels.decode_attention.ops import (
-    PAGED_DECODE_KERNEL, decode_attention_paged_op)
+    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, _check_dense,
+    decode_attention_op, decode_attention_paged_op)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_dense_reference, decode_attention_reference)
 from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
                                                      flash_attention)
 from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
                                              gittins_attained)
 from repro_torch.models.attention import (combine_lse_partials,
+                                          decode_attention,
                                           decode_attention_paged,
-                                          gqa_attention)
+                                          encoder_attention, gqa_attention)
 
 # one intra-op thread: the suite runs files in parallel workers, and
 # torch's default thread pool per worker would oversubscribe the CPU
@@ -36,6 +46,8 @@ torch.set_num_threads(1)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# tests/test_kernels.py::_tol, the bar of its dense decode kernel test
+KERNEL_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": BF16_TOL}
 
 
 def _bf16_values(a: np.ndarray) -> np.ndarray:
@@ -191,6 +203,149 @@ def test_combine_lse_partials_matches_full_softmax():
                                atol=1e-6)
 
 
+# ------------------------------------------------------------- dense decode
+
+def _dense_case(rng, b, s, h, kvh, dh, window):
+    """q, caches and cache_len as tests/test_kernels.py draws them: ragged
+    lengths in [1, S), and up to S + 200 for a ring (some rows wrapped)."""
+    q = rng.normal(0, 1, (b, h, dh)).astype(np.float32)
+    k = rng.normal(0, 1, (b, s, kvh, dh)).astype(np.float32)
+    v = rng.normal(0, 1, (b, s, kvh, dh)).astype(np.float32)
+    hi = s + 200 if window else s
+    cl = rng.integers(1, hi, (b,)).astype(np.int32)
+    return q, k, v, cl
+
+
+# the four cases of tests/test_kernels.py::test_decode_attention_vs_oracle
+DENSE_CASES = [
+    (2, 512, 8, 2, 64, 0, 128),      # GQA
+    (3, 1024, 4, 1, 128, 0, 256),    # MQA (granite-style)
+    (2, 512, 8, 8, 64, 512, 128),    # ring buffer (sliding window)
+    (1, 640, 4, 4, 64, 0, 128),      # S not a power of two
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kvh,dh,window,blk", DENSE_CASES)
+def test_dense_decode_plain_vs_pallas(b, s, h, kvh, dh, window, blk, dtype):
+    """The op's plain version against the Pallas kernel in interpret
+    mode, on the same values in the same dtype."""
+    rng = np.random.default_rng(b * 1000 + s + window)
+    q, k, v, cl = _dense_case(rng, b, s, h, kvh, dh, window)
+    if dtype == "bfloat16":
+        q, k, v = (_bf16_values(x) for x in (q, k, v))
+    jdt = getattr(jnp, dtype)
+    want = np.asarray(jax_dense_op(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(cl), window=window, block_s=blk, force_pallas=True),
+        np.float32)
+    tdt = getattr(torch, dtype)
+    got = decode_attention_op(*(torch.from_numpy(x).to(tdt)
+                                for x in (q, k, v)),
+                              torch.from_numpy(cl), window=window)
+    assert got.dtype == tdt and got.shape == (b, h, dh)
+    np.testing.assert_allclose(got.float().numpy(), want, **KERNEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,h,kvh,dh,window,blk", DENSE_CASES)
+def test_dense_decode_oracle_twin(b, s, h, kvh, dh, window, blk):
+    """The port's counterpart of the JAX oracle (normalise before the
+    value sum) against it, and against the model-numerics plain version."""
+    rng = np.random.default_rng(s + h + window)
+    q, k, v, cl = _dense_case(rng, b, s, h, kvh, dh, window)
+    want = np.asarray(jax_dense_oracle(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(cl),
+                                       window=window))
+    args = [torch.from_numpy(x) for x in (q, k, v, cl)]
+    got = decode_attention_reference(*args, window=window)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    late = decode_attention_dense_reference(*args, window=window)
+    np.testing.assert_allclose(late.numpy(), got.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("window,hi", [(0, 300), (64, 300), (300, 500)])
+def test_dense_decode_model_vs_jnp_twin(window, hi):
+    """models.attention.decode_attention, port vs reference, f32 q over
+    bf16 caches; a ring of 256 slots with cache_len up to S_max + 200
+    (``hi`` - 1 = 299, and 499 for the last case) wraps some rows."""
+    rng = np.random.default_rng(17 + window)
+    b, s, h, kvh, dh = 4, 256, 8, 2, 64
+    q = rng.normal(0, 1, (b, 1, h, dh)).astype(np.float32)
+    k = _bf16_values(rng.normal(0, 1, (b, s, kvh, dh)))
+    v = _bf16_values(rng.normal(0, 1, (b, s, kvh, dh)))
+    cl = rng.integers(1, hi, (b,)).astype(np.int32)
+    cl[0] = s + 199 if window else s - 1        # one row wrapped (ring)
+    want = np.asarray(jax_decode_dense(
+        jnp.asarray(q), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), jnp.asarray(cl), window=window))
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(k).bfloat16(),
+                           torch.from_numpy(v).bfloat16(),
+                           torch.from_numpy(cl), window=window)
+    assert got.shape == (b, 1, h, dh)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_dense_decode_ring_rule():
+    """Once a ring has wrapped every slot is valid, so a windowed call at
+    cache_len >= S_max sees the whole cache, and below S_max only the
+    first cache_len slots: the same as an unwindowed call clamped to
+    S_max."""
+    rng = np.random.default_rng(5)
+    q, k, v, _ = _dense_case(rng, 3, 96, 4, 2, 64, 0)
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    cl = torch.tensor([40, 96, 250], dtype=torch.int32)
+    ring = decode_attention_op(*args, cl, window=8)
+    clamped = decode_attention_op(*args, torch.clamp(cl, max=96))
+    assert torch.equal(ring, clamped)
+    assert not torch.equal(ring[0], decode_attention_op(
+        *args, torch.full((3,), 96, dtype=torch.int32))[0])
+
+
+def test_dense_decode_launch_checks():
+    """The checks the op makes before a CUDA launch (run here on CPU
+    tensors of the right and the wrong kind): dh 64 / 128 only, matching
+    shapes, contiguous bf16 and int32."""
+    q = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
+    kc = torch.zeros(2, 32, 2, 64, dtype=torch.bfloat16)
+    cl = torch.ones(2, dtype=torch.int32)
+    _check_dense(q, kc, kc, cl)
+    _check_dense(torch.zeros(2, 48, 128, dtype=torch.bfloat16),
+                 torch.zeros(2, 9, 1, 128, dtype=torch.bfloat16),
+                 torch.zeros(2, 9, 1, 128, dtype=torch.bfloat16), cl)
+    bad = [
+        (q[..., :32].contiguous(), kc[..., :32].contiguous(),
+         kc[..., :32].contiguous(), cl, "head dim"),
+        (q[:, :7].contiguous(), kc, kc, cl, "head dim"),
+        (q, kc, kc[:, :16].contiguous(), cl, "mismatched"),
+        (q, kc, kc, cl[:1], "mismatched"),
+        (q.float(), kc, kc, cl, "contiguous"),
+        (q, kc.transpose(1, 2), kc.transpose(1, 2), cl, "head dim"),
+        (q, kc[:, ::2], kc[:, ::2], cl, "contiguous"),
+        (q, kc, kc, cl.long(), "contiguous"),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError, match=args[-1]):
+            _check_dense(*args[:-1])
+
+
+@pytest.mark.parametrize("sq,sk,kvh", [(12, 12, 4), (5, 40, 2), (1, 40, 4)])
+def test_encoder_attention_vs_jnp_twin(sq, sk, kvh):
+    """Bidirectional attention (encoder self, prompt cross, one-query
+    decode cross) through the flash op's plain version, port vs
+    reference."""
+    rng = np.random.default_rng(sq * 100 + sk)
+    q = rng.normal(0, 1, (2, sq, 4, 64)).astype(np.float32)
+    k = rng.normal(0, 1, (2, sk, kvh, 64)).astype(np.float32)
+    v = rng.normal(0, 1, (2, sk, kvh, 64)).astype(np.float32)
+    want = np.asarray(jax_encoder_attn(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v)))
+    got = encoder_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    with pytest.raises(ValueError, match="kv_mask"):
+        encoder_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                          kv_mask=torch.ones(2, sk, dtype=torch.bool))
+
+
 # ------------------------------------------------------ device dispatching
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
@@ -211,11 +366,16 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     s = torch.empty(8, 4, device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
         gittins_attained(s, s, torch.empty(8, device=meta))
+    cache = torch.empty(1, 64, 2, 64, dtype=torch.bfloat16, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_attention_op(q[:, 0], cache, cache,
+                            torch.empty(1, dtype=torch.int32, device=meta))
 
 
 def test_cpu_calls_launch_nothing():
-    before = (GITTINS_KERNEL.launches, PAGED_DECODE_KERNEL.launches,
-              FLASH_PREFILL_KERNEL.launches)
+    kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL,
+               DENSE_DECODE_KERNEL)
+    before = [k.launches for k in kernels]
     rng = np.random.default_rng(0)
     q, kp, vp, tables, cl = _paged_case(rng, 2, 4, 2, 64, 8, 8, 2)
     decode_attention_paged_op(*(torch.from_numpy(x) for x in
@@ -225,5 +385,8 @@ def test_cpu_calls_launch_nothing():
     flash_attention(x, x[:, :, :2], x[:, :, :2], pos, pos)
     gittins_attained(torch.ones(8, 4), torch.full((8, 4), 0.25),
                      torch.zeros(8))
-    assert before == (GITTINS_KERNEL.launches, PAGED_DECODE_KERNEL.launches,
-                      FLASH_PREFILL_KERNEL.launches)
+    q, k, v, cl = _dense_case(rng, 2, 32, 4, 2, 64, 8)
+    decode_attention_op(*(torch.from_numpy(x) for x in (q, k, v, cl)),
+                        window=8)
+    encoder_attention(x, x[:, :, :2], x[:, :, :2])
+    assert before == [k.launches for k in kernels]

@@ -26,7 +26,14 @@ Phases:
      hold the SSD scan kernel against its two plain versions (chunked and
      sequential) at the mamba2-2.7b and zamba2-1.2b prefill shapes, with
      short- and long-memory decays, check that end padding leaves its
-     result bit-unchanged, and time it;
+     result bit-unchanged, and time it; hold the partial (out, lse) paged
+     kernel against its plain version stripe by stripe at qwen2-1.5b's
+     tp = 4 shape (H12/KV2, dh 128) and llama3.2-1b's (H32/KV8, dh 64),
+     2048-token tables split in 4 with rows short enough that later
+     stripes are fully masked (out 0, lse <= -1e29, no NaN), the stripes
+     merged by combine_lse_partials against the unsplit paged kernel and
+     the plain version, and time it beside its byte bound, its plain
+     version and the library call that returns the same (out, lse);
   4. serve at full width, from random weights of a seed, llama3.2-1b,
      mamba2-2.7b (SSM) and zamba2-1.2b (hybrid): SageSched with the
      CUDA Gittins backend, 8 slots x 2048 tokens, 16 greedy requests in
@@ -34,6 +41,19 @@ Phases:
      fused, once orchestrated.  Every request must finish, the scheduler
      must preempt and swap, the streams must agree under the tolerance
      contract, and every kernel of the model's path must have launched;
+  4b. serve qwen2-1.5b at full width tensor-parallel, every shard on the
+     one card (make_local_mesh(devices=["cuda:0"] * tp)), the same mix
+     (fused): (a) without a mesh; (b) parallel="exact", tp 2, held
+     token-identical to (a); (c) parallel="efficient", tp 2 (heads,
+     MLP and vocab sharded); (d) parallel="efficient", tp 4 (kv heads 2
+     do not divide: the LSE split, one stripe per shard), fused and
+     orchestrated.  Each drive must finish every request, preempt and
+     swap, report its plan's branch and launch each kernel of its path
+     exactly as often as the path calls it; (c) and (d) hold one decode
+     step of the plan to the same step without a mesh on the same pool
+     and inputs (logits within TP_STEP_ULPS bf16 steps, argmax identical
+     but where the unsharded maximum is within 2 steps), and print their
+     streams' match rate against (a);
   5. generate at full width through Model.prefill -> Model.decode_step
      over the dense cache, from random weights of a seed:
      seamless-m4t-medium (all 12 + 12 layers; 8 x 4096 frames, 128-token
@@ -78,10 +98,12 @@ from repro_torch.core import (CudaPriorityBackend, Scheduler,  # noqa: E402
                               gittins_index_batch, make_policy)
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
-    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, decode_attention_op,
+    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
+    decode_attention_op, decode_attention_paged_lse_op,
     decode_attention_paged_op)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
-    decode_attention_dense_reference, decode_attention_paged_reference)
+    decode_attention_dense_reference, decode_attention_paged_lse_reference,
+    decode_attention_paged_reference)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     FLASH_PREFILL_KERNEL, flash_attention)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -94,13 +116,16 @@ from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
     SSD_SCAN_KERNEL, ssd_scan)
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked_reference, ssd_sequential_reference)
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    decode_attention_paged)
 from repro_torch.models.encdec import encode  # noqa: E402
 from repro_torch.serving import (RequestState, ServeRequest,  # noqa: E402
                                  ServingEngine)
 from repro_torch.testing import assert_tokens_close  # noqa: E402
 from repro_torch.testing.generate import (  # noqa: E402
-    greedy_generate, teacher_forced_check)
+    bf16_ulp, greedy_generate, teacher_forced_check)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores
@@ -116,9 +141,23 @@ ATTN_RMS_FRACTION = 0.1
 # softmax and the outputs are O(1)
 PEAKED_Q = 3.0
 GITTINS_RTOL = 1e-4      # f32 kernel vs plain version
+# the partial kernel's lse (f32, max and sum of another order) vs plain
+LSE_TOL = 1e-4
 # SSD final state (f32, sums of up to a chunk's terms in another order)
 SSD_STATE_TOL = 1e-3
 SERVED = ("llama3.2-1b", "mamba2-2.7b", "zamba2-1.2b")
+# phase 4b: (label, tp, parallel, step modes); tp None = no mesh
+TP_ARCH = "qwen2-1.5b"
+TP_DRIVES = (("a", None, "exact", ("fused",)),
+             ("b", 2, "exact", ("fused",)),
+             ("c", 2, "efficient", ("fused",)),
+             ("d", 4, "efficient", ("fused", "orchestrated")))
+# phase 4b: one decode step of an efficient plan vs the same step without
+# a mesh, max |logit| difference in bf16 steps at the largest |logit|: its
+# drift on an H100 (2.00 for tp 2, 1.81 for tp 4; the step is
+# deterministic), rounded up to a whole step, plus one so that the bar
+# does not sit on the measured value
+TP_STEP_ULPS = 3
 # phase 5: (arch, depth cut, drive) through Model.prefill ->
 # Model.decode_step.  ``logit_ulps`` is the drive's teacher-forced logit
 # bar in bf16 steps (``teacher_forced_check``): its drift on an H100,
@@ -536,6 +575,164 @@ def phase_ssd(dev, gen) -> dict:
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
 
 
+def phase_flash_dh128(dev, gen) -> float:
+    """The flash kernel at qwen2-1.5b's chunked-prefill shapes (H12/KV2,
+    dh 128; phase 4b's path): a first 512-token chunk and a chunk whose
+    gathered prefix carries masked rows past its start.  Returns the
+    largest max abs error."""
+    cfg = get_config(TP_ARCH)
+    err = 0.0
+    for s_past, start, c in ((0, 0, 512), (512, 448, 256)):
+        q, k, v, pos, kv_pos = flash_case(cfg, dev, gen, s_past, start, c)
+        got = flash_attention(q, k, v, pos, kv_pos)
+        want = attention_reference(q, k, v, pos, kv_pos)
+        torch.cuda.synchronize()
+        err = max(err, attn_check(f"flash prefill {cfg.name} (bf16, H"
+                                  f"{cfg.n_heads}/KV{cfg.n_kv_heads}, dh "
+                                  f"{cfg.head_dim}, C={c}, S_past={s_past}, "
+                                  f"start={start})", got, want))
+    ms = cuda_ms(lambda: flash_attention(q, k, v, pos, kv_pos))
+    print(f"  flash prefill {cfg.name} (C={c}, S_past={s_past}): kernel "
+          f"{ms:.4f} ms")
+    return err
+
+
+def lse_case(dev, gen, h, kvh, dh, q_scale=1.0):
+    """Partial paged decode at the tp = 4 serving shape: 8 lanes, 2048-token
+    tables (128 pages of 16) split in 4 stripes of 32 pages, rows of 1 to
+    2048 tokens (the short ones leave the later stripes fully masked)."""
+    b, page, p_max = 8, 16, 128
+    n_pages = b * p_max + 1
+    q = (torch.randn(b, h, dh, generator=gen, device=dev)
+         * q_scale).bfloat16()
+    kp = torch.randn(n_pages, page, kvh, dh, generator=gen,
+                     device=dev).bfloat16()
+    vp = torch.randn(n_pages, page, kvh, dh, generator=gen,
+                     device=dev).bfloat16()
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tables = perm[:b * p_max].reshape(b, p_max).to(torch.int32).contiguous()
+    cl = torch.tensor([1, 100, 511, 512, 513, 1000, 1600, 2048],
+                      dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, cl
+
+
+def stripe(tables, cl, s: int, n: int = 4, page: int = 16):
+    """Stripe s of n: its column slice of the tables and its lengths."""
+    per = tables.shape[1] // n
+    return (tables[:, s * per:(s + 1) * per].contiguous(),
+            torch.clamp(cl - s * per * page, min=0).contiguous())
+
+
+def lse_bytes_flops(q, kvh, bt, cl, page: int = 16):
+    """Bytes the call must move (q, the stripe's valid K and V rows -- a
+    row's positions up to the stripe's end --, its table and lengths once;
+    out and lse written once) and its flops."""
+    b, h, dh = q.shape
+    valid = float(torch.clamp(cl.long(), max=bt.shape[1] * page).sum())
+    n_bytes = (2 * q.numel() * 2 + 2 * valid * kvh * dh * 2 + bt.numel() * 4
+               + b * 4 + b * h * 4)
+    return n_bytes, 4.0 * valid * h * dh
+
+
+def phase_lse(dev, gen) -> dict:
+    """The partial (out, lse) paged kernel against its plain version, per
+    stripe, at qwen2-1.5b's tp = 4 shape and llama3.2-1b's; the merged
+    stripes against the unsplit kernel and the plain version; times at
+    qwen2's first stripe (every row has positions there)."""
+    err = 0.0
+    for arch in (TP_ARCH, "llama3.2-1b"):
+        cfg = get_config(arch)
+        h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+            q, kp, vp, tables, cl = lse_case(dev, gen, h, kvh, dh, q_scale)
+            what = f"paged lse {arch} {draw} (bf16, H{h}/KV{kvh}, dh {dh})"
+            for s in range(4):
+                bt, cls = stripe(tables, cl, s)
+                out, lse = decode_attention_paged_lse_op(q, kp, vp, bt, cls)
+                want_o, want_l = decode_attention_paged_lse_reference(
+                    q, kp, vp, bt, cls)
+                torch.cuda.synchronize()
+                live = cls > 0
+                if not (torch.isfinite(out).all()
+                        and torch.isfinite(lse).all()):
+                    raise SystemExit(f"FAIL {what}: non-finite output")
+                dead_out, dead_lse = 0.0, -math.inf
+                if bool((~live).any()):
+                    dead_out = float(out[~live].float().abs().max())
+                    dead_lse = max(float(lse[~live].max()),
+                                   float(want_l[~live].max()))
+                print(f"  {what} stripe {s}: {int((~live).sum())} rows "
+                      f"fully masked, their |out| max {dead_out:g}, lse max "
+                      f"{dead_lse:.4g}")
+                if dead_out != 0.0 or dead_lse > -1e29:
+                    raise SystemExit(f"FAIL {what}: a fully masked stripe "
+                                     "must give out 0 and lse <= -1e29")
+                err = max(err, attn_check(f"{what} stripe {s}: out",
+                                          out[live], want_o[live]))
+                check(f"{what} stripe {s}: lse (f32)", lse[live],
+                      want_l[live], LSE_TOL)
+            merged = decode_attention_paged(q[:, None], kp, vp, tables, cl,
+                                            n_splits=4)[:, 0]
+            whole = decode_attention_paged_op(q, kp, vp, tables, cl)
+            plain = decode_attention_paged_reference(q, kp, vp, tables, cl)
+            torch.cuda.synchronize()
+            err = max(err, attn_check(f"{what}: 4 stripes merged vs the "
+                                      "unsplit kernel", merged, whole))
+            err = max(err, attn_check(f"{what}: 4 stripes merged vs plain",
+                                      merged, plain))
+            if arch == TP_ARCH and draw == "flat":
+                timed = (q, kp, vp) + stripe(tables, cl, 0)
+    q, kp, vp, bt, cls = timed
+    ms = cuda_ms(lambda: decode_attention_paged_lse_op(q, kp, vp, bt, cls))
+    plain_ms = cuda_ms(lambda: decode_attention_paged_lse_reference(
+        q, kp, vp, bt, cls), iters=5)
+    # the library call that returns the same (out, lse): memory-efficient
+    # SDPA with compute_log_sumexp over the gathered stripe (heads
+    # expanded: it takes no GQA), a boolean mask as an additive bias
+    b, h, dh = q.shape
+    page, kvh = kp.shape[1], kp.shape[2]
+    s_len = bt.shape[1] * page
+    tok = ((bt.long() * page)[:, :, None]
+           + torch.arange(page, device=dev)).reshape(b, s_len)
+    rep = h // kvh
+    kd = kp.reshape(-1, kvh, dh)[tok].repeat_interleave(rep, 2) \
+        .transpose(1, 2).contiguous()
+    vd = vp.reshape(-1, kvh, dh)[tok].repeat_interleave(rep, 2) \
+        .transpose(1, 2).contiguous()
+    qd = q[:, :, None, :].contiguous()
+    masked = torch.arange(s_len, device=dev)[None, :] >= cls[:, None].long()
+    bias = torch.zeros(b, h, 1, s_len, dtype=q.dtype, device=dev)
+    bias.masked_fill_(masked[:, None, None, :], float("-inf"))
+    lib_name = "aten._scaled_dot_product_efficient_attention " \
+               "(compute_log_sumexp=True)"
+    lib = getattr(torch.ops.aten, "_scaled_dot_product_efficient_attention",
+                  None)
+    try:
+        if lib is None:
+            raise RuntimeError("the op is missing from this PyTorch")
+        lib(qd, kd, vd, bias, True)
+    except RuntimeError as e:
+        # the yardstick only (no kernel of the port runs here): say so
+        lib_name = (f"SDPA without lse ({lib_name} refused: "
+                    f"{str(e).splitlines()[0][:120]})")
+        lib = None
+    if lib is not None:
+        lib_ms = cuda_ms(lambda: lib(qd, kd, vd, bias, True))
+    else:
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=bias))
+    n_bytes, flops = lse_bytes_flops(q, kvh, bt, cls)
+    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    print(f"  paged lse {TP_ARCH} stripe 0 of 4 (B 8, 32 pages): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by}; {n_bytes / 1e6:.2f} MB)")
+    return {"name": "decode_attention_paged_lse", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:275",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+
+
 # --------------------------------------------------------------- phase 4
 
 class ShapeRecordingBackend(CudaPriorityBackend):
@@ -571,7 +768,7 @@ def make_requests(cfg, seed: int):
 
 def serve(cfg, params, dev, step_mode: str, *, n_slots=8, max_seq_len=2048,
           capacity_tokens=8192, prefill_chunk=512, first_wave_steps=24,
-          seed=0):
+          seed=0, mesh=None, parallel="exact"):
     """Serve the two waves; returns (engine, requests, seconds, backend)."""
     backend = ShapeRecordingBackend(dev)
     engine = ServingEngine(
@@ -580,7 +777,8 @@ def serve(cfg, params, dev, step_mode: str, *, n_slots=8, max_seq_len=2048,
                             priority_backend=backend, bucket_size=50),
         n_slots=n_slots, max_seq_len=max_seq_len,
         capacity_tokens=capacity_tokens, prefill_chunk=prefill_chunk,
-        params=params, step_mode=step_mode, seed=seed, device=dev)
+        params=params, step_mode=step_mode, seed=seed, device=dev,
+        mesh=mesh, parallel=parallel)
     waves = make_requests(cfg, seed)
     t0 = time.perf_counter()
     engine.submit_batch(waves[0])
@@ -667,6 +865,162 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
     total = {s: launches["fused"][s] + launches["orchestrated"][s]
              for s in launches["fused"]}
     return total, max_shape
+
+
+# -------------------------------------------------------------- phase 4b
+
+def tp_launches(cfg, engine, m) -> dict:
+    """The attention launches a drive's path makes: per decode call one
+    paged kernel per layer and attention shard (kv-head shards where the
+    plan shards attention, else one), or, under the LSE split, one partial
+    kernel per layer and stripe; per prefill chunk one flash kernel per
+    layer and attention shard."""
+    report = engine.sharding_report() or {"attention": "replicated",
+                                          "attn_splits": 1}
+    shards = engine.tp if report["attention"] == "sharded" else 1
+    per_step = cfg.n_layers * m["decode_iterations"]
+    lse = report["attn_splits"] > 1
+    return {PAGED_DECODE_KERNEL.symbol: 0 if lse else per_step * shards,
+            PAGED_LSE_KERNEL.symbol: per_step * engine.tp if lse else 0,
+            FLASH_PREFILL_KERNEL.symbol:
+                cfg.n_layers * m["prefill_chunks"] * shards}
+
+
+def tp_step_check(cfg, params, engine, dev) -> dict:
+    """One decode step of ``engine``'s plan against the same step without
+    a mesh, on the same pool and inputs: 8 rows of 37..512 tokens whose
+    K/V a forward over random 512-token prompts wrote into a paged pool.
+    Holds the logits within TP_STEP_ULPS bf16 steps (at the unsharded
+    step's largest |logit|) and the argmax identical except where the
+    plan's pick lies within 2 steps of the unsharded maximum."""
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, page = 8, 512, 16
+    L, kvh, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    toks = torch.randint(3, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev)
+    _, cache, _ = model.forward(params, {"tokens": toks}, collect_cache=True)
+    p = s // page + 1
+    tables = (1 + torch.arange(b * p, device=dev, dtype=torch.int32)
+              ).reshape(b, p)
+    pool = model.init_paged_cache(b * p + 1, page, b, device=dev)
+    idx = (tables[:, :s // page].long()[:, :, None] * page
+           + torch.arange(page, device=dev)).reshape(b * s)
+    for name in ("k", "v"):
+        pool[name].view(L, -1, kvh, dh)[:, idx] = \
+            cache[name].reshape(L, b * s, kvh, dh)
+    del cache
+    cl = torch.tensor([37, 129, 250, 300, 401, 466, 500, 512],
+                      dtype=torch.int32, device=dev)
+    last = toks[:, -1:]
+    want, _ = model.decode_step_paged(
+        params, last, {k: v.clone() for k, v in pool.items()}, cl, tables,
+        page_size=page)
+    plan = engine.plan
+    with plan.context():
+        got, _ = model.decode_step_paged(
+            engine.params, last, plan.place_cache(pool), cl, tables,
+            page_size=page)
+    if isinstance(got, list):
+        got = plan.all_gather(got, -1)
+    torch.cuda.synchronize()
+    want, got = want.float(), got.float()
+    if not torch.isfinite(got).all():
+        raise SystemExit("FAIL tp step: non-finite logits")
+    step = float(bf16_ulp(want.abs().max()))
+    drift = float((got - want).abs().max()) / step
+    wmax = want.max(dim=-1).values
+    pick = got.argmax(dim=-1)
+    flip = pick != want.argmax(dim=-1)
+    margin = (wmax - want.gather(-1, pick[:, None])[:, 0]) / bf16_ulp(wmax)
+    out = {"drift_ulps": drift, "flips": int(flip.sum()),
+           "flip_ulps_max": float(margin[flip].max()) if bool(flip.any())
+           else 0.0}
+    print(f"    one decode step vs no mesh: max logit diff {drift:.2f} bf16 "
+          f"steps (bar {TP_STEP_ULPS}; step {step:.4g} at max |logit| "
+          f"{float(want.abs().max()):.4g}), argmax differs at "
+          f"{out['flips']}/{b} rows (largest margin "
+          f"{out['flip_ulps_max']:.2f} steps, excused within 2)")
+    if drift > TP_STEP_ULPS or bool((flip & (margin > 2)).any()):
+        raise SystemExit("FAIL tp step: the plan's decode step is not "
+                         "within its bars of the unsharded step")
+    return out
+
+
+def phase_serve_tp(dev) -> dict:
+    """qwen2-1.5b at full width through the drives of TP_DRIVES, every
+    shard on the one card.  Returns the summed launches."""
+    cfg = get_config(TP_ARCH)
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
+               FLASH_PREFILL_KERNEL)
+    total = {k.symbol: 0 for k in kernels}
+    streams = {}
+    for label, tp, parallel, modes in TP_DRIVES:
+        mesh = None if tp is None else make_local_mesh(
+            tp=tp, devices=[dev] * tp)
+        for mode in modes:
+            for kern in kernels:
+                kern.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            engine, reqs, secs, _ = serve(cfg, params, dev, mode, mesh=mesh,
+                                          parallel=parallel)
+            launches = {k.symbol: k.launches for k in kernels}
+            m = engine.metrics.summary(reqs)
+            gen_tokens = sum(r.generated for r in reqs)
+            ttft = np.array([r.ttft for r in reqs])
+            ttlt = np.array([r.ttlt for r in reqs])
+            report = engine.sharding_report()
+            branch = "no mesh" if report is None else (
+                f"tp {tp} {parallel}: attention {report['attention']}, "
+                f"attn_splits {report['attn_splits']}, vocab "
+                f"{report['vocab']}, mlp {report['mlp']}")
+            print(f"  ({label}) serve[{mode}] {TP_ARCH} {branch} "
+                  f"{torch.cuda.get_device_name(0)}: {len(reqs)}/{len(reqs)} "
+                  f"finished, {gen_tokens} tokens in {secs:.3f} s = "
+                  f"{gen_tokens / secs:.1f} tok/s, TTFT p50 "
+                  f"{np.median(ttft):.4f} s, TTLT p50 {np.median(ttlt):.4f} "
+                  f"s, preemptions {m['preemptions']}, swap outs "
+                  f"{m['swap_outs']}, swap ins {m['swap_ins']}, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+                  f"decode calls {m['decode_iterations']}, launches "
+                  f"{launches}")
+            if m["preemptions"] == 0 or m["swap_outs"] == 0:
+                raise SystemExit(f"FAIL tp ({label}): the scheduler did not "
+                                 "preempt and swap")
+            want = tp_launches(cfg, engine, m)
+            if {k: launches[k] for k in want} != want \
+                    or launches[GITTINS_KERNEL.symbol] == 0:
+                raise SystemExit(f"FAIL tp ({label}): launches {launches}, "
+                                 f"the path calls {want} and Gittins")
+            expect = {"a": None,
+                      "b": ("sharded", 1, "replicated", "replicated"),
+                      "c": ("sharded", 1, "sharded", "sharded"),
+                      "d": ("lse-split", 4, "sharded", "sharded")}[label]
+            if (report and (report["attention"], report["attn_splits"],
+                            report["vocab"], report["mlp"])) != expect:
+                raise SystemExit(f"FAIL tp ({label}): plan {report}")
+            got = [r.output_tokens for r in reqs]
+            streams[label, mode] = got
+            if label == "b" and got != streams["a", "fused"]:
+                raise SystemExit("FAIL tp (b): exact tp=2 is not "
+                                 "token-identical to no mesh")
+            if label in ("b", "c", "d"):
+                st = assert_tokens_close(got, streams["a", "fused"],
+                                         min_match_rate=0.0)
+                print(f"    streams vs (a): match rate {st['rate']:.4f} "
+                      f"({st['matched']}/{st['compared']}, "
+                      f"{st['divergences']} streams diverged)")
+            if label in ("c", "d") and mode == "fused":
+                tp_step_check(cfg, params, engine, dev)
+            for k, n in launches.items():
+                total[k] += n
+            del engine
+            torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return total
 
 
 # --------------------------------------------------------------- phase 5
@@ -869,6 +1223,10 @@ def main() -> int:
             phase_dense_decode(dev, gen), phase_ssd(dev, gen)]
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
                                  phase_flash_noncausal(dev, gen))
+    # this PR's checks draw after the earlier ones, which keep their inputs
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
+                                 phase_flash_dh128(dev, gen))
+    rows.append(phase_lse(dev, gen))
 
     launches, shape = {}, (0, 0)
     for arch in SERVED:
@@ -881,6 +1239,13 @@ def main() -> int:
             launches[sym] = launches.get(sym, 0) + n
         if shp[0] * shp[1] > shape[0] * shape[1]:
             shape = shp
+    cfg = get_config(TP_ARCH)
+    print(f"phase 4b: serving {cfg.name} at full width tensor-parallel "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, H{cfg.n_heads}/"
+          f"KV{cfg.n_kv_heads}, vocab {cfg.vocab_size}), every shard on "
+          f"{torch.cuda.get_device_name(0)}")
+    for sym, n in phase_serve_tp(dev).items():
+        launches[sym] = launches.get(sym, 0) + n
     for arch, cut, kw in GENERATE_DRIVES:
         cfg = get_config(arch).with_overrides(**cut)
         layers = (f"{cfg.n_encoder_layers} + {cfg.n_layers}"
@@ -897,7 +1262,8 @@ def main() -> int:
                "decode_attention_paged": PAGED_DECODE_KERNEL.symbol,
                "flash_attention_prefill": FLASH_PREFILL_KERNEL.symbol,
                "decode_attention_dense": DENSE_DECODE_KERNEL.symbol,
-               "ssd_scan": SSD_SCAN_KERNEL.symbol}
+               "ssd_scan": SSD_SCAN_KERNEL.symbol,
+               "decode_attention_paged_lse": PAGED_LSE_KERNEL.symbol}
     for row in rows:
         row["launches"] = launches[symbols[row["name"]]]
     idle = [r["name"] for r in rows if r["launches"] == 0]

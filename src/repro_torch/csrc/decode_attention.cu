@@ -1,8 +1,9 @@
-// Decode attention: one query token per batch row, in two kernels that
-// share this file's helpers.  decode_attention_paged (below) reads the
+// Decode attention: one query token per batch row, in three entry points
+// that share this file's helpers.  decode_attention_paged (below) reads the
 // shared (n_pages, page, KV, dh) KV pool through (B, P) block tables;
-// decode_attention_dense (after it) reads dense per-row (B, S_max, KV, dh)
-// caches and has its own header further down.
+// decode_attention_paged_lse (after it) is the same body flushing a partial
+// softmax; decode_attention_dense (further down) reads dense per-row
+// (B, S_max, KV, dh) caches and has its own header.
 //
 // The paged kernel.
 //
@@ -34,6 +35,33 @@
 // position masked): the reference averages all P * page values uniformly
 // (exp(-1e30 - -1e30) = 1), this kernel visits no page and writes 0.  The
 // engine always passes cache_len + 1 >= 1 (transformer.py:500).
+//
+// The partial (LSE) paged kernel.
+//
+// Replaces src/repro/kernels/decode_attention/kernel.py::
+// decode_attention_paged_lse_kernel (its pl.pallas_call at kernel.py:314,
+// body _paged_kernel_lse at :175): the same masked scores over only the
+// pages of this call's tables, flushing out = acc / max(l, 1e-30) (bf16,
+// normalised over those pages) and lse = m + log(max(l, 1e-30)) (f32), the
+// partial that models/attention.py::combine_lse_partials merges across the
+// stripes of the logical page axis (tensor-parallel serving's LSE split,
+// when the kv heads do not divide the mesh: one launch per stripe).  It is
+// paged_decode_kernel with its template flag set: the flag adds only the
+// lse store after the unchanged output store, so decode_attention_paged
+// compiles to the same arithmetic as before the flag existed.  Bound and
+// design as the paged kernel's (the lse store is B * H floats).
+//
+// A fully masked row is the normal case here, not an edge case: a short
+// row has no positions in the later stripes (the caller passes cache_len
+// clipped at 0 there).  The kernel visits no page for it and writes out 0
+// and lse = -1e30 + log(1e-30), which f32 rounds to -1e30: finite and far
+// below any real lse, so the merge gives the stripe weight exactly 0.  It
+// never writes NaN or -inf.  The reference writes the same lse but the
+// uniform average of the row's values as out; the merge weighs either by 0.
+//
+// A stripe is a column slice of the block tables; the op makes it
+// contiguous (it is B * P / n int32 entries) and passes it as a table of
+// width P / n, so both entry points take the same arguments.
 #include "common.cuh"
 
 namespace {
@@ -41,14 +69,16 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxOutPerThread = 8;  // rep * dh <= 1024
 
-template <int DH>
+// kLse: also store lse = m + log(max(l, 1e-30)) per (row, head) in f32
+template <int DH, bool kLse>
 __global__ void paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                                     const __nv_bfloat16* __restrict__ k_pool,
                                     const __nv_bfloat16* __restrict__ v_pool,
                                     const int* __restrict__ tables,
                                     const int* __restrict__ cache_len,
-                                    __nv_bfloat16* __restrict__ out, int H,
-                                    int KV, int page, int P, int window,
+                                    __nv_bfloat16* __restrict__ out,
+                                    float* __restrict__ lse, int H, int KV,
+                                    int page, int P, int window,
                                     float scale) {
   constexpr int kRowWords = DH / 2 + 1;  // padded row of bf16 pairs
   const int g = blockIdx.x;              // kv head
@@ -137,13 +167,19 @@ __global__ void paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     const int idx = tid + j * kThreads;
     if (idx >= n_out) break;
     o_row[idx] = __float2bfloat16(acc[j] / fmaxf(l[j], 1e-30f));
+    // the thread holding a head's first output holds its m and l
+    if constexpr (kLse) {
+      if (idx % DH == 0)
+        lse[static_cast<size_t>(b) * H + g * rep + idx / DH] =
+            m[j] + logf(fmaxf(l[j], 1e-30f));
+    }
   }
 }
 
-template <int DH>
+template <int DH, bool kLse>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* cache_len, void* out, int B,
-           int H, int KV, int page, int P, int window, float scale,
+           const void* tables, const void* cache_len, void* out, float* lse,
+           int B, int H, int KV, int page, int P, int window, float scale,
            cudaStream_t stream) {
   const int rep = H / KV;
   const size_t smem = (static_cast<size_t>(rep) * DH + rep * page) *
@@ -153,13 +189,30 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   if (rep * DH > kThreads * kMaxOutPerThread || smem > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(KV, B);
-  paged_decode_kernel<DH><<<grid, kThreads, smem, stream>>>(
+  paged_decode_kernel<DH, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool),
       static_cast<const int*>(tables), static_cast<const int*>(cache_len),
-      static_cast<__nv_bfloat16*>(out), H, KV, page, P, window, scale);
+      static_cast<__nv_bfloat16*>(out), lse, H, KV, page, P, window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kLse>
+int launch_paged(const void* q, const void* k_pool, const void* v_pool,
+                 const void* tables, const void* cache_len, void* out,
+                 float* lse, int B, int H, int KV, int dh, int page, int P,
+                 int window, float scale, void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || page <= 0 || P <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64)
+    return launch<64, kLse>(q, k_pool, v_pool, tables, cache_len, out, lse,
+                            B, H, KV, page, P, window, scale, s);
+  if (dh == 128)
+    return launch<128, kLse>(q, k_pool, v_pool, tables, cache_len, out, lse,
+                             B, H, KV, page, P, window, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -174,16 +227,24 @@ REPRO_EXPORT int decode_attention_paged(const void* q, const void* k_pool,
                                         int B, int H, int KV, int dh,
                                         int page, int P, int window,
                                         float scale, void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || page <= 0 || P <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh == 64)
-    return launch<64>(q, k_pool, v_pool, tables, cache_len, out, B, H, KV,
-                      page, P, window, scale, s);
-  if (dh == 128)
-    return launch<128>(q, k_pool, v_pool, tables, cache_len, out, B, H, KV,
-                       page, P, window, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_paged<false>(q, k_pool, v_pool, tables, cache_len, out,
+                             nullptr, B, H, KV, dh, page, P, window, scale,
+                             stream);
+}
+
+// As decode_attention_paged, plus lse: (B, H) f32.  tables is the (B, P)
+// table of this call's pages (a stripe, made contiguous by the caller).
+REPRO_EXPORT int decode_attention_paged_lse(const void* q, const void* k_pool,
+                                            const void* v_pool,
+                                            const void* tables,
+                                            const void* cache_len, void* out,
+                                            void* lse, int B, int H, int KV,
+                                            int dh, int page, int P,
+                                            int window, float scale,
+                                            void* stream) {
+  return launch_paged<true>(q, k_pool, v_pool, tables, cache_len, out,
+                            static_cast<float*>(lse), B, H, KV, dh, page, P,
+                            window, scale, stream);
 }
 
 // ---------------------------------------------------------------------------

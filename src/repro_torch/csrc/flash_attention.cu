@@ -19,17 +19,22 @@
 // below the 989 TFLOP/s bf16 peak.  wgmma and TMA are for a later PR.
 //
 // Design: one block per (64-row query tile, query head, batch row), 128
-// threads as 8 x 16 (ty, tx).  The block keeps its Q tile in shared memory
+// threads as 8 x 16 (ty, tx), for a head dim DH of 64 (llama3.2-1b,
+// zamba2-1.2b, seamless-m4t-medium) or 128 (qwen2-1.5b), a template
+// parameter: DH sets only the row width of the Q, K and V tiles, the
+// length of the score dot product and the outputs a thread owns.  The block keeps its Q tile in shared memory
 // and loops over 64-row key tiles of its kv head (h / rep: GQA without
 // repeated heads in memory).  Before loading a key tile it loads the tile's
 // positions and skips the tile when no (query, key) pair of the block is
 // visible (__syncthreads_or), which drops the causal upper triangle and the
 // masked prefix rows.  Thread (ty, tx) owns query rows ty + 8i (i < 8) and
-// key columns / output dims tx + 16j (j < 4): 32 scores, then the row max
-// and sum reduce over the 16 lanes of its half warp, p goes to shared
-// memory, and the thread accumulates its 32 outputs in registers.  Q and K
-// rows are padded by one word so the 16 lanes of a row group, which read 16
-// different key rows, hit 16 different banks.
+// key columns tx + 16j (j < 4) and output dims tx + 16j (j < DH / 16): 32
+// scores, then the row max and sum reduce over the 16 lanes of its half
+// warp, p goes to shared memory, and the thread accumulates its 8 * DH / 16
+// outputs in registers.  Q and K rows are padded by one word so the 16
+// lanes of a row group, which read 16 different key rows, hit 16 different
+// banks.  The tiles live in dynamic shared memory (66.6 KB at DH 128, over
+// the 48 KB of static shared memory a block may declare).
 //
 // Differs from the reference only for a query row that sees no key at all:
 // the reference averages V uniformly; this kernel's output there is not
@@ -39,22 +44,32 @@
 namespace {
 
 constexpr int kTile = 64;      // query rows and key rows per tile
-constexpr int kDh = 64;        // head dim (llama3.2-1b, and every reduced config)
 constexpr int kThreads = 128;  // 8 x 16
-constexpr int kRowWords = kDh / 2 + 1;  // padded row of bf16 pairs
 constexpr int kPStride = kTile + 1;
+
+// padded row of bf16 pairs
+template <int DH>
+__host__ __device__ constexpr int row_words() { return DH / 2 + 1; }
+
+template <int DH>
+constexpr size_t smem_bytes() {
+  return (3 * static_cast<size_t>(kTile) * row_words<DH>() +
+          static_cast<size_t>(kTile) * kPStride + 2 * kTile) * 4;
+}
 
 __device__ __forceinline__ bool visible(int qp, int kp, int causal,
                                         int window) {
   return kp >= 0 && (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
 }
 
-// Copy `rows` rows of kDh bf16 (row r at src + r * stride elements) into a
+// Copy `rows` rows of DH bf16 (row r at src + r * stride elements) into a
 // padded shared tile; rows past `valid` are zero.
+template <int DH>
 __device__ __forceinline__ void load_tile(unsigned* dst,
                                           const __nv_bfloat16* src,
                                           size_t stride, int valid, int tid) {
-  constexpr int kVec = kDh / 8;
+  constexpr int kVec = DH / 8;
+  constexpr int kRowWords = row_words<DH>();
   for (int i = tid; i < kTile * kVec; i += kThreads) {
     const int r = i / kVec, c = i % kVec;
     uint4 v = make_uint4(0, 0, 0, 0);
@@ -64,6 +79,7 @@ __device__ __forceinline__ void load_tile(unsigned* dst,
   }
 }
 
+template <int DH>
 __global__ void flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                                      const __nv_bfloat16* __restrict__ k,
                                      const __nv_bfloat16* __restrict__ v,
@@ -72,12 +88,16 @@ __global__ void flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
                                      __nv_bfloat16* __restrict__ out, int Sq,
                                      int Sk, int H, int KV, int causal,
                                      int window, float scale) {
-  __shared__ unsigned q_s[kTile * kRowWords];
-  __shared__ unsigned k_s[kTile * kRowWords];
-  __shared__ unsigned v_s[kTile * kRowWords];
-  __shared__ float p_s[kTile * kPStride];
-  __shared__ int qp_s[kTile];
-  __shared__ int kp_s[kTile];
+  constexpr int kDh = DH;
+  constexpr int kRowWords = row_words<DH>();
+  constexpr int kOut = DH / 16;  // output dims a thread owns per row
+  extern __shared__ unsigned smem_words[];
+  unsigned* q_s = smem_words;                        // [kTile][kRowWords]
+  unsigned* k_s = q_s + kTile * kRowWords;           // [kTile][kRowWords]
+  unsigned* v_s = k_s + kTile * kRowWords;           // [kTile][kRowWords]
+  float* p_s = reinterpret_cast<float*>(v_s + kTile * kRowWords);
+  int* qp_s = reinterpret_cast<int*>(p_s + kTile * kPStride);
+  int* kp_s = qp_s + kTile;
 
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
@@ -89,17 +109,18 @@ __global__ void flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
   const size_t q_stride = static_cast<size_t>(H) * kDh;
   const size_t kv_stride = static_cast<size_t>(KV) * kDh;
-  load_tile(q_s, q + (static_cast<size_t>(b) * Sq + q0) * q_stride + h * kDh,
-            q_stride, q_valid, tid);
+  load_tile<DH>(q_s, q + (static_cast<size_t>(b) * Sq + q0) * q_stride +
+                         h * kDh,
+                q_stride, q_valid, tid);
   if (tid < kTile) qp_s[tid] = tid < q_valid ? qpos[q0 + tid] : 0;
 
-  float m[8], l[8], acc[8][4];
+  float m[8], l[8], acc[8][kOut];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     m[i] = kNeg;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < kOut; ++j) acc[i][j] = 0.0f;
   }
 
   const int n_tiles = (Sk + kTile - 1) / kTile;
@@ -121,8 +142,8 @@ __global__ void flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     if (!__syncthreads_or(any)) continue;
 
     const size_t kv_base = (static_cast<size_t>(b) * Sk + k0) * kv_stride + g * kDh;
-    load_tile(k_s, k + kv_base, kv_stride, k_valid, tid);
-    load_tile(v_s, v + kv_base, kv_stride, k_valid, tid);
+    load_tile<DH>(k_s, k + kv_base, kv_stride, k_valid, tid);
+    load_tile<DH>(v_s, v + kv_base, kv_stride, k_valid, tid);
     __syncthreads();
 
     float s[8][4];
@@ -165,7 +186,7 @@ __global__ void flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
       const float corr = expf(m[i] - m_new);
       l[i] = l[i] * corr + half_warp_sum(rs);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < kOut; ++j) acc[i][j] *= corr;
       m[i] = m_new;
     }
     __syncthreads();
@@ -173,15 +194,15 @@ __global__ void flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* v_bf = reinterpret_cast<const __nv_bfloat16*>(v_s);
 #pragma unroll 4
     for (int c = 0; c < kTile; ++c) {
-      float vv[4];
+      float vv[kOut];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < kOut; ++j)
         vv[j] = __bfloat162float(v_bf[c * 2 * kRowWords + tx + 16 * j]);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float pc = p_s[(ty + 8 * i) * kPStride + c];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += pc * vv[j];
+        for (int j = 0; j < kOut; ++j) acc[i][j] += pc * vv[j];
       }
     }
   }
@@ -194,27 +215,50 @@ __global__ void flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* o = out + (static_cast<size_t>(b) * Sq + q0 + r) * q_stride +
                        h * kDh;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[tx + 16 * j] = __float2bfloat16(acc[i][j] * inv);
+    for (int j = 0; j < kOut; ++j)
+      o[tx + 16 * j] = __float2bfloat16(acc[i][j] * inv);
   }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, const void* qpos,
+           const void* kpos, void* out, int B, int Sq, int Sk, int H, int KV,
+           int causal, int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<DH>();
+  // above 48 KB a block's dynamic shared memory must be allowed first (per
+  // device, so on every launch)
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_prefill_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((Sq + kTile - 1) / kTile, H, B);
+  flash_prefill_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
+      static_cast<const int*>(kpos), static_cast<__nv_bfloat16*>(out), Sq, Sk,
+      H, KV, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q: (B, Sq, H, 64) bf16; k, v: (B, Sk, KV, 64) bf16; qpos: (Sq,) i32;
-// kpos: (Sk,) i32; out: (B, Sq, H, 64) bf16.  All contiguous.
+// q: (B, Sq, H, dh) bf16; k, v: (B, Sk, KV, dh) bf16; qpos: (Sq,) i32;
+// kpos: (Sk,) i32; out: (B, Sq, H, dh) bf16.  All contiguous.  dh is 64 or
+// 128.
 REPRO_EXPORT int flash_attention_prefill(const void* q, const void* k,
                                          const void* v, const void* qpos,
                                          const void* kpos, void* out, int B,
                                          int Sq, int Sk, int H, int KV,
                                          int dh, int causal, int window,
                                          float scale, void* stream) {
-  if (dh != kDh || B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  flash_prefill_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(kpos), static_cast<__nv_bfloat16*>(out), Sq, Sk,
-      H, KV, causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64)
+    return launch<64>(q, k, v, qpos, kpos, out, B, Sq, Sk, H, KV, causal,
+                      window, scale, s);
+  if (dh == 128)
+    return launch<128>(q, k, v, qpos, kpos, out, B, Sq, Sk, H, KV, causal,
+                       window, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,10 +1,10 @@
-"""Decode attention, paged and dense: the hand-written CUDA kernels
-(``csrc/decode_attention.cu``) for CUDA tensors, the plain versions in
-``ref.py`` for CPU tensors.
+"""Decode attention, paged (whole or partial) and dense: the hand-written
+CUDA kernels (``csrc/decode_attention.cu``) for CUDA tensors, the plain
+versions in ``ref.py`` for CPU tensors.
 
-Paged: as in the JAX op, the block tables are padded to a pow2 width with
-scratch page 0 first; the padded entries sit past every row's
-``cache_len`` and are masked.  Dense: the JAX op pads S_max to a
+Paged and partial paged: as in the JAX ops, the block tables are padded to
+a pow2 width with scratch page 0 first; the padded entries sit past every
+row's ``cache_len`` and are masked.  Dense: the JAX op pads S_max to a
 ``block_s`` multiple for its grid; the CUDA kernel takes any S_max and
 pads nothing (a pad would copy the whole cache on every call).
 """
@@ -14,12 +14,14 @@ from __future__ import annotations
 import torch
 
 from ..bucketing import pow2_bucket
-from .kernel import DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL
+from .kernel import DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL
 from .ref import (decode_attention_dense_reference,
+                  decode_attention_paged_lse_reference,
                   decode_attention_paged_reference)
 
 __all__ = ["decode_attention_op", "decode_attention_paged_op",
-           "DENSE_DECODE_KERNEL", "PAGED_DECODE_KERNEL"]
+           "decode_attention_paged_lse_op", "DENSE_DECODE_KERNEL",
+           "PAGED_DECODE_KERNEL", "PAGED_LSE_KERNEL"]
 
 _HEAD_DIMS = (64, 128)
 
@@ -48,6 +50,16 @@ def _check(q, k_pool, v_pool, block_tables, cache_len):
                              f"{t.dtype} on {t.device}")
 
 
+def _pad_tables(block_tables):
+    """The tables padded to a pow2 width with scratch page 0 (a contiguous
+    copy either way: a stripe of the tables is a column slice)."""
+    p_max = block_tables.shape[1]
+    pb = pow2_bucket(p_max)
+    if pb != p_max:
+        return torch.nn.functional.pad(block_tables, (0, pb - p_max))
+    return block_tables.contiguous()
+
+
 def decode_attention_paged_op(q, k_pool, v_pool, block_tables, cache_len, *,
                               window: int = 0) -> torch.Tensor:
     """q: (B, H, dh); pools (n_pages, page, KV, dh); block_tables (B, P)
@@ -56,11 +68,8 @@ def decode_attention_paged_op(q, k_pool, v_pool, block_tables, cache_len, *,
     On CUDA everything is bf16 (q, pools, output) and the result differs
     from the plain version only for a row with cache_len == 0, which the
     engine never passes (see ``csrc/decode_attention.cu``)."""
-    p_max = block_tables.shape[1]
-    pb = pow2_bucket(p_max)
-    if pb != p_max:
-        block_tables = torch.nn.functional.pad(block_tables,
-                                               (0, pb - p_max))
+    block_tables = _pad_tables(block_tables)
+    pb = block_tables.shape[1]
     dev = q.device
     if dev.type == "cpu":
         return decode_attention_paged_reference(
@@ -77,6 +86,41 @@ def decode_attention_paged_op(q, k_pool, v_pool, block_tables, cache_len, *,
                         dh ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     PAGED_DECODE_KERNEL.launches += 1
     return out
+
+
+def decode_attention_paged_lse_op(q, k_pool, v_pool, block_tables,
+                                  cache_len, *, window: int = 0):
+    """The partial paged decode over only the pages of ``block_tables``
+    (operands as ``decode_attention_paged_op``; the tables may be a column
+    stripe of a wider table).  Returns (out (B, H, dh) in q's dtype,
+    normalised over those pages; lse (B, H) f32), the partial that
+    ``models.attention.combine_lse_partials`` merges.
+
+    On CUDA everything but lse is bf16.  A row whose positions are all
+    masked (cache_len 0, or every position before the window) gets out 0
+    from the kernel, where the plain version averages the row's values
+    uniformly; both give lse = -1e30, which weighs it 0 in the merge (see
+    ``csrc/decode_attention.cu``)."""
+    block_tables = _pad_tables(block_tables)
+    dev = q.device
+    if dev.type == "cpu":
+        return decode_attention_paged_lse_reference(
+            q, k_pool, v_pool, block_tables, cache_len, window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention_paged_lse: unsupported device "
+                         f"{dev}")
+    _check(q, k_pool, v_pool, block_tables, cache_len)
+    b, h, dh = q.shape
+    _, page, kvh, _ = k_pool.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev)
+    PAGED_LSE_KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                     block_tables.data_ptr(), cache_len.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), b, h, kvh, dh, page,
+                     block_tables.shape[1], int(window), dh ** -0.5,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    PAGED_LSE_KERNEL.launches += 1
+    return out, lse
 
 
 def _check_dense(q, k_cache, v_cache, cache_len):

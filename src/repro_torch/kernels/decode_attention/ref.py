@@ -1,18 +1,46 @@
 """Plain PyTorch versions of the decode kernels, used by the tests and by
 CPU runs: the functions of ``repro/models/attention.py::
 decode_attention_paged`` (n_splits = 1) and ``decode_attention`` (dense,
-possibly ring-buffer caches), and the counterpart of the JAX package's
-dense oracle ``repro/kernels/decode_attention/ref.py::
-decode_attention_reference``, which normalises before the value sum."""
+possibly ring-buffer caches), the partial ``(out, lse)`` paged decode of
+``repro/kernels/decode_attention/ref.py::
+decode_attention_paged_lse_reference``, and the counterpart of the JAX
+package's dense oracle ``decode_attention_reference``, which normalises
+before the value sum."""
 
 from __future__ import annotations
 
 import torch
 
 __all__ = ["decode_attention_paged_reference",
+           "decode_attention_paged_lse_reference",
            "decode_attention_dense_reference", "decode_attention_reference"]
 
 _NEG = -1e30
+
+
+def _paged_scores(q, k_pool, v_pool, block_tables, cache_len, window: int):
+    """Each row's logical cache gathered through its table: f32 scores
+    (B, KV, rep, S) scaled by dh^-1/2, positions outside [cache_len -
+    window, cache_len) (the lower bound only with a window) at -1e30,
+    and the gathered values (B, S, KV, dh) in f32."""
+    b, h, dh = q.shape
+    n_pages, page, kvh, _ = k_pool.shape
+    s_log = block_tables.shape[1] * page
+    tok = (block_tables.long() * page)[:, :, None] \
+        + torch.arange(page, device=q.device)[None, None, :]
+    tok = tok.reshape(b, s_log)
+    k = k_pool.reshape(n_pages * page, kvh, dh)[tok].float()  # (B, S, KV, dh)
+    v = v_pool.reshape(n_pages * page, kvh, dh)[tok].float()
+    qg = q.float().reshape(b, kvh, h // kvh, dh)
+    scores = torch.einsum("bkrd,bskd->bkrs", qg, k) * dh ** -0.5
+    idx = torch.arange(s_log, device=q.device)
+    cl = cache_len.long()
+    valid = idx[None, :] < cl[:, None]                          # (B, S)
+    if window > 0:
+        valid &= idx[None, :] >= cl[:, None] - window
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, _NEG))
+    return scores, v
 
 
 def decode_attention_paged_reference(q, k_pool, v_pool, block_tables,
@@ -23,29 +51,34 @@ def decode_attention_paged_reference(q, k_pool, v_pool, block_tables,
     Gathers each row's logical cache through its table, then f32 scores,
     unnormalised exp and a late divide.  Returns (B, H, dh) in q's dtype."""
     b, h, dh = q.shape
-    n_pages, page, kvh, _ = k_pool.shape
-    rep = h // kvh
-    p_max = block_tables.shape[1]
-    s_log = p_max * page
-    tok = (block_tables.long() * page)[:, :, None] \
-        + torch.arange(page, device=q.device)[None, None, :]
-    tok = tok.reshape(b, s_log)
-    k = k_pool.reshape(n_pages * page, kvh, dh)[tok].float()  # (B, S, KV, dh)
-    v = v_pool.reshape(n_pages * page, kvh, dh)[tok].float()
-    qg = q.float().reshape(b, kvh, rep, dh)
-    scores = torch.einsum("bkrd,bskd->bkrs", qg, k) * dh ** -0.5
-    idx = torch.arange(s_log, device=q.device)
-    cl = cache_len.long()
-    valid = idx[None, :] < cl[:, None]                          # (B, S)
-    if window > 0:
-        valid &= idx[None, :] >= cl[:, None] - window
-    scores = torch.where(valid[:, None, None, :], scores,
-                         torch.full_like(scores, _NEG))
+    scores, v = _paged_scores(q, k_pool, v_pool, block_tables, cache_len,
+                              window)
     m = scores.max(dim=-1, keepdim=True).values
     p = torch.exp(scores - m)
     out = torch.einsum("bkrs,bskd->bkrd", p, v)
     out = out / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def decode_attention_paged_lse_reference(q, k_pool, v_pool, block_tables,
+                                         cache_len, *, window: int = 0):
+    """The partial paged decode over only the pages of this call's tables:
+    operands as ``decode_attention_paged_reference``.  Returns (out
+    (B, H, dh) in q's dtype, normalised over those pages; lse (B, H) f32
+    = m + log(max(l, 1e-30))), the partial that ``models.attention.
+    combine_lse_partials`` merges across page stripes.  As in the
+    reference, a call whose positions are all masked averages its values
+    uniformly and gives lse = -1e30 (+ log of the position count, which
+    f32 does not resolve), so its merge weight is exactly 0."""
+    b, h, dh = q.shape
+    scores, v = _paged_scores(q, k_pool, v_pool, block_tables, cache_len,
+                              window)
+    m = scores.max(dim=-1).values                               # (B, KV, rep)
+    p = torch.exp(scores - m[..., None])
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    out = torch.einsum("bkrs,bskd->bkrd", p / l[..., None], v)
+    return (out.reshape(b, h, dh).to(q.dtype),
+            (m + torch.log(l)).reshape(b, h))
 
 
 def _dense_scores(q, k_cache, cache_len, window: int):

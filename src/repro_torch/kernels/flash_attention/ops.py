@@ -11,18 +11,19 @@ from .ref import attention_reference
 
 __all__ = ["flash_attention", "FLASH_PREFILL_KERNEL"]
 
-HEAD_DIM = 64        # the CUDA kernel's head dim (llama3.2-1b)
+HEAD_DIMS = (64, 128)    # the CUDA kernel's head dims
 
 
 def _check(q, k, v, positions, kv_positions):
     dev = q.device
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    if dh != HEAD_DIM or k.shape != (b, sk, kvh, dh) or v.shape != k.shape \
-            or h % kvh:
+    if dh not in HEAD_DIMS or k.shape != (b, sk, kvh, dh) \
+            or v.shape != k.shape or h % kvh:
         raise ValueError(f"flash_attention: unsupported shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)} v "
-                         f"{tuple(v.shape)} (head dim must be {HEAD_DIM})")
+                         f"{tuple(v.shape)} (head dim must be one of "
+                         f"{HEAD_DIMS})")
     if positions.shape != (sq,) or kv_positions.shape != (sk,):
         raise ValueError(f"flash_attention: positions {tuple(positions.shape)}"
                          f" / kv_positions {tuple(kv_positions.shape)} do not "
@@ -43,7 +44,7 @@ def flash_attention(q, k, v, positions, kv_positions, *, causal: bool = True,
     kv_positions (Sk,) int32, a negative kv position masking its row.
     Returns (B, Sq, H, dh) in q's dtype.
 
-    On CUDA everything is bf16 with dh = 64; the result differs from the
+    On CUDA everything is bf16 with dh 64 or 128; the result differs from the
     plain version only for a query row that sees no key, which no caller
     makes (see ``csrc/flash_attention.cu``)."""
     dev = q.device

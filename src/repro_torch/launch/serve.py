@@ -6,9 +6,17 @@ flags as ``repro.launch.serve`` plus ``--device``.  The encoder-decoder
 paged engine does not take it, and it runs through ``Model.prefill`` and
 ``Model.decode_step``.
 
+``--tp N`` serves the dense family tensor-parallel over N cards (the
+reference's N devices), ``--parallel exact|efficient`` picks the plan,
+and ``--device-memory-gb`` refuses a configuration that does not fit one
+device before anything is allocated.  With ``--device cpu`` the N shards
+sit on the CPU.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --full --n-slots 8 --max-seq-len 2048
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --full --tp 4 --parallel efficient --device-memory-gb 80
 """
 
 from __future__ import annotations
@@ -40,13 +48,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="decode tokens per host round-trip (fused mode)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel width (not ported yet: ROADMAP "
-                         "Queue A 10)")
+                    help="tensor-parallel width of the dense family: needs "
+                         "tp cards (with --device cpu, tp CPU shards)")
     ap.add_argument("--parallel", default="exact",
-                    choices=("exact", "efficient"))
+                    choices=("exact", "efficient"),
+                    help="exact = token-identical sharding (KV pool only); "
+                         "efficient = Megatron column/row-parallel "
+                         "projections, vocab-sharded logits and LSE-split "
+                         "attention, held to the tolerance contract")
     ap.add_argument("--device-memory-gb", type=float, default=None,
-                    help="per-device memory preflight (not ported yet: "
-                         "ROADMAP Queue A 11)")
+                    help="per-device memory budget of the build-time "
+                         "preflight (refuses configs that cannot fit one "
+                         "shard; default: no check)")
     ap.add_argument("--full", action="store_true",
                     help="full (non-reduced) config")
     ap.add_argument("--gateway", action="store_true",
@@ -81,6 +94,10 @@ def main(argv=None):
         step_mode=args.step_mode, decode_steps=args.decode_steps,
         tp=args.tp, parallel=args.parallel,
         device_memory_gb=args.device_memory_gb, device=args.device)
+    if engine.plan is not None:
+        report = {k: v for k, v in engine.sharding_report().items()
+                  if k != "tensors"}
+        print(f"mesh: {report}")
 
     rng = np.random.default_rng(0)
     t0 = time.monotonic()

@@ -40,12 +40,12 @@ def _dec_block_template(cfg, layers):
 def encdec_template(cfg: ModelConfig):
     D, V = cfg.d_model, cfg.padded_vocab
     return {
-        "embed": ParamSpec((V, D), torch.bfloat16),
+        "embed": ParamSpec((V, D), torch.bfloat16, ("vocab", "embed")),
         "enc_layers": _enc_block_template(cfg, cfg.n_encoder_layers),
         "enc_norm": norm_template(D),
         "dec_layers": _dec_block_template(cfg, cfg.n_layers),
         "final_norm": norm_template(D),
-        "lm_head": ParamSpec((D, V), torch.bfloat16),
+        "lm_head": ParamSpec((D, V), torch.bfloat16, ("embed", "vocab")),
     }
 
 

@@ -1,7 +1,9 @@
 """Parameter templates and elementary layers (plain functions on tensors).
 
-Every parameter is declared by a ``ParamSpec(shape, dtype, init)`` record
-in a nested-dict *template*; ``init_from_template`` materialises the
+Every parameter is declared by a ``ParamSpec(shape, dtype, axes, init)``
+record in a nested-dict *template*, ``axes`` naming the logical axis of
+each dim as the reference does (``repro_torch.sharding.partitioning``
+resolves them onto a mesh); ``init_from_template`` materialises the
 weights from a ``torch.Generator`` on that generator's device.  Layouts,
 tree keys, dtypes (bf16 weights, f32 biases and norm scales) and the
 places where activations go up to f32 follow ``repro.models.layers``.
@@ -25,6 +27,7 @@ __all__ = [
 class ParamSpec(NamedTuple):
     shape: tuple
     dtype: torch.dtype
+    axes: tuple          # logical axis name per dim (None allowed)
     init: str = "normal"  # normal | zeros | ones | ssm_a
 
 
@@ -76,8 +79,10 @@ def init_from_template(template, generator: torch.Generator,
 # ---------------------------------------------------------------- templates
 
 def norm_template(d: int, layers: int | None = None):
-    shape = (d,) if layers is None else (layers, d)
-    return {"scale": ParamSpec(shape, torch.float32, "ones")}
+    shape, axes = (d,), ("embed",)
+    if layers is not None:
+        shape, axes = (layers, d), ("layers", "embed")
+    return {"scale": ParamSpec(shape, torch.float32, axes, "ones")}
 
 
 def attention_template(cfg, layers: int | None = None,
@@ -85,28 +90,41 @@ def attention_template(cfg, layers: int | None = None,
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bias = cfg.qkv_bias if bias is None else bias
     L = (layers,) if layers is not None else ()
+    la = ("layers",) if layers is not None else ()
     t = {
-        "wq": ParamSpec(L + (D, H * dh), torch.bfloat16),
-        "wk": ParamSpec(L + (D, KV * dh), torch.bfloat16),
-        "wv": ParamSpec(L + (D, KV * dh), torch.bfloat16),
-        "wo": ParamSpec(L + (H * dh, D), torch.bfloat16),
+        "wq": ParamSpec(L + (D, H * dh), torch.bfloat16,
+                        la + ("embed", "heads")),
+        "wk": ParamSpec(L + (D, KV * dh), torch.bfloat16,
+                        la + ("embed", "kv")),
+        "wv": ParamSpec(L + (D, KV * dh), torch.bfloat16,
+                        la + ("embed", "kv")),
+        # row-parallel under the efficient plan, replicated under exact
+        "wo": ParamSpec(L + (H * dh, D), torch.bfloat16,
+                        la + ("heads_out", "embed")),
     }
     if bias:
-        t["bq"] = ParamSpec(L + (H * dh,), torch.float32, "zeros")
-        t["bk"] = ParamSpec(L + (KV * dh,), torch.float32, "zeros")
-        t["bv"] = ParamSpec(L + (KV * dh,), torch.float32, "zeros")
+        t["bq"] = ParamSpec(L + (H * dh,), torch.float32, la + ("heads",),
+                            "zeros")
+        t["bk"] = ParamSpec(L + (KV * dh,), torch.float32, la + ("kv",),
+                            "zeros")
+        t["bv"] = ParamSpec(L + (KV * dh,), torch.float32, la + ("kv",),
+                            "zeros")
     return t
 
 
 def mlp_template(d_model: int, d_ff: int, activation: str,
                  layers: int | None = None):
     L = (layers,) if layers is not None else ()
+    la = ("layers",) if layers is not None else ()
     t = {
-        "w_in": ParamSpec(L + (d_model, d_ff), torch.bfloat16),
-        "w_out": ParamSpec(L + (d_ff, d_model), torch.bfloat16),
+        "w_in": ParamSpec(L + (d_model, d_ff), torch.bfloat16,
+                          la + ("embed", "mlp")),
+        "w_out": ParamSpec(L + (d_ff, d_model), torch.bfloat16,
+                           la + ("mlp", "embed")),
     }
     if activation == "swiglu":
-        t["w_gate"] = ParamSpec(L + (d_model, d_ff), torch.bfloat16)
+        t["w_gate"] = ParamSpec(L + (d_model, d_ff), torch.bfloat16,
+                                la + ("embed", "mlp"))
     return t
 
 

@@ -121,10 +121,14 @@ class Model:
         """token: (B,1); cache_len: (B,); block_tables: (B, P) int32.
         Returns ((B, V) logits, cache), the pools and recurrent state
         updated in place.  ``active`` (B,) bool, optional, freezes the
-        recurrent state of the rows where it is False."""
+        recurrent state of the rows where it is False.  Under a serving
+        plan with the vocab sharded the logits are the list of per-shard
+        (B, V / tp) column slices."""
         logits, cache = decoder_decode_step_paged(
             params, self.cfg, token, cache, cache_len, block_tables,
             page_size=page_size, active=active)
+        if isinstance(logits, list):
+            return [part[:, -1, :] for part in logits], cache
         return logits[:, -1, :], cache
 
     def prefill_chunk(self, params, tokens, past_k, past_v, start: int):

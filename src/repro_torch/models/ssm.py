@@ -25,16 +25,22 @@ __all__ = ["ssm_template", "ssd_chunked", "ssd_decode_step", "mamba2_block",
 def ssm_template(cfg, layers: int | None = None):
     D, DI, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     L = (layers,) if layers is not None else ()
+    la = ("layers",) if layers is not None else ()
     return {
-        "in_proj_x": ParamSpec(L + (D, DI), torch.bfloat16),
-        "in_proj_z": ParamSpec(L + (D, DI), torch.bfloat16),
-        "bc_proj": ParamSpec(L + (D, 2 * N), torch.bfloat16),
-        "dt_proj": ParamSpec(L + (D, H), torch.bfloat16),
-        "dt_bias": ParamSpec(L + (H,), torch.float32, "zeros"),
-        "a_log": ParamSpec(L + (H,), torch.float32, "ssm_a"),
-        "d_skip": ParamSpec(L + (H,), torch.float32, "ones"),
-        "conv_w": ParamSpec(L + (cfg.conv_kernel, DI), torch.float32),
-        "out_proj": ParamSpec(L + (DI, D), torch.bfloat16),
+        "in_proj_x": ParamSpec(L + (D, DI), torch.bfloat16,
+                               la + ("embed", "ssm_inner")),
+        "in_proj_z": ParamSpec(L + (D, DI), torch.bfloat16,
+                               la + ("embed", "ssm_inner")),
+        "bc_proj": ParamSpec(L + (D, 2 * N), torch.bfloat16,
+                             la + ("embed", None)),
+        "dt_proj": ParamSpec(L + (D, H), torch.bfloat16, la + ("embed", None)),
+        "dt_bias": ParamSpec(L + (H,), torch.float32, la + (None,), "zeros"),
+        "a_log": ParamSpec(L + (H,), torch.float32, la + (None,), "ssm_a"),
+        "d_skip": ParamSpec(L + (H,), torch.float32, la + (None,), "ones"),
+        "conv_w": ParamSpec(L + (cfg.conv_kernel, DI), torch.float32,
+                            la + (None, "ssm_inner")),
+        "out_proj": ParamSpec(L + (DI, D), torch.bfloat16,
+                              la + ("ssm_inner", "embed")),
     }
 
 

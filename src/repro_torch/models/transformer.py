@@ -5,8 +5,14 @@ over dense per-row caches, paged decode step and chunked prefill, as plain
 functions over a params dict
 with the reference's stacked ``(L, ...)`` layout and tree keys
 (``repro.models.transformer``).  Layers run as a Python loop over the
-stacked axis.  The reference's sharding hooks (``repro.sharding.context``)
-are the identity on one card and are left out.
+stacked axis.
+
+Under a tensor-parallel serving plan (``sharding.context.serving_plan``,
+installed by the engine) the dense family's paged decode step and chunked
+prefill run the plan's dataflow instead: per-shard parameter trees and KV
+pools, replicated work once on the plan's first device, sharded work once
+per shard, and the collectives of ``serving.sharded.ShardingPlan``
+(``_sharded_*`` below).
 
 The encoder-decoder family is in ``encdec.py``.  The MoE and VLM
 families are not ported yet: building them raises
@@ -17,6 +23,9 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.context import (attn_split_count, constrain_attn_split,
+                                constrain_kv_heads, constrain_q_heads,
+                                gather_model, serving_plan)
 from .attention import decode_attention, decode_attention_paged, \
     gqa_attention
 from .config import ModelConfig
@@ -76,7 +85,7 @@ def decoder_template(cfg: ModelConfig):
     require_ported(cfg)
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     t = {
-        "embed": ParamSpec((V, D), torch.bfloat16),
+        "embed": ParamSpec((V, D), torch.bfloat16, ("vocab", "embed")),
         "final_norm": norm_template(D),
     }
     if cfg.family == "dense":
@@ -87,7 +96,7 @@ def decoder_template(cfg: ModelConfig):
         if cfg.family == "hybrid":
             t["shared_attn"] = _dense_template(cfg, None)   # one block
     if not cfg.tie_embeddings:
-        t["lm_head"] = ParamSpec((D, V), torch.bfloat16)
+        t["lm_head"] = ParamSpec((D, V), torch.bfloat16, ("embed", "vocab"))
     return t
 
 
@@ -112,10 +121,14 @@ def _wo_proj(p, o):
     return linear(p["wo"], o.reshape(b, s, h * dh))
 
 
+def _head(params, cfg):
+    """The (D, V) output projection (the embedding's transpose if tied)."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def _logits(params, cfg, h):
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+    return h @ _head(params, cfg)
 
 
 # ------------------------------------------------------- sequence forward
@@ -305,20 +318,29 @@ def _attn_decode_paged(cfg, p, x, k_pool, v_pool, cache_len, block_tables,
     step's KV at each row's logical position through its block table
     (inactive rows point at the scratch page), then attends with
     ``cache_len + 1``."""
-    b = x.shape[0]
     q, k, v = _qkv(cfg, p, x, cache_len[:, None])
-    logical = cache_len.long()
-    page_idx = torch.clamp(logical // page, max=block_tables.shape[1] - 1)
-    phys = block_tables[torch.arange(b, device=x.device), page_idx].long() \
-        * page + logical % page
-    # in place: the step's K/V land straight in the shared pool instead of
-    # a functional update that would copy the layer's whole pool
-    kvh, dh = k_pool.shape[2:]
-    k_pool.view(-1, kvh, dh)[phys] = k[:, 0].to(k_pool.dtype)
-    v_pool.view(-1, kvh, dh)[phys] = v[:, 0].to(v_pool.dtype)
+    _write_step_kv(k_pool, v_pool, _pool_index(cache_len, block_tables, page),
+                   k, v)
     o = decode_attention_paged(q, k_pool, v_pool, block_tables,
                                cache_len + 1, window=window)
     return _wo_proj(p, o)
+
+
+def _pool_index(cache_len, block_tables, page: int):
+    """(B,) flat pool index of each row's write position cache_len."""
+    logical = cache_len.long()
+    page_idx = torch.clamp(logical // page, max=block_tables.shape[1] - 1)
+    rows = torch.arange(block_tables.shape[0], device=block_tables.device)
+    return block_tables[rows, page_idx].long() * page + logical % page
+
+
+def _write_step_kv(k_pool, v_pool, phys, k, v) -> None:
+    """Write one step's k, v (B, 1, KV, dh) at flat pool indices ``phys``,
+    in place: the step's K/V land straight in the shared pool instead of a
+    functional update that would copy the layer's whole pool."""
+    kvh, dh = k_pool.shape[2:]
+    k_pool.view(-1, kvh, dh)[phys] = k[:, 0].to(k_pool.dtype)
+    v_pool.view(-1, kvh, dh)[phys] = v[:, 0].to(v_pool.dtype)
 
 
 def _dense_block_decode_paged(cfg, lp, h, k_pool, v_pool, cache_len,
@@ -355,6 +377,11 @@ def decoder_decode_step_paged(params, cfg: ModelConfig, token, cache,
     False keep their recurrent state bit-unchanged, which is what the
     reference's fused step gets by selecting the old state back."""
     require_ported(cfg)
+    plan = serving_plan()
+    if plan is not None and plan.shards_model:
+        return _sharded_decode_step_paged(plan, params, cfg, token, cache,
+                                          cache_len, block_tables,
+                                          page=page_size)
     h = params["embed"][token.long()]                      # (B,1,D)
     window = _window(cfg)
     if cfg.family == "dense":
@@ -378,6 +405,18 @@ def decoder_decode_step_paged(params, cfg: ModelConfig, token, cache,
 
 # -------------------------------------------------------- chunked prefill
 
+def _chunk_positions(c: int, s_past: int, start: int, dev):
+    """Positions of a chunk of c tokens at ``start`` and of its keys: the
+    gathered prefix (rows at or past ``start`` get -1e9, which the
+    attention masks) followed by the chunk."""
+    positions = start + torch.arange(c, device=dev)
+    past_pos = torch.arange(s_past, device=dev)
+    kv_positions = torch.cat([
+        torch.where(past_pos < start, past_pos,
+                    torch.full_like(past_pos, -(10 ** 9))), positions])
+    return positions, kv_positions
+
+
 def decoder_prefill_chunk(params, cfg: ModelConfig, tokens, past_k, past_v,
                           start: int):
     """One Sarathi-style prefill chunk: run the chunk's tokens against the
@@ -391,16 +430,13 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, tokens, past_k, past_v,
     require_ported(cfg)
     if cfg.family != "dense":
         raise ValueError(f"chunked prefill unsupported for {cfg.family}")
+    plan = serving_plan()
+    if plan is not None and plan.shards_model:
+        return _sharded_prefill_chunk(plan, params, cfg, tokens, past_k,
+                                      past_v, start)
     h = params["embed"][tokens.long()]                     # (1, C, D)
-    c = h.shape[1]
-    dev = h.device
-    s_past = past_k.shape[2]
-    positions = start + torch.arange(c, device=dev)
-    past_pos = torch.arange(s_past, device=dev)
-    # invalid prefix rows get position -1e9, which the attention masks
-    kv_positions = torch.cat([
-        torch.where(past_pos < start, past_pos,
-                    torch.full_like(past_pos, -(10 ** 9))), positions])
+    positions, kv_positions = _chunk_positions(h.shape[1], past_k.shape[2],
+                                               start, h.device)
     window = _window(cfg)
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -414,6 +450,184 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, tokens, past_k, past_v,
         h = h + _wo_proj(lp["attn"], o)
         h = h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
                     cfg.activation)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks), torch.stack(vs)
+
+
+# ------------------------------------------------ tensor-parallel serving
+#
+# The dense family under ``serving.sharded.ShardingPlan``: ``params`` is the
+# list of per-shard trees and ``cache`` the list of per-shard pools.  x, h
+# and every replicated value live on the plan's first device.
+
+
+def _sharded_embed(plan, params, tokens):
+    """Token embeddings, (B, S, D) on the first device.  Vocab-sharded: each
+    shard looks up the ids it holds and writes 0 for the others, and the
+    psum adds one nonzero term per token (exact)."""
+    if not plan.vocab_sharded:
+        return params[0]["embed"][tokens.long()]
+    parts = []
+    for s, (p, dev) in enumerate(zip(params, plan.devices)):
+        emb = p["embed"]
+        n = emb.shape[0]
+        local = tokens.long().to(dev) - s * n
+        inside = (local >= 0) & (local < n)
+        e = emb[local.clamp(0, n - 1)]
+        parts.append(torch.where(inside[..., None], e, torch.zeros_like(e)))
+    return plan.psum(parts)
+
+
+def _sharded_logits(plan, params, cfg, h):
+    """Final norm and logits: (B, S, V) on the first device, or, with the
+    vocab sharded, the list of per-shard (B, S, V / tp) column slices (the
+    engine samples them partitioned)."""
+    h = rms_norm(params[0]["final_norm"], h, cfg.norm_eps)
+    if not plan.vocab_sharded:
+        return h @ _head(params[0], cfg)
+    return [h.to(dev) @ _head(p, cfg) for p, dev in zip(params,
+                                                          plan.devices)]
+
+
+def _sharded_mlp(plan, cfg, lps, x):
+    """Column-parallel up/gate, row-parallel down, one psum; replicated on
+    the first device when the mlp does not shard."""
+    if not plan.mlp_sharded:
+        return mlp(lps[0]["mlp"], x, cfg.activation)
+    return plan.psum([mlp(lp["mlp"], x.to(dev), cfg.activation)
+                      for lp, dev in zip(lps, plan.devices)])
+
+
+def _shard_cfg(plan, cfg):
+    """The config a column-parallel shard projects with (its heads); None
+    when the heads do not shard."""
+    if not plan.heads_sharded:
+        return None
+    return cfg.with_overrides(n_heads=cfg.n_heads // plan.tp,
+                              n_kv_heads=cfg.n_kv_heads // plan.tp)
+
+
+def _sharded_attn_decode(plan, cfg, scfg, lps, x, pools, cache_len,
+                         block_tables, *, window: int, page: int):
+    """One layer's decode attention under the plan; returns (B, 1, D) on
+    the first device.  ``pools``: the per-shard (k_pool, v_pool) of the
+    layer; ``scfg``: a column-parallel shard's config."""
+    phys = _pool_index(cache_len, block_tables, page)
+    if plan.heads_sharded:
+        # efficient, heads dividing: column-parallel q/k/v, each shard
+        # writes and attends over its own kv heads, row-parallel wo + psum
+        parts = []
+        for lp, (kp, vp), dev in zip(lps, pools, plan.devices):
+            cl = cache_len.to(dev)
+            q, k, v = _qkv(scfg, lp["attn"], x.to(dev), cl[:, None])
+            _write_step_kv(kp, vp, phys.to(dev), k, v)
+            o = decode_attention_paged(q, kp, vp, block_tables.to(dev),
+                                       cl + 1, window=window)
+            parts.append(_wo_proj(lp["attn"], o))
+        return plan.psum(parts)
+    # replicated projections: exact mode, or heads that do not divide
+    q, k, v = _qkv(cfg, lps[0]["attn"], x, cache_len[:, None])
+    ks, vs = constrain_kv_heads(k), constrain_kv_heads(v)
+    for s in plan.pool_owners:
+        kp, vp = pools[s]
+        _write_step_kv(kp, vp, phys.to(kp.device), ks[s], vs[s])
+    n_splits = attn_split_count()
+    if n_splits > 1:
+        # efficient, heads not dividing: the LSE split, stripe s on shard s
+        o = decode_attention_paged(q, *pools[0], block_tables, cache_len + 1,
+                                   window=window, n_splits=n_splits,
+                                   stripe_pools=constrain_attn_split(pools))
+    elif plan.pool_sharded:
+        # exact: each shard attends over its kv heads, outputs gathered
+        o = gather_model([
+            decode_attention_paged(qs, kp, vp, block_tables.to(qs.device),
+                                   (cache_len + 1).to(qs.device),
+                                   window=window)
+            for qs, (kp, vp) in zip(constrain_q_heads(q), pools)], dim=2)
+    else:
+        o = decode_attention_paged(q, *pools[0], block_tables, cache_len + 1,
+                                   window=window)
+    return _wo_proj(lps[0]["attn"], o)
+
+
+def _sharded_decode_step_paged(plan, params, cfg, token, caches, cache_len,
+                               block_tables, *, page: int):
+    """``decoder_decode_step_paged`` of the dense family under the plan."""
+    h = _sharded_embed(plan, params, token)
+    window = _window(cfg)
+    scfg = _shard_cfg(plan, cfg)
+    for i in range(cfg.n_layers):
+        lps = [_layer(p["layers"], i) for p in params]
+        pools = [(c["k"][i], c["v"][i]) for c in caches]
+        h = h + _sharded_attn_decode(
+            plan, cfg, scfg, lps, rms_norm(lps[0]["ln1"], h, cfg.norm_eps),
+            pools, cache_len, block_tables, window=window, page=page)
+        h = h + _sharded_mlp(plan, cfg, lps,
+                             rms_norm(lps[0]["ln2"], h, cfg.norm_eps))
+    return _sharded_logits(plan, params, cfg, h), caches
+
+
+def _sharded_attn_chunk(plan, cfg, scfg, lps, x, past_k, past_v, positions,
+                        kv_positions, window: int):
+    """One layer's chunk attention under the plan.  past_k/past_v: the
+    per-shard (1, S_past, KV_s, dh) prefix.  Returns (out (1, C, D), k, v
+    (1, C, KV, dh)), all on the first device."""
+    if plan.heads_sharded:
+        parts, ks, vs = [], [], []
+        for lp, pk, pv, dev in zip(lps, past_k, past_v, plan.devices):
+            pos = positions.to(dev)
+            q, k, v = _qkv(scfg, lp["attn"], x.to(dev), pos)
+            o = gqa_attention(q, torch.cat([pk.to(k.dtype), k], dim=1),
+                              torch.cat([pv.to(v.dtype), v], dim=1),
+                              causal=True, window=window, positions=pos,
+                              kv_positions=kv_positions.to(dev))
+            parts.append(_wo_proj(lp["attn"], o))
+            ks.append(k)
+            vs.append(v)
+        return (plan.psum(parts), plan.all_gather(ks, 2),
+                plan.all_gather(vs, 2))
+    q, k, v = _qkv(cfg, lps[0]["attn"], x, positions)
+    if plan.pool_sharded:
+        outs = []
+        for qs, ks, vs, pk, pv in zip(constrain_q_heads(q),
+                                      constrain_kv_heads(k),
+                                      constrain_kv_heads(v), past_k, past_v):
+            dev = qs.device
+            outs.append(gqa_attention(
+                qs, torch.cat([pk.to(ks.dtype), ks], dim=1),
+                torch.cat([pv.to(vs.dtype), vs], dim=1), causal=True,
+                window=window, positions=positions.to(dev),
+                kv_positions=kv_positions.to(dev)))
+        o = gather_model(outs, dim=2)
+    else:
+        o = gqa_attention(q, torch.cat([past_k[0].to(k.dtype), k], dim=1),
+                          torch.cat([past_v[0].to(v.dtype), v], dim=1),
+                          causal=True, window=window, positions=positions,
+                          kv_positions=kv_positions)
+    return _wo_proj(lps[0]["attn"], o), k, v
+
+
+def _sharded_prefill_chunk(plan, params, cfg, tokens, past_k, past_v,
+                           start: int):
+    """``decoder_prefill_chunk`` of the dense family under the plan.
+    past_k/past_v: per-shard lists of (L, 1, S_past, KV_s, dh).  Returns
+    the chunk's full-head (k, v): (L, 1, C, KV, dh) on the first device."""
+    h = _sharded_embed(plan, params, tokens)
+    positions, kv_positions = _chunk_positions(h.shape[1], past_k[0].shape[2],
+                                               start, h.device)
+    window = _window(cfg)
+    scfg = _shard_cfg(plan, cfg)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lps = [_layer(p["layers"], i) for p in params]
+        a, k, v = _sharded_attn_chunk(
+            plan, cfg, scfg, lps, rms_norm(lps[0]["ln1"], h, cfg.norm_eps),
+            [pk[i] for pk in past_k], [pv[i] for pv in past_v], positions,
+            kv_positions, window)
+        h = h + a
+        h = h + _sharded_mlp(plan, cfg, lps,
+                             rms_norm(lps[0]["ln2"], h, cfg.norm_eps))
         ks.append(k)
         vs.append(v)
     return torch.stack(ks), torch.stack(vs)

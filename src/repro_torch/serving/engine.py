@@ -37,13 +37,24 @@ recurrent families are slot-positional (lane = slot) and the state of an
 inactive lane is frozen exactly.  The pool and the state are updated in
 place.
 
-Not ported yet, and refused rather than ignored: tensor-parallel serving
-(``tp``/``mesh``, ROADMAP Queue A 10), the memory preflight
-(``device_memory_gb``, Queue A 11) and prefix sharing (Queue A 5).
+Tensor-parallel serving (``mesh`` or ``tp``, ``parallel="exact" |
+"efficient"``): the engine builds a ``serving.sharded.ShardingPlan``,
+keeps per-shard weights and KV pools, runs its model calls under the
+plan's hooks, gathers swap payloads to full-head host tensors and cuts
+them again on swap-in, and samples vocab-sharded logits partitioned (only
+the winning token crosses shards).  The host loop, the scheduler, the KV
+manager and its block tables stay single and shard-invariant.  Only the
+dense family runs sharded; a 1x1 mesh serves every family.
+``device_memory_gb`` refuses, before anything is allocated, an engine
+whose per-device weights, pool and workspace exceed it.
+
+Not ported yet, and refused rather than ignored: tp > 1 for the SSM and
+hybrid families (ROADMAP Queue A 16) and prefix sharing (Queue A 5).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import zlib
 from collections import Counter
@@ -60,6 +71,7 @@ from ..simulator.service_model import ServiceModel
 from .kv_cache import SCRATCH_BLOCK, KVCacheManager
 from .metrics import EngineMetrics
 from .request import RequestState, ServeRequest
+from .sharded import ShardingPlan, estimate_device_bytes
 
 __all__ = ["ServingEngine", "EngineStallError"]
 
@@ -97,16 +109,17 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def gumbel_noise(seed: int, rid_seeds: torch.Tensor, positions: torch.Tensor,
-                 vocab: int) -> torch.Tensor:
+                 vocab: int, offset: int = 0) -> torch.Tensor:
     """(lanes, vocab) f32 Gumbel noise from a counter-based hash of
-    (engine seed, request seed, position, token id): plain integer torch
-    ops, so the CPU and the card draw the same numbers, and a lane's draw
-    does not depend on its slot."""
+    (engine seed, request seed, position, token id) for the token ids
+    offset .. offset + vocab - 1: plain integer torch ops, so the CPU and
+    the card draw the same numbers, a lane's draw does not depend on its
+    slot, and a vocab shard draws exactly its columns of the whole row."""
     dev = rid_seeds.device
     key = _mix32(_mix32(rid_seeds.long() ^ (seed & _MASK32))
                  ^ positions.long())
-    col = _mix32(torch.arange(vocab, device=dev, dtype=torch.int64)
-                 + 0x632BE5AB)
+    col = _mix32(torch.arange(offset, offset + vocab, device=dev,
+                              dtype=torch.int64) + 0x632BE5AB)
     h = _mix32(key[:, None] ^ col[None, :])
     u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))     # (0, 1)
     return -torch.log(-torch.log(u))
@@ -153,40 +166,66 @@ class ServingEngine:
             raise ValueError(
                 f"{self.model.cfg.family} models are not servable through "
                 "the paged engine")
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {self.tp}")
         if self.parallel not in ("exact", "efficient"):
             raise ValueError(
                 f"bad parallel {self.parallel!r}: expected 'exact' or "
                 "'efficient'")
-        if self.tp != 1 or self.mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp > 1 / mesh) is not ported yet: "
-                "ROADMAP Queue A 10")
-        if self.device_memory_gb is not None:
-            raise NotImplementedError(
-                "the device-memory preflight (device_memory_gb) is not "
-                "ported yet: ROADMAP Queue A 11")
         if self.prefix_sharing:
             raise NotImplementedError(
                 "prefix sharing is not ported yet: ROADMAP Queue A 5")
         self.device = torch.device(self.device)
+        self.plan = None
+        if self.mesh is None and self.tp > 1:
+            from ..launch.mesh import make_local_mesh
+            # tp cards; on the CPU the caller asked for, tp CPU shards
+            self.mesh = make_local_mesh(
+                tp=self.tp, devices=None if self.device.type == "cuda"
+                else [self.device] * self.tp)
+        if self.mesh is not None:
+            self.plan = ShardingPlan.build(self.model, self.mesh,
+                                           parallel=self.parallel)
+            if self.tp > 1 and self.tp != self.plan.tp:
+                raise ValueError(
+                    f"tp={self.tp} contradicts mesh model axis "
+                    f"{self.plan.tp}")
+            self.tp = self.plan.tp
+            self.device = self.plan.primary
+            if self.tp > 1 and not self.plan.shards_model:
+                raise NotImplementedError(
+                    f"tensor-parallel serving of the {self.model.cfg.family} "
+                    "family (tp > 1) is not ported yet: ROADMAP Queue A 16")
+        # the dense family under a plan keeps per-shard weights and pools
+        self._sharded = self.plan is not None and self.plan.shards_model
+        # KVCacheManager is host bookkeeping: built before the preflight
+        # so pool_blocks feeds the estimate before anything is allocated
         self.kv = KVCacheManager(
             self.n_slots, self.max_seq_len, self.capacity_tokens,
             block_size=self.block_size,
             swap_capacity_tokens=self.swap_capacity_tokens)
+        self._preflight_memory()
         if self.params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             self.params = self.model.init(gen)
+        compute_dtype = self.params["embed"].dtype
+        if self.plan is not None:
+            self.params = self.plan.place_params(self.params)
         if self.service_model is None:
             self.service_model = ServiceModel()
         self.metrics = EngineMetrics()
         self._rng = np.random.default_rng(self.seed)
         self._cache = self.model.init_paged_cache(
             self.kv.pool_blocks, self.block_size, self.n_slots,
-            device=self.device, conv_dtype=self.params["embed"].dtype)
+            device=self.device, conv_dtype=compute_dtype)
         self._has_kv = "k" in self._cache
         # recurrent families carry per-slot state inside the cache: their
         # fused lanes are slot-positional (a single lane bucket)
         self._slot_state = "ssm" in self._cache
+        if self.plan is not None:
+            # pool pages live per shard from here on (kv-head slices); the
+            # host block tables stay authoritative and shard-agnostic
+            self._cache = self.plan.place_cache(self._cache)
         self._max_pages = -(-self.max_seq_len // self.block_size)
         self._block_tables = np.full((self.n_slots, self._max_pages),
                                      SCRATCH_BLOCK, np.int32)
@@ -197,10 +236,48 @@ class ServingEngine:
         self._slot_rid: dict[int, str] = {}
         self._needs_grow: set[str] = set()
 
+    def _preflight_memory(self) -> None:
+        """Refuse to build an engine that cannot fit one shard on one
+        device: pure arithmetic over the parameter template and the pool
+        shapes (``sharded.estimate_device_bytes``), before any device
+        allocation, so an over-budget config fails with a breakdown
+        instead of an allocator error mid-init."""
+        self.preflight = None
+        if self.device_memory_gb is None:
+            return
+        est = estimate_device_bytes(
+            self.model, tp=self.tp, parallel=self.parallel,
+            n_pages=self.kv.pool_blocks, page_size=self.block_size,
+            n_slots=self.n_slots)
+        budget = int(self.device_memory_gb * (1 << 30))
+        if est["total_bytes"] > budget:
+            gib = 1 << 30
+            fixes = "raise tp or shrink the KV pool" \
+                if self.parallel == "efficient" \
+                else "raise tp, switch parallel='efficient', or shrink " \
+                     "the KV pool"
+            raise ValueError(
+                f"model {self.model.cfg.name!r} does not fit: per-device "
+                f"need {est['total_bytes'] / gib:.2f} GiB "
+                f"(weights {est['weights_bytes'] / gib:.2f} + "
+                f"KV pool {est['kv_pool_bytes'] / gib:.2f} + "
+                f"workspace {est['workspace_bytes'] / gib:.2f}) "
+                f"> budget {self.device_memory_gb:.2f} GiB at "
+                f"tp={self.tp} parallel={self.parallel!r}; {fixes} "
+                f"(replicated bytes: {est['replicated_bytes'] / gib:.2f} "
+                "GiB)")
+        self.preflight = est
+
     # ---------------------------------------------------------- device ops
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _ctx(self):
+        """The plan's serving hooks around a model call (nothing on one
+        device)."""
+        return self.plan.context() if self.plan is not None \
+            else contextlib.nullcontext()
 
     def _flat_pools(self):
         """(L, n_pages * page, KV, dh) views of the K and V pools."""
@@ -209,11 +286,18 @@ class ServingEngine:
         return k.view(shape), v.view(shape)
 
     def _gather(self, idx: torch.Tensor):
+        """(L, 1, n, KV, dh) K and V at flat pool indices (per-shard lists
+        under a plan)."""
+        if self._sharded:
+            return self.plan.gather_tokens(self._cache, idx)
         fk, fv = self._flat_pools()
         return fk[:, idx][:, None], fv[:, idx][:, None]
 
     def _scatter(self, ks, vs, idx: torch.Tensor) -> None:
         # in place: the chunk's KV is written straight into the pool
+        if self._sharded:
+            self.plan.write_tokens(self._cache, ks, vs, idx)
+            return
         fk, fv = self._flat_pools()
         fk[:, idx] = ks[:, 0].to(fk.dtype)
         fv[:, idx] = vs[:, 0].to(fv.dtype)
@@ -310,8 +394,13 @@ class ServingEngine:
         }
         if self._has_kv:
             idx = self._to_dev(np.asarray(blocks, np.int64))
-            payload["k"] = self._cache["k"][:, idx].cpu()
-            payload["v"] = self._cache["v"][:, idx].cpu()
+            if self._sharded:
+                # full-head host payload: the shards' slices gathered
+                payload["k"], payload["v"] = self.plan.gather_blocks(
+                    self._cache, idx)
+            else:
+                payload["k"] = self._cache["k"][:, idx].cpu()
+                payload["v"] = self._cache["v"][:, idx].cpu()
         if self._slot_state:
             # a copy even on the CPU, where .cpu() would return a view of
             # the live state that the next decode step overwrites
@@ -326,8 +415,15 @@ class ServingEngine:
         if self._has_kv and len(blocks) > skip:
             idx = self._to_dev(np.asarray(blocks[skip:], np.int64))
             # in place: the saved pages go straight back into the pool
-            self._cache["k"][:, idx] = payload["k"][:, skip:].to(self.device)
-            self._cache["v"][:, idx] = payload["v"][:, skip:].to(self.device)
+            if self._sharded:
+                self.plan.write_blocks(self._cache, idx,
+                                       payload["k"][:, skip:],
+                                       payload["v"][:, skip:])
+            else:
+                self._cache["k"][:, idx] = \
+                    payload["k"][:, skip:].to(self.device)
+                self._cache["v"][:, idx] = \
+                    payload["v"][:, skip:].to(self.device)
         if self._slot_state:
             for name, t in self._cache["ssm"].items():
                 t[:, slot] = payload["ssm"][name].to(self.device)
@@ -471,16 +567,13 @@ class ServingEngine:
         cpad = _pad_len(take)
         toks = np.zeros((1, cpad), np.int64)
         toks[0, :take] = ctx[s0:s1]
-        if s0 == 0:
-            shp = self._cache["k"].shape
-            past_k = torch.zeros((shp[0], 1, 0) + tuple(shp[3:]),
-                                 dtype=torch.bfloat16, device=self.device)
-            past_v = past_k
-        else:
-            idx = self._to_dev(self._phys_positions(r, 0, s0, _pad_len(s0)))
-            past_k, past_v = self._gather(idx)
-        k_c, v_c = self.model.prefill_chunk(self.params, self._to_dev(toks),
-                                            past_k, past_v, s0)
+        # no prefix yet: an empty gather, (L, 1, 0, KV, dh)
+        idx = self._to_dev(self._phys_positions(
+            r, 0, s0, _pad_len(s0) if s0 else 0))
+        past_k, past_v = self._gather(idx)
+        with self._ctx():
+            k_c, v_c = self.model.prefill_chunk(
+                self.params, self._to_dev(toks), past_k, past_v, s0)
         self._scatter(k_c, v_c,
                       self._to_dev(self._phys_positions(r, s0, s1, cpad)))
         r.prefill_pos = s1
@@ -660,11 +753,14 @@ class ServingEngine:
         if not_ready.any():
             tables_np = tables_np.copy()
             tables_np[not_ready] = SCRATCH_BLOCK
-        logits, self._cache = self.model.decode_step_paged(
-            self.params, self._to_dev(self._last_token[:, None]),
-            self._cache,
-            self._to_dev(np.maximum(self._cache_len, 0).astype(np.int32)),
-            self._to_dev(tables_np), page_size=self.block_size)
+        with self._ctx():
+            logits, self._cache = self.model.decode_step_paged(
+                self.params, self._to_dev(self._last_token[:, None]),
+                self._cache,
+                self._to_dev(np.maximum(self._cache_len, 0).astype(np.int32)),
+                self._to_dev(tables_np), page_size=self.block_size)
+        if isinstance(logits, list):       # vocab-sharded: gather the row
+            logits = self.plan.all_gather(logits, -1)
         logits_np = logits.float().cpu().numpy()
         self.metrics.decode_iterations += 1
 
@@ -728,19 +824,24 @@ class ServingEngine:
             # the scratch page: their KV write lands harmlessly; recurrent
             # state has no scratch page, so the step freezes their rows
             bt = torch.where(act[:, None], tables, scratch)
-            logits, self._cache = self.model.decode_step_paged(
-                self.params, last[:, None], self._cache, cl, bt,
-                page_size=self.block_size,
-                active=act if self._slot_state else None)
-            tok = torch.argmax(logits, dim=-1)
-            if not all_greedy:
-                # Gumbel-max draws keyed by (request seed, position):
-                # invariant to slot and preemption history
-                noise = gumbel_noise(self.seed, seeds, counters + i,
-                                     logits.shape[-1])
-                st_tok = torch.argmax(logits.float() / safe_t[:, None]
-                                      + noise, dim=-1)
-                tok = torch.where(greedy, tok, st_tok)
+            with self._ctx():
+                logits, self._cache = self.model.decode_step_paged(
+                    self.params, last[:, None], self._cache, cl, bt,
+                    page_size=self.block_size,
+                    active=act if self._slot_state else None)
+            if isinstance(logits, list):
+                tok = self._sample_sharded(logits, greedy, safe_t, seeds,
+                                           counters + i, all_greedy)
+            else:
+                tok = torch.argmax(logits, dim=-1)
+                if not all_greedy:
+                    # Gumbel-max draws keyed by (request seed, position):
+                    # invariant to slot and preemption history
+                    noise = gumbel_noise(self.seed, seeds, counters + i,
+                                         logits.shape[-1])
+                    st_tok = torch.argmax(logits.float() / safe_t[:, None]
+                                          + noise, dim=-1)
+                    tok = torch.where(greedy, tok, st_tok)
             emitted = emitted + act.long()
             fin = fin | (act & ((tok == eos) | (emitted >= caps)))
             last = torch.where(act, tok, last)
@@ -748,6 +849,35 @@ class ServingEngine:
             buf[:, i] = torch.where(act, tok, torch.full_like(tok, -1))
         return torch.cat([buf, emitted[:, None], fin[:, None].long()],
                          dim=1).cpu().numpy()
+
+    def _sample_sharded(self, parts, greedy, safe_t, seeds, positions,
+                        all_greedy: bool) -> torch.Tensor:
+        """Argmax / Gumbel-max over vocab-sharded logits, partitioned: each
+        shard takes the winner of its columns (the noise of each global
+        token id, so the draw is the unsharded one) and the largest value
+        wins, ties to the lowest global id, as ``torch.argmax`` over the
+        whole row picks.  Only (value, id) per lane crosses shards."""
+        best_v = best_i = None
+        off = 0
+        for part in parts:
+            dev = part.device
+            score = part.float()
+            if not all_greedy:
+                noise = gumbel_noise(self.seed, seeds.to(dev),
+                                     positions.to(dev), part.shape[-1],
+                                     offset=off)
+                score = torch.where(greedy.to(dev)[:, None], score,
+                                    score / safe_t.to(dev)[:, None] + noise)
+            v, i = score.max(dim=-1)
+            v, i = v.to(self.device), i.to(self.device) + off
+            if best_v is None:
+                best_v, best_i = v, i
+            else:
+                better = v > best_v
+                best_v = torch.where(better, v, best_v)
+                best_i = torch.where(better, i, best_i)
+            off += part.shape[-1]
+        return best_i
 
     def _decode_fused(self, ready: list[tuple[int, str]]) -> None:
         """Fused decode: one device call advances every ready lane by up
@@ -828,6 +958,11 @@ class ServingEngine:
         self.scheduler.on_progress_many(progressing, progressed)
 
     # ------------------------------------------------------------ reports
+
+    def sharding_report(self) -> dict | None:
+        """Per-component sharding outcome on this engine's mesh (None on
+        the single-device path); see ``ShardingPlan.describe``."""
+        return None if self.plan is None else self.plan.describe()
 
     def stall_report(self) -> dict:
         """Live-state diagnosis: per-state request counts, queue depth,

@@ -299,14 +299,19 @@ def test_gumbel_noise_is_a_pure_function_of_its_keys():
 
 
 def test_unported_options_refuse():
-    cfg = get_config(ARCH, reduced=True)
+    """tp > 1 for the recurrent families and prefix sharing raise naming
+    their ROADMAP items (the dense family's tp and the memory preflight
+    are tests/test_torch_sharded.py's)."""
     sched = port_core.Scheduler(policy="sagesched")
-    for kw, item in (({"tp": 2}, "Queue A 10"),
-                     ({"device_memory_gb": 1.0}, "Queue A 11"),
-                     ({"prefix_sharing": True}, "Queue A 5")):
+    for arch, kw, item in (
+            ("mamba2-2.7b", {"tp": 2}, "Queue A 16"),
+            ("zamba2-1.2b", {"tp": 2, "device_memory_gb": 1.0},
+             "Queue A 16"),
+            (ARCH, {"prefix_sharing": True}, "Queue A 5")):
         with pytest.raises(NotImplementedError, match=item):
-            port_serving.ServingEngine(model=build_model(cfg),
-                                       scheduler=sched, device="cpu", **kw)
+            port_serving.ServingEngine(
+                model=build_model(get_config(arch, reduced=True)),
+                scheduler=sched, device="cpu", **kw)
 
 
 def test_launcher_gateway_refuses():

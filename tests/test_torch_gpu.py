@@ -1,9 +1,12 @@
 """CUDA kernels and the engine on the card: each hand-written kernel
 against its plain PyTorch version(s) in bf16, the engine's fused path
 against its orchestrated path under the tolerance contract, for the dense,
-SSM and hybrid families, and the dense-cache Model.decode_step (the
+SSM and hybrid families, the dense-cache Model.decode_step (the
 encoder-decoder, mamba2 and zamba2 held to a teacher-forced forward, and
-llama3.2-1b against its paged decode).
+llama3.2-1b against its paged decode), and tensor-parallel serving with
+every shard on the one card (the partial (out, lse) kernel stripe by
+stripe, the LSE split merged against the unsplit kernel, exact tp = 2
+token-identical to no mesh).
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -20,10 +23,12 @@ import repro_torch.core as port_core
 import repro_torch.serving as port_serving
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import (
-    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, decode_attention_op,
+    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
+    decode_attention_op, decode_attention_paged_lse_op,
     decode_attention_paged_op)
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_dense_reference, decode_attention_paged_reference)
+    decode_attention_dense_reference, decode_attention_paged_lse_reference,
+    decode_attention_paged_reference)
 from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
                                                      flash_attention)
 from repro_torch.kernels.flash_attention.ref import attention_reference
@@ -33,7 +38,9 @@ from repro_torch.kernels.gittins.ref import gittins_attained_reference
 from repro_torch.kernels.ssd_scan.ops import SSD_SCAN_KERNEL, ssd_scan
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_reference,
                                               ssd_sequential_reference)
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build_model
+from repro_torch.models.attention import decode_attention_paged
 from repro_torch.testing import assert_tokens_close
 from repro_torch.testing.generate import (dense_cache_from_prefill,
                                           greedy_generate,
@@ -82,6 +89,27 @@ def test_cuda_flash_vs_plain(cuda, s_past, start, c, window):
     assert FLASH_PREFILL_KERNEL.launches == n0 + 1
     want = attention_reference(q, k, v, pos, kv_pos, window=window)
     _attn_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_past,start,c", [(0, 0, 512), (512, 448, 256)])
+def test_cuda_flash_head_dim_128_vs_plain(cuda, s_past, start, c):
+    """qwen2-1.5b's chunked prefill shape: H12/KV2, dh 128."""
+    g = torch.Generator(device=cuda).manual_seed(s_past + c + 128)
+    q = torch.randn(1, c, 12, 128, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, s_past + c, 2, 128, generator=g,
+                    device=cuda).bfloat16()
+    v = torch.randn(1, s_past + c, 2, 128, generator=g,
+                    device=cuda).bfloat16()
+    pos = (start + torch.arange(c, device=cuda)).int()
+    past = torch.arange(s_past, device=cuda)
+    kv_pos = torch.cat([torch.where(past < start, past, -10 ** 9),
+                        pos.long()]).int()
+    n0 = FLASH_PREFILL_KERNEL.launches
+    got = flash_attention(q, k, v, pos, kv_pos)
+    torch.cuda.synchronize()
+    assert FLASH_PREFILL_KERNEL.launches == n0 + 1
+    _attn_close(got, attention_reference(q, k, v, pos, kv_pos))
 
 
 @pytest.mark.gpu
@@ -420,3 +448,126 @@ def test_cuda_dense_cache_decode_matches_paged(cuda):
                                    atol=5e-2)
         tok = torch.argmax(ld, dim=-1).to(torch.int32)[:, None]
     assert DENSE_DECODE_KERNEL.launches - n0 == steps * cfg.n_layers
+
+
+def _lse_case(cuda, h, kvh, dh, seed):
+    """8 rows of 1..512 tokens over 32-page tables (page 16)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, page, p, n_pages = 8, 16, 32, 300
+    q = torch.randn(b, h, dh, generator=g, device=cuda).bfloat16()
+    kp = torch.randn(n_pages, page, kvh, dh, generator=g,
+                     device=cuda).bfloat16()
+    vp = torch.randn(n_pages, page, kvh, dh, generator=g,
+                     device=cuda).bfloat16()
+    tables = (torch.randperm(n_pages - 1, generator=g, device=cuda)[:b * p]
+              + 1).reshape(b, p).to(torch.int32)
+    cl = torch.tensor([1, 17, 100, 128, 129, 300, 480, 512],
+                      dtype=torch.int32, device=cuda)
+    return q, kp, vp, tables, cl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,dh", [(12, 2, 128), (32, 8, 64)])
+@pytest.mark.parametrize("window", [0, 150])
+def test_cuda_paged_lse_vs_plain(cuda, h, kvh, dh, window):
+    """Each of 4 stripes: out (BF16 bar) and lse (1e-4) against the plain
+    version; a fully masked stripe gives out 0 and lse <= -1e29, never
+    NaN; one launch a call."""
+    q, kp, vp, tables, cl = _lse_case(cuda, h, kvh, dh, h + window)
+    for s in range(4):
+        bt = tables[:, s * 8:(s + 1) * 8]
+        cls = torch.clamp(cl - s * 128, min=0)
+        n0 = PAGED_LSE_KERNEL.launches
+        out, lse = decode_attention_paged_lse_op(q, kp, vp, bt, cls,
+                                                 window=window)
+        torch.cuda.synchronize()
+        assert PAGED_LSE_KERNEL.launches == n0 + 1
+        want_o, want_l = decode_attention_paged_lse_reference(
+            q, kp, vp, bt, cls, window=window)
+        assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+        # a row sees positions [cls - window, cls) of the stripe's 128
+        lo = torch.clamp(cls - window, min=0) if window else 0 * cls
+        live = torch.clamp(cls, max=128) > lo
+        _attn_close(out[live], want_o[live])
+        torch.testing.assert_close(lse[live], want_l[live], rtol=1e-4,
+                                   atol=1e-4)
+        if bool((~live).any()):
+            assert float(out[~live].float().abs().max()) == 0.0
+            assert float(lse[~live].max()) <= -1e29
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_splits", [2, 4])
+def test_cuda_paged_split_merged_equals_unsplit(cuda, n_splits):
+    """decode_attention_paged(n_splits): one partial launch per stripe,
+    merged by combine_lse_partials, against the unsplit paged kernel and
+    the plain version."""
+    q, kp, vp, tables, cl = _lse_case(cuda, 12, 2, 128, n_splits)
+    n0, p0 = PAGED_LSE_KERNEL.launches, PAGED_DECODE_KERNEL.launches
+    merged = decode_attention_paged(q[:, None], kp, vp, tables, cl,
+                                    n_splits=n_splits)[:, 0]
+    whole = decode_attention_paged(q[:, None], kp, vp, tables, cl)[:, 0]
+    torch.cuda.synchronize()
+    assert PAGED_LSE_KERNEL.launches == n0 + n_splits
+    assert PAGED_DECODE_KERNEL.launches == p0 + 1
+    _attn_close(merged, whole)
+    _attn_close(merged, decode_attention_paged_reference(q, kp, vp, tables,
+                                                         cl))
+
+
+def _tp_engine_run(cuda, cfg, params, tp=None, parallel="exact",
+                   step_mode="fused"):
+    eng = port_serving.ServingEngine(
+        model=build_model(cfg),
+        scheduler=port_core.Scheduler(policy="sagesched",
+                                      priority_backend="cuda",
+                                      bucket_size=8),
+        n_slots=2, max_seq_len=96, capacity_tokens=48, block_size=8,
+        prefill_chunk=8, max_tokens_per_step=12, step_mode=step_mode,
+        params=params, device=cuda, parallel=parallel,
+        mesh=None if tp is None else make_local_mesh(
+            tp=tp, devices=[cuda] * tp))
+    rng = np.random.default_rng(7)
+    reqs = [port_serving.ServeRequest(
+        f"r{i}", f"p{i}", [int(t) for t in rng.integers(3, 500, 12)],
+        max_new_tokens=6 + 3 * i, temperature=0.0, eos_token=1)
+        for i in range(4)]
+    eng.submit_batch(reqs)
+    eng.run_until_done(max_steps=4000)
+    assert all(r.state == port_serving.RequestState.FINISHED for r in reqs)
+    return eng, [r.output_tokens for r in reqs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
+def test_cuda_engine_tp2_exact_token_identical(cuda, step_mode):
+    """A reduced qwen2-1.5b, exact tp = 2 with both shards on the card:
+    the pool's kv-head slices, one paged launch per layer and shard, and
+    streams token-identical to the engine without a mesh."""
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    _, want = _tp_engine_run(cuda, cfg, params, step_mode=step_mode)
+    n0 = PAGED_DECODE_KERNEL.launches
+    eng, got = _tp_engine_run(cuda, cfg, params, tp=2, step_mode=step_mode)
+    assert got == want
+    assert eng.metrics.preemptions > 0
+    assert PAGED_DECODE_KERNEL.launches - n0 \
+        == cfg.n_layers * 2 * eng.metrics.decode_iterations
+
+
+@pytest.mark.gpu
+def test_cuda_engine_lse_split_launches(cuda):
+    """Efficient tp = 4 over 6 kv heads on the card: the LSE split, one
+    partial launch per layer and stripe each decode call, no paged
+    launch, every request finishing."""
+    cfg = get_config("qwen2-1.5b", reduced=True).with_overrides(
+        n_heads=6, n_kv_heads=6)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    n0, p0 = PAGED_LSE_KERNEL.launches, PAGED_DECODE_KERNEL.launches
+    eng, _ = _tp_engine_run(cuda, cfg, params, tp=4, parallel="efficient")
+    assert eng.sharding_report()["attention"] == "lse-split"
+    assert PAGED_LSE_KERNEL.launches - n0 \
+        == cfg.n_layers * 4 * eng.metrics.decode_iterations
+    assert PAGED_DECODE_KERNEL.launches == p0

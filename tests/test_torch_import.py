@@ -44,17 +44,30 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(name)\n"
         "from repro_torch.kernels.gittins.kernel import GITTINS_KERNEL\n"
         "from repro_torch.kernels.decode_attention.kernel import "
-        "DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL\n"
+        "DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL\n"
         "from repro_torch.kernels.flash_attention.kernel import "
         "FLASH_PREFILL_KERNEL\n"
         "from repro_torch.kernels.ssd_scan.kernel import SSD_SCAN_KERNEL\n"
         "for k in (GITTINS_KERNEL, PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL,\n"
-        "          SSD_SCAN_KERNEL, DENSE_DECODE_KERNEL):\n"
+        "          SSD_SCAN_KERNEL, DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL):\n"
         "    assert k._lib is None, k.symbol\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+def test_tensor_parallel_modules_stand_alone():
+    """The tensor-parallel modules are among those held above: no JAX or
+    ``repro`` import in their sources, and they import with JAX blocked."""
+    new = {"repro_torch.sharding", "repro_torch.sharding.context",
+           "repro_torch.sharding.partitioning", "repro_torch.serving.sharded",
+           "repro_torch.launch.mesh"}
+    assert new <= set(MODULES)
+    assert {PORT / "sharding" / "context.py",
+            PORT / "sharding" / "partitioning.py",
+            PORT / "serving" / "sharded.py",
+            PORT / "launch" / "mesh.py"} <= set(SOURCES)
 
 
 def test_module_names_mirror_the_reference():

@@ -17,6 +17,10 @@ from repro.kernels.decode_attention.ops import decode_attention_op \
     as jax_dense_op
 from repro.kernels.decode_attention.ops import decode_attention_paged_op \
     as jax_paged_op
+from repro.kernels.decode_attention.ops import \
+    decode_attention_paged_lse_op as jax_paged_lse_op
+from repro.kernels.decode_attention.ref import \
+    decode_attention_paged_lse_reference as jax_paged_lse_oracle
 from repro.kernels.decode_attention.ref import decode_attention_reference \
     as jax_dense_oracle
 from repro.kernels.flash_attention.ops import flash_attention \
@@ -27,8 +31,9 @@ from repro.models.attention import decode_attention_paged \
 from repro.models.attention import encoder_attention as jax_encoder_attn
 from repro.models.attention import gqa_attention as jax_gqa
 from repro_torch.kernels.decode_attention.ops import (
-    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, _check_dense,
-    decode_attention_op, decode_attention_paged_op)
+    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL, _check_dense,
+    decode_attention_op, decode_attention_paged_lse_op,
+    decode_attention_paged_op)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_dense_reference, decode_attention_reference)
 from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
@@ -174,12 +179,96 @@ def test_paged_decode_table_padding_is_inert():
     assert torch.equal(narrow, wide)
 
 
-def test_paged_decode_n_splits_not_ported():
-    x = torch.zeros(1, 1, 4, 64)
-    pool = torch.zeros(2, 8, 2, 64, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        decode_attention_paged(x, pool, pool, torch.ones(1, 1, dtype=torch.int32),
-                               torch.ones(1, dtype=torch.int32), n_splits=2)
+# The partial (out, lse) paged decode and the LSE page split.  f32 inputs:
+# the reference's Pallas kernel in interpret mode cannot run a bf16 x bf16
+# -> f32 dot on this CPU (ROADMAP Queue C R1).  Rows: one inside the first
+# stripe (the later stripes fully masked), one ending mid-table, one
+# filling the table.
+LSE_CASES = [(8, 2, 0), (8, 4, 0), (8, 2, 40), (8, 4, 40), (7, 2, 0),
+             (7, 4, 20)]
+
+
+def _lse_case(p_used: int, seed: int):
+    rng = np.random.default_rng(seed)
+    b, h, kvh, dh, page, n_pages = 3, 8, 2, 64, 16, 40
+    q = rng.normal(0, 1, (b, h, dh)).astype(np.float32)
+    kp = rng.normal(0, 1, (n_pages, page, kvh, dh)).astype(np.float32)
+    vp = rng.normal(0, 1, (n_pages, page, kvh, dh)).astype(np.float32)
+    tables = np.stack([rng.permutation(np.arange(1, n_pages))[:p_used]
+                       for _ in range(b)]).astype(np.int32)
+    cl = np.array([page - 3, p_used * page // 2 + 5, p_used * page],
+                  np.int32)
+    return q, kp, vp, tables, cl, page
+
+
+def _stripes(p_used: int, n_splits: int) -> int:
+    """Pages per stripe of models.attention's split (P padded to
+    n_splits times a power of two)."""
+    per = 1
+    while per * n_splits < p_used:
+        per *= 2
+    return per
+
+
+@pytest.mark.parametrize("p_used,n_splits,window", LSE_CASES)
+def test_paged_lse_plain_vs_reference(p_used, n_splits, window):
+    """Each stripe of the split, the port's plain partial against the
+    reference's (out, lse) oracle and its Pallas kernel in interpret mode:
+    out at 1e-5 (fully masked stripes included: every version averages
+    their values uniformly), lse at 1e-5 relative (-1e30 where masked)."""
+    q, kp, vp, tables, cl, page = _lse_case(p_used, 30 + p_used + window)
+    per = _stripes(p_used, n_splits)
+    tables = np.pad(tables, ((0, 0), (0, per * n_splits - p_used)))
+    masked = 0
+    for s in range(n_splits):
+        bt = np.ascontiguousarray(tables[:, s * per:(s + 1) * per])
+        cls = np.maximum(cl - s * per * page, 0).astype(np.int32)
+        masked += int((cls == 0).sum())
+        jargs = [jnp.asarray(x) for x in (q, kp, vp, bt, cls)]
+        got_o, got_l = decode_attention_paged_lse_op(
+            *(torch.from_numpy(x) for x in (q, kp, vp, bt, cls)),
+            window=window)
+        for want_o, want_l in (
+                jax_paged_lse_oracle(*jargs, window=window),
+                jax_paged_lse_op(*jargs, window=window, force_pallas=True)):
+            np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o),
+                                       **F32_TOL)
+            np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l),
+                                       rtol=1e-5, atol=1e-5)
+        assert (got_l.numpy()[cls == 0] <= -1e29).all()
+    assert masked > 0          # the case has fully masked stripes
+
+
+@pytest.mark.parametrize("p_used,n_splits,window", LSE_CASES)
+def test_paged_decode_split_vs_jnp_twin(p_used, n_splits, window):
+    """models.attention.decode_attention_paged(n_splits=k), port vs the
+    reference's jnp split twin (which merges unnormalised partials) and
+    vs the unsplit port at 1e-5 in f32."""
+    q, kp, vp, tables, cl, _ = _lse_case(p_used, 50 + p_used + window)
+    want = np.asarray(jax_decode_paged(
+        jnp.asarray(q)[:, None], jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(cl), window=window,
+        n_splits=n_splits))
+    args = [torch.from_numpy(x) for x in (q[:, None], kp, vp, tables, cl)]
+    got = decode_attention_paged(*args, window=window, n_splits=n_splits)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    whole = decode_attention_paged(*args, window=window)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), **F32_TOL)
+
+
+def test_paged_decode_split_runs_each_stripe_on_its_pools():
+    """``stripe_pools``: stripe s reads the pools it is given (here copies,
+    one per stripe), and a wrong count is refused."""
+    q, kp, vp, tables, cl, _ = _lse_case(8, 1)
+    args = [torch.from_numpy(x) for x in (q[:, None], kp, vp, tables, cl)]
+    pools = [(args[1].clone(), args[2].clone()) for _ in range(4)]
+    got = decode_attention_paged(*args, n_splits=4, stripe_pools=pools)
+    assert torch.equal(got, decode_attention_paged(*args, n_splits=4))
+    pools[3][0].zero_()        # stripe 3 holds row 2's last positions
+    assert not torch.equal(
+        got, decode_attention_paged(*args, n_splits=4, stripe_pools=pools))
+    with pytest.raises(ValueError, match="stripe pools"):
+        decode_attention_paged(*args, n_splits=4, stripe_pools=pools[:2])
 
 
 def test_combine_lse_partials_matches_full_softmax():
@@ -358,11 +447,11 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q, k, k, pos, pos)
     pool = torch.empty(4, 16, 2, 64, dtype=torch.bfloat16, device=meta)
-    with pytest.raises(ValueError, match="unsupported device"):
-        decode_attention_paged_op(
-            q[:, 0], pool, pool,
-            torch.empty(1, 2, dtype=torch.int32, device=meta),
-            torch.empty(1, dtype=torch.int32, device=meta))
+    for op in (decode_attention_paged_op, decode_attention_paged_lse_op):
+        with pytest.raises(ValueError, match="unsupported device"):
+            op(q[:, 0], pool, pool,
+               torch.empty(1, 2, dtype=torch.int32, device=meta),
+               torch.empty(1, dtype=torch.int32, device=meta))
     s = torch.empty(8, 4, device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
         gittins_attained(s, s, torch.empty(8, device=meta))
@@ -374,12 +463,14 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
 
 def test_cpu_calls_launch_nothing():
     kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL,
-               DENSE_DECODE_KERNEL)
+               DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL)
     before = [k.launches for k in kernels]
     rng = np.random.default_rng(0)
     q, kp, vp, tables, cl = _paged_case(rng, 2, 4, 2, 64, 8, 8, 2)
     decode_attention_paged_op(*(torch.from_numpy(x) for x in
                                 (q, kp, vp, tables, cl)))
+    decode_attention_paged(*(torch.from_numpy(x) for x in
+                             (q[:, None], kp, vp, tables, cl)), n_splits=2)
     x = torch.zeros(1, 8, 4, 64)
     pos = torch.arange(8, dtype=torch.int32)
     flash_attention(x, x[:, :, :2], x[:, :, :2], pos, pos)

@@ -1,8 +1,9 @@
 """ctypes bindings of ``csrc/decode_attention.cu``: the paged kernel
 (replaces the Pallas ``repro/kernels/decode_attention/kernel.py::
-decode_attention_paged_kernel``), its partial (out, lse) variant (replaces
-``decode_attention_paged_lse_kernel``) and the dense-cache kernel (replaces
-``decode_attention_kernel``), each with its own launch count."""
+decode_attention_paged_kernel``), its partial (out, lse) variant split
+across blocks (replaces ``decode_attention_paged_lse_kernel``) and the
+dense-cache kernel (replaces ``decode_attention_kernel``), each with its
+own launch count."""
 
 from __future__ import annotations
 
@@ -21,10 +22,13 @@ PAGED_DECODE_KERNEL = CudaKernel(
     [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p])
 
 # decode_attention_paged_lse(q, k_pool, v_pool, tables, cache_len, out, lse,
-#                            B, H, KV, dh, page, P, window, scale, stream)
+#                            part, B, H, KV, dh, page, P, n_sub, window,
+#                            scale, stream): the split kernel and, where
+#                            n_sub > 1, the merge kernel after it
 PAGED_LSE_KERNEL = CudaKernel(
     "decode_attention", "decode_attention_paged_lse",
-    [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _f, _p])
+    [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f,
+     _p])
 
 # decode_attention_dense(q, k_cache, v_cache, cache_len, out,
 #                        B, H, KV, dh, S_max, scale, stream)

@@ -20,10 +20,32 @@ from .ref import (decode_attention_dense_reference,
                   decode_attention_paged_reference)
 
 __all__ = ["decode_attention_op", "decode_attention_paged_op",
-           "decode_attention_paged_lse_op", "DENSE_DECODE_KERNEL",
-           "PAGED_DECODE_KERNEL", "PAGED_LSE_KERNEL"]
+           "decode_attention_paged_lse_op", "lse_sub_splits",
+           "DENSE_DECODE_KERNEL", "PAGED_DECODE_KERNEL", "PAGED_LSE_KERNEL"]
 
 _HEAD_DIMS = (64, 128)
+H100_SMS = 132
+# the LSE kernel's limits: rep * dh outputs over 128 threads, 8 each; the
+# page's slots over one warp, two each
+_LSE_MAX_OUTPUTS = 1024
+_LSE_MAX_PAGE = 64
+
+
+def lse_sub_splits(b: int, kvh: int, n_pages: int,
+                   sms: int = H100_SMS) -> int:
+    """How many sub-splits the partial paged kernel cuts a call's
+    ``n_pages`` table columns into, so that its b * kvh * n_sub blocks
+    reach the card's ``sms`` where the pages allow: 1 when b * kvh blocks
+    already fill the card, else ``ceil(n_pages / per)`` with per =
+    ``n_pages // ceil(sms / (b * kvh))`` pages each (at least one).  The
+    kernel gives sub-split z the columns [z * c, (z + 1) * c), c =
+    ceil(n_pages / n_sub), which this count leaves non-empty; only a
+    short row leaves some with no live position."""
+    blocks = b * kvh
+    if n_pages <= 1 or blocks >= sms:
+        return 1
+    per = max(1, n_pages // -(-sms // blocks))
+    return -(-n_pages // per)
 
 
 def _check(q, k_pool, v_pool, block_tables, cache_len):
@@ -96,11 +118,17 @@ def decode_attention_paged_lse_op(q, k_pool, v_pool, block_tables,
     normalised over those pages; lse (B, H) f32), the partial that
     ``models.attention.combine_lse_partials`` merges.
 
-    On CUDA everything but lse is bf16.  A row whose positions are all
-    masked (cache_len 0, or every position before the window) gets out 0
-    from the kernel, where the plain version averages the row's values
-    uniformly; both give lse = -1e30, which weighs it 0 in the merge (see
-    ``csrc/decode_attention.cu``)."""
+    On CUDA everything but lse is bf16, H / KV * dh is at most 1024 and
+    the page at most 64 slots.  The kernel splits the table's columns
+    over ``lse_sub_splits`` sub-splits per (kv head, row), for the card's
+    SM count; with more than one, it writes f32 partials to scratch
+    allocated here and a second, short kernel merges them in the same
+    call (two launches, counted as one call in
+    ``PAGED_LSE_KERNEL.launches``).  A row whose positions
+    are all masked (cache_len 0, or every position before the window)
+    gets out 0 from the kernel, where the plain version averages the
+    row's values uniformly; both give lse = -1e30, which weighs it 0 in
+    the merge (see ``csrc/decode_attention.cu``)."""
     block_tables = _pad_tables(block_tables)
     dev = q.device
     if dev.type == "cpu":
@@ -112,12 +140,21 @@ def decode_attention_paged_lse_op(q, k_pool, v_pool, block_tables,
     _check(q, k_pool, v_pool, block_tables, cache_len)
     b, h, dh = q.shape
     _, page, kvh, _ = k_pool.shape
+    if h // kvh * dh > _LSE_MAX_OUTPUTS or page > _LSE_MAX_PAGE:
+        raise ValueError(f"decode_attention_paged_lse: H / KV * dh = "
+                         f"{h // kvh * dh} (at most {_LSE_MAX_OUTPUTS}) and "
+                         f"page {page} (at most {_LSE_MAX_PAGE})")
+    p = block_tables.shape[1]
+    n_sub = lse_sub_splits(
+        b, kvh, p, torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty_like(q)
     lse = torch.empty((b, h), dtype=torch.float32, device=dev)
+    part = torch.empty((n_sub * b * h * (dh + 2) if n_sub > 1 else 1,),
+                       dtype=torch.float32, device=dev)
     PAGED_LSE_KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                      block_tables.data_ptr(), cache_len.data_ptr(),
-                     out.data_ptr(), lse.data_ptr(), b, h, kvh, dh, page,
-                     block_tables.shape[1], int(window), dh ** -0.5,
+                     out.data_ptr(), lse.data_ptr(), part.data_ptr(), b, h,
+                     kvh, dh, page, p, n_sub, int(window), dh ** -0.5,
                      torch.cuda.current_stream(dev).cuda_stream)
     PAGED_LSE_KERNEL.launches += 1
     return out, lse

@@ -36,6 +36,10 @@ def _check(q, k, v, positions, kv_positions):
             raise ValueError(f"flash_attention: {name} must be a contiguous "
                              f"{dtype} tensor on {dev}, got {t.dtype} on "
                              f"{t.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             "aligned (the kernel copies 16-byte chunks)")
 
 
 def flash_attention(q, k, v, positions, kv_positions, *, causal: bool = True,
@@ -44,8 +48,10 @@ def flash_attention(q, k, v, positions, kv_positions, *, causal: bool = True,
     kv_positions (Sk,) int32, a negative kv position masking its row.
     Returns (B, Sq, H, dh) in q's dtype.
 
-    On CUDA everything is bf16 with dh 64 or 128; the result differs from the
-    plain version only for a query row that sees no key, which no caller
+    On CUDA everything is bf16 with dh 64 or 128, q, k and v 16-byte
+    aligned.  The kernel's value product takes p as two bf16 parts (p to
+    ~2^-16, where the plain version keeps f32 p); its result differs
+    otherwise only for a query row that sees no key, which no caller
     makes (see ``csrc/flash_attention.cu``)."""
     dev = q.device
     if dev.type == "cpu":

@@ -5,8 +5,10 @@ SSM and hybrid families, the dense-cache Model.decode_step (the
 encoder-decoder, mamba2 and zamba2 held to a teacher-forced forward, and
 llama3.2-1b against its paged decode), and tensor-parallel serving with
 every shard on the one card (the partial (out, lse) kernel stripe by
-stripe, the LSE split merged against the unsplit kernel, exact tp = 2
-token-identical to no mesh).
+stripe and across its sub-splits, the LSE split merged against the
+unsplit kernel, exact tp = 2 token-identical to no mesh).  The flash
+kernel is held at ragged query and key counts, GQA ratios 1 to 6, both
+head dims, causal and not, masked prefix tiles and a straddling window.
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -25,7 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import (
     DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
     decode_attention_op, decode_attention_paged_lse_op,
-    decode_attention_paged_op)
+    decode_attention_paged_op, lse_sub_splits)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_dense_reference, decode_attention_paged_lse_reference,
     decode_attention_paged_reference)
@@ -110,6 +112,68 @@ def test_cuda_flash_head_dim_128_vs_plain(cuda, s_past, start, c):
     torch.cuda.synchronize()
     assert FLASH_PREFILL_KERNEL.launches == n0 + 1
     _attn_close(got, attention_reference(q, k, v, pos, kv_pos))
+
+
+def _flash_case(cuda, seed, b, sq, sk, h, kvh, dh, q_scale, *, start=None,
+                s_past=None):
+    """q, k, v and positions: the queries at the end of the key range
+    (each sees its own key), or, with s_past, a chunk of sq queries at
+    ``start`` over s_past gathered prefix rows (rows >= start masked at
+    -1e9) plus the chunk."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = (torch.randn(b, sq, h, dh, generator=g, device=cuda)
+         * q_scale).bfloat16()
+    k = torch.randn(b, sk, kvh, dh, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, sk, kvh, dh, generator=g, device=cuda).bfloat16()
+    if s_past is None:
+        pos = (sk - sq + torch.arange(sq, device=cuda)).int()
+        kv_pos = torch.arange(sk, device=cuda, dtype=torch.int32)
+    else:
+        pos = (start + torch.arange(sq, device=cuda)).int()
+        past = torch.arange(s_past, device=cuda)
+        kv_pos = torch.cat([torch.where(past < start, past, -10 ** 9),
+                            pos.long()]).int()
+    return q, k, v, pos, kv_pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,rep", [(1, 1), (63, 4), (65, 6), (200, 4)])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("q_scale", [1.0, PEAKED_Q])
+def test_cuda_flash_ragged_edges_vs_plain(cuda, sq, rep, dh, causal,
+                                          q_scale):
+    """The wgmma flash kernel against attention_reference: query counts
+    below, at and past its 64-row tiles, 333 keys (not a multiple of the
+    64-key tile: the last tile's rows are zero-filled and masked), GQA
+    with rep 1, 4 and 6, both head dims, causal and not, a flat and a
+    peaked draw."""
+    kvh = 2
+    q, k, v, pos, kv_pos = _flash_case(cuda, sq * rep + dh, 2, sq, 333,
+                                       kvh * rep, kvh, dh, q_scale)
+    n0 = FLASH_PREFILL_KERNEL.launches
+    got = flash_attention(q, k, v, pos, kv_pos, causal=causal)
+    torch.cuda.synchronize()
+    assert FLASH_PREFILL_KERNEL.launches == n0 + 1
+    _attn_close(got, attention_reference(q, k, v, pos, kv_pos,
+                                         causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("rep", [1, 6])
+def test_cuda_flash_masked_prefix_and_window_vs_plain(cuda, dh, rep):
+    """Tiles the kernel skips or masks by position: a chunk at 128 over a
+    512-row prefix whose rows past 128 (six whole tiles) are masked, and
+    a sliding window of 96 that straddles the key tiles."""
+    q, k, v, pos, kv_pos = _flash_case(cuda, dh + rep, 1, 128, 640, 2 * rep,
+                                       2, dh, 1.0, start=128, s_past=512)
+    _attn_close(flash_attention(q, k, v, pos, kv_pos),
+                attention_reference(q, k, v, pos, kv_pos))
+    q, k, v, pos, kv_pos = _flash_case(cuda, dh * rep, 2, 300, 300, 2 * rep,
+                                       2, dh, PEAKED_Q)
+    _attn_close(flash_attention(q, k, v, pos, kv_pos, window=96),
+                attention_reference(q, k, v, pos, kv_pos, window=96))
 
 
 @pytest.mark.gpu
@@ -513,6 +577,36 @@ def test_cuda_paged_split_merged_equals_unsplit(cuda, n_splits):
     _attn_close(merged, whole)
     _attn_close(merged, decode_attention_paged_reference(q, kp, vp, tables,
                                                          cl))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,dh", [(12, 2, 128), (32, 8, 64)])
+@pytest.mark.parametrize("window", [0, 150])
+def test_cuda_paged_lse_sub_splits_agree(cuda, h, kvh, dh, window):
+    """The split across blocks: the op's sub-split count (more than one
+    at these shapes) and every other count the kernel takes (one block
+    per (kv head, row), three, one page each), through the binding, give
+    the same out and lse up to the merge's rounding.  The 8 rows of 1 to
+    512 tokens over 32 pages leave sub-splits partly masked, fully
+    masked, or cut by the window."""
+    q, kp, vp, tables, cl = _lse_case(cuda, h, kvh, dh, 3 * h + window)
+    b, p = tables.shape
+    assert lse_sub_splits(b, kvh, p) > 1
+    want_o, want_l = decode_attention_paged_lse_op(q, kp, vp, tables, cl,
+                                                   window=window)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for n_sub in (1, 3, p):
+        out = torch.empty_like(q)
+        lse = torch.empty(b, h, device=cuda)
+        part = torch.empty(n_sub * b * h * (dh + 2), device=cuda)
+        PAGED_LSE_KERNEL(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                         tables.data_ptr(), cl.data_ptr(), out.data_ptr(),
+                         lse.data_ptr(), part.data_ptr(), b, h, kvh, dh, 16,
+                         p, n_sub, window, dh ** -0.5, stream)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want_o.float(), rtol=2e-2,
+                                   atol=1e-2)
+        torch.testing.assert_close(lse, want_l, rtol=1e-5, atol=1e-5)
 
 
 def _tp_engine_run(cuda, cfg, params, tp=None, parallel="exact",

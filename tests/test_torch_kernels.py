@@ -31,11 +31,12 @@ from repro.models.attention import decode_attention_paged \
 from repro.models.attention import encoder_attention as jax_encoder_attn
 from repro.models.attention import gqa_attention as jax_gqa
 from repro_torch.kernels.decode_attention.ops import (
-    DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL, _check_dense,
-    decode_attention_op, decode_attention_paged_lse_op,
-    decode_attention_paged_op)
+    DENSE_DECODE_KERNEL, H100_SMS, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
+    _check_dense, decode_attention_op, decode_attention_paged_lse_op,
+    decode_attention_paged_op, lse_sub_splits)
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_dense_reference, decode_attention_reference)
+    decode_attention_dense_reference, decode_attention_paged_lse_reference,
+    decode_attention_reference)
 from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
                                                      flash_attention)
 from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
@@ -269,6 +270,61 @@ def test_paged_decode_split_runs_each_stripe_on_its_pools():
         got, decode_attention_paged(*args, n_splits=4, stripe_pools=pools))
     with pytest.raises(ValueError, match="stripe pools"):
         decode_attention_paged(*args, n_splits=4, stripe_pools=pools[:2])
+
+
+def _sub_ranges(n_pages: int, n_sub: int) -> list[tuple[int, int]]:
+    """The [begin, end) table columns of each sub-split, as the partial
+    kernel takes them (csrc/decode_attention.cu): ceil(n_pages / n_sub)
+    columns each, the last cut at n_pages."""
+    per = -(-n_pages // n_sub)
+    return [(z * per, min(n_pages, (z + 1) * per)) for z in range(n_sub)]
+
+
+@pytest.mark.parametrize("b,kvh", [(1, 1), (3, 2), (8, 2), (8, 8), (64, 4),
+                                   (200, 1)])
+@pytest.mark.parametrize("n_pages", [1, 2, 7, 8, 32, 33, 128])
+def test_lse_sub_splits_partition_the_pages(b, kvh, n_pages):
+    """The partial kernel's sub-splits: every page of the call in exactly
+    one of them, none empty, and b * kvh * n_sub blocks reach the H100's
+    132 SMs wherever the pages allow it (one page a sub-split at most)."""
+    n_sub = lse_sub_splits(b, kvh, n_pages)
+    ranges = _sub_ranges(n_pages, n_sub)
+    assert 1 <= n_sub <= n_pages and len(ranges) == n_sub
+    covered = [p for lo, hi in ranges for p in range(lo, hi)]
+    assert covered == list(range(n_pages))
+    assert all(hi > lo for lo, hi in ranges)
+    blocks = b * kvh
+    if blocks * n_pages >= H100_SMS:
+        assert blocks * n_sub >= H100_SMS
+    else:
+        assert n_sub == n_pages          # every page its own block
+    if blocks >= H100_SMS:
+        assert n_sub == 1                # the rows alone fill the card
+
+
+def test_lse_sub_splits_is_deterministic_and_follows_sms():
+    """A pure function of its arguments: the same call gives the same
+    count, and a card with more SMs gets at least as many sub-splits."""
+    for args in [(8, 2, 32), (8, 8, 32), (1, 1, 128), (4, 3, 17)]:
+        assert lse_sub_splits(*args) == lse_sub_splits(*args)
+        assert lse_sub_splits(*args, sms=264) >= lse_sub_splits(*args)
+    assert lse_sub_splits(8, 2, 32) == 11          # qwen2-1.5b at tp 4
+    assert _sub_ranges(32, 11)[-1] == (30, 32)
+
+
+@pytest.mark.parametrize("p_used,window", [(8, 0), (7, 20), (5, 0)])
+def test_paged_lse_cpu_path_is_the_plain_version(p_used, window):
+    """On the CPU the partial op returns exactly what it returned before
+    the kernel was split across blocks: the plain version over the
+    tables padded to a pow2 width with scratch page 0, bit for bit."""
+    q, kp, vp, tables, cl, _ = _lse_case(p_used, 70 + p_used + window)
+    args = [torch.from_numpy(x) for x in (q, kp, vp, tables, cl)]
+    got_o, got_l = decode_attention_paged_lse_op(*args, window=window)
+    pb = 1 << (p_used - 1).bit_length()
+    padded = torch.nn.functional.pad(args[3], (0, pb - p_used))
+    want_o, want_l = decode_attention_paged_lse_reference(
+        args[0], args[1], args[2], padded, args[4], window=window)
+    assert torch.equal(got_o, want_o) and torch.equal(got_l, want_l)
 
 
 def test_combine_lse_partials_matches_full_softmax():

@@ -38,9 +38,16 @@ Phases:
      the plain version, and time it at every stripe (device time and the
      eager op's, host included) and at qwen2's first beside its byte
      bound, its plain version and the library call that returns the same
-     (out, lse).  Kernels and library calls are timed on the device
-     (``device_ms``: calls captured in a CUDA graph and replayed), plain
-     versions eagerly (``cuda_ms``);
+     (out, lse); time SDPA at seamless's decode-step cross-attention (B 8,
+     Sq 1); then, after every earlier draw, hold the paged decode at
+     nemotron-4-340b's (H96/KV8, dh 192) and granite-34b's (H48/KV1, dh
+     128) serving shapes, the dense decode at H96/KV8, dh 192 (a ring),
+     the flash kernel at nemotron's second 512-token chunk and the partial
+     kernel at one granite stripe and one dh-192 stripe, flat and peaked,
+     each timed beside its library call and bound (``--kernels`` over an
+     older package without head dim 192 skips these).  Kernels and library
+     calls are timed on the device (``device_ms``: calls captured in a
+     CUDA graph and replayed), plain versions eagerly (``cuda_ms``);
   4. serve at full width, from random weights of a seed, llama3.2-1b,
      mamba2-2.7b (SSM) and zamba2-1.2b (hybrid): SageSched with the
      CUDA Gittins backend, 8 slots x 2048 tokens, 16 greedy requests in
@@ -48,6 +55,11 @@ Phases:
      fused, once orchestrated.  Every request must finish, the scheduler
      must preempt and swap, the streams must agree under the tolerance
      contract, and every kernel of the model's path must have launched;
+     then nemotron-4-340b and granite-34b at full width cut to 2 layers
+     (head dim 192 and three head groups; MQA and six head groups), fused
+     only, the same mix: every request must finish, the scheduler must
+     preempt and swap, and the paged decode and flash kernels must launch
+     exactly as often as the path calls them;
   4b. serve qwen2-1.5b at full width tensor-parallel, every shard on the
      one card (make_local_mesh(devices=["cuda:0"] * tp)), the same mix
      (fused): (a) without a mesh; (b) parallel="exact", tp 2, held
@@ -67,7 +79,9 @@ Phases:
      prompts, a dense cache of 512, 256 greedy steps), llama3.2-1b (all
      16 layers; 8 x 512-token prompts, a cache of 1024, 128 steps),
      mamba2-2.7b and zamba2-1.2b (8 x 512-token prompts, a cache of 1024,
-     64 steps; all layers, and cut to 2 layers).  Every logit must be
+     64 steps; all layers, and cut to 2 layers), nemotron-4-340b cut to 2
+     layers (8 x 512-token prompts, a cache of 1024, 64 steps, on phase
+     4's weights).  Every logit must be
      finite, the logits and greedy streams must agree under the
      tolerance contract with a teacher-forced Model.forward over prompt +
      generated tokens (see
@@ -89,6 +103,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -104,6 +119,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (CudaPriorityBackend, Scheduler,  # noqa: E402
                               gittins_index_batch, make_policy)
 from repro_torch.kernels.build import build_all  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
     decode_attention_op, decode_attention_paged_lse_op,
@@ -112,7 +128,7 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_dense_reference, decode_attention_paged_lse_reference,
     decode_attention_paged_reference)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    FLASH_PREFILL_KERNEL, flash_attention)
+    FLASH_PREFILL_KERNEL, HEAD_DIMS, flash_attention)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_reference)
 from repro_torch.kernels.gittins.ops import (  # noqa: E402
@@ -153,6 +169,12 @@ LSE_TOL = 1e-4
 # SSD final state (f32, sums of up to a chunk's terms in another order)
 SSD_STATE_TOL = 1e-3
 SERVED = ("llama3.2-1b", "mamba2-2.7b", "zamba2-1.2b")
+# phase 4 (fused only, exact launch counts) and, for nemotron, phase 5:
+# full width cut to 2 layers -- nemotron-4-340b's head dim 192 with 12
+# query heads a kv head (33 GB of bf16 weights, shared by both drives) and
+# granite-34b's MQA (48 query heads of 128 over one kv head)
+WIDE = (("nemotron-4-340b", dict(n_layers=2)),
+        ("granite-34b", dict(n_layers=2)))
 # phase 4b: (label, tp, parallel, step modes); tp None = no mesh
 TP_ARCH = "qwen2-1.5b"
 TP_DRIVES = (("a", None, "exact", ("fused",)),
@@ -189,7 +211,11 @@ GENERATE_DRIVES = (
     ("mamba2-2.7b", dict(n_layers=2), dict(b=8, prompt=512, max_len=1024,
                                            steps=64, logit_ulps=4)),
     ("zamba2-1.2b", dict(n_layers=2, hybrid_attn_every=1),
-     dict(b=8, prompt=512, max_len=1024, steps=64, logit_ulps=2)))
+     dict(b=8, prompt=512, max_len=1024, steps=64, logit_ulps=2)),
+    # teacher_forced_check's default bar: no drift measured before
+    ("nemotron-4-340b", dict(n_layers=2), dict(b=8, prompt=512,
+                                               max_len=1024, steps=64,
+                                               logit_ulps=3)))
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -292,6 +318,32 @@ def decode_case(cfg, dev, gen):
     return q, kp, vp, tables, cache_len
 
 
+def paged_sdpa_ms(q, kp, vp, tables, cl) -> float:
+    """SDPA over the gathered dense cache, the paged decode's yardstick."""
+    b, h, dh = q.shape
+    page, kvh = kp.shape[1], kp.shape[2]
+    s = tables.shape[1] * page
+    tok = ((tables.long() * page)[:, :, None]
+           + torch.arange(page, device=q.device)).reshape(b, s)
+    kd = kp.reshape(-1, kvh, dh)[tok].transpose(1, 2).contiguous()
+    vd = vp.reshape(-1, kvh, dh)[tok].transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=q.device)[None, :] < cl[:, None].long()
+            )[:, None, None, :]
+    qd = q[:, :, None, :]
+    return device_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True))
+
+
+def paged_bytes_flops(q, kvh, tables, cl):
+    """Bytes the paged decode must move (q and the output, each row's
+    cache_len K and V rows, its table and length, once) and its flops."""
+    b, h, dh = q.shape
+    valid = float(cl.long().sum())
+    n_bytes = (2 * q.numel() * 2 + 2 * valid * kvh * dh * 2
+               + tables.numel() * 4 + cl.numel() * 4)
+    return n_bytes, 4.0 * valid * h * dh
+
+
 def phase_decode(cfgs, dev, gen) -> dict:
     """Checks at the shapes of every served model with attention (llama:
     32 heads over 8 kv heads, dh 64; zamba2: 32 over 32, dh 64); times at
@@ -318,24 +370,9 @@ def phase_decode(cfgs, dev, gen) -> dict:
     ms = device_ms(lambda: decode_attention_paged_op(q, kp, vp, tables, cl))
     plain_ms = cuda_ms(lambda: decode_attention_paged_reference(
         q, kp, vp, tables, cl), iters=5)
-    # yardstick: SDPA over the already gathered dense cache
-    b, h, dh = q.shape
-    page, kvh = kp.shape[1], kp.shape[2]
-    s = tables.shape[1] * page
-    tok = (tables.long() * page)[:, :, None] + torch.arange(page, device=dev)
-    tok = tok.reshape(b, s)
-    kd = kp.reshape(-1, kvh, dh)[tok].transpose(1, 2).contiguous()
-    vd = vp.reshape(-1, kvh, dh)[tok].transpose(1, 2).contiguous()
-    mask = (torch.arange(s, device=dev)[None, :] < cl[:, None].long()
-            )[:, None, None, :]
-    qd = q[:, :, None, :]
-    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True))
-    valid = float(cl.long().sum())
-    n_bytes = (q.numel() * 2 + 2 * valid * kvh * dh * 2 + tables.numel() * 4
-               + cl.numel() * 4 + q.numel() * 2)
-    flops = 4.0 * valid * h * dh
-    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    lib_ms = paged_sdpa_ms(q, kp, vp, tables, cl)
+    bnd, by = bound_ms(*paged_bytes_flops(q, kp.shape[2], tables, cl),
+                       BF16_FLOPS)
     print(f"  paged decode {cfg.name}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, SDPA on gathered cache {lib_ms:.4f} ms, bound "
           f"{bnd:.5f} ms ({by})")
@@ -530,8 +567,16 @@ def phase_flash_noncausal(dev, gen) -> float:
             if draw == "flat":
                 ms = device_ms(lambda: flash_attention(q, k, v, pos, kv_pos,
                                                      causal=False), iters=5)
+                lib = ""
+                if sq == 1:
+                    # the yardstick of one decode step's cross-attention
+                    qt, kt, vt = (x.transpose(1, 2).contiguous()
+                                  for x in (q, k, v))
+                    lib = (f", SDPA "
+                           f"{device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5):.4f} ms")
+                    del qt, kt, vt
                 print(f"  flash {cfg.name} {what} (B {b}, Sq {sq}): kernel "
-                      f"{ms:.4f} ms")
+                      f"{ms:.4f} ms{lib}")
             if sq == s_enc and draw == "flat":
                 enc = (q, k, v, pos, kv_pos)
             del want
@@ -760,9 +805,26 @@ def phase_lse(dev, gen) -> dict:
     ms = device_ms(lambda: decode_attention_paged_lse_op(q, kp, vp, bt, cls))
     plain_ms = cuda_ms(lambda: decode_attention_paged_lse_reference(
         q, kp, vp, bt, cls), iters=5)
-    # the library call that returns the same (out, lse): memory-efficient
-    # SDPA with compute_log_sumexp over the gathered stripe (heads
-    # expanded: it takes no GQA), a boolean mask as an additive bias
+    lib_name, lib_ms = lse_library_ms(q, kp, vp, bt, cls)
+    n_bytes, flops = lse_bytes_flops(q, kp.shape[2], bt, cls)
+    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    print(f"  paged lse {TP_ARCH} stripe 0 of 4 (B 8, 32 pages): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by}; {n_bytes / 1e6:.2f} MB)")
+    return {"name": "decode_attention_paged_lse", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:275",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+
+
+def lse_library_ms(q, kp, vp, bt, cls) -> tuple[str, float]:
+    """The library call that returns the same (out, lse) as the partial
+    kernel: memory-efficient SDPA with compute_log_sumexp over the
+    gathered stripe (heads expanded: it takes no GQA), a boolean mask as
+    an additive bias; SDPA without the lse where this PyTorch refuses
+    it.  Returns its name and device time."""
+    dev = q.device
     b, h, dh = q.shape
     page, kvh = kp.shape[1], kp.shape[2]
     s_len = bt.shape[1] * page
@@ -791,20 +853,134 @@ def phase_lse(dev, gen) -> dict:
                     f"{str(e).splitlines()[0][:120]})")
         lib = None
     if lib is not None:
-        lib_ms = device_ms(lambda: lib(qd, kd, vd, bias, True))
-    else:
-        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=bias))
-    n_bytes, flops = lse_bytes_flops(q, kvh, bt, cls)
-    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
-    print(f"  paged lse {TP_ARCH} stripe 0 of 4 (B 8, 32 pages): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, "
-          f"bound {bnd:.5f} ms ({by}; {n_bytes / 1e6:.2f} MB)")
-    return {"name": "decode_attention_paged_lse", "route": "cuda",
-            "source": "src/repro_torch/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention/kernel.py:275",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+        return lib_name, device_ms(lambda: lib(qd, kd, vd, bias, True))
+    return lib_name, device_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=bias))
+
+
+def phase_wide_heads(dev, gen, rows: dict, kernels_only: bool) -> None:
+    """The attention kernels at the head shapes the earlier checks do not
+    reach, each with a flat and a peaked draw (after every earlier draw,
+    whose inputs stay as they were): the paged decode at nemotron-4-340b's
+    (H96/KV8, dh 192: three head groups a kv head) and granite-34b's
+    (H48/KV1, dh 128: six) serving shapes, the dense decode at H96/KV8, dh
+    192 (a ring of 1024 slots, some rows wrapped), the flash kernel at
+    nemotron's second 512-token chunk over 512 rows, the partial kernel at
+    one granite stripe and one dh-192 stripe.  Each new shape is timed
+    beside its library yardstick and bound.  Raises the kernels' rows'
+    max_abs_err."""
+    if not (hasattr(decode_ops, "head_groups") and 192 in HEAD_DIMS):
+        # an older package (a parent commit timed with --kernels) has no
+        # head dim 192 and no head groups in the paged kernels
+        if kernels_only:
+            print("  wide heads: skipped, the package under test predates "
+                  "head dim 192")
+            return
+        raise SystemExit("FAIL: the package's kernels take no head dim 192")
+    nem, gra = get_config("nemotron-4-340b"), get_config("granite-34b")
+    for cfg in (nem, gra):
+        shape = f"H{cfg.n_heads}/KV{cfg.n_kv_heads}, dh {cfg.head_dim}"
+        for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+            q, kp, vp, tables, cl = decode_case(cfg, dev, gen)
+            q = (q.float() * q_scale).bfloat16()
+            for window in (0, 256):
+                got = decode_attention_paged_op(q, kp, vp, tables, cl,
+                                                window=window)
+                want = decode_attention_paged_reference(q, kp, vp, tables,
+                                                        cl, window=window)
+                torch.cuda.synchronize()
+                rows["decode_attention_paged"]["max_abs_err"] = max(
+                    rows["decode_attention_paged"]["max_abs_err"],
+                    attn_check(f"paged decode {cfg.name} {draw} (bf16, "
+                               f"{shape}, 8 lanes, cache_len 32..1280"
+                               f"{f', window {window}' if window else ''})",
+                               got, want))
+            if draw == "flat":
+                ms = device_ms(lambda: decode_attention_paged_op(
+                    q, kp, vp, tables, cl))
+                lib = paged_sdpa_ms(q, kp, vp, tables, cl)
+                bnd, by = bound_ms(*paged_bytes_flops(q, cfg.n_kv_heads,
+                                                      tables, cl), BF16_FLOPS)
+                print(f"  paged decode {cfg.name}: kernel {ms:.4f} ms, SDPA "
+                      f"on gathered cache {lib:.4f} ms, bound {bnd:.5f} ms "
+                      f"({by})")
+            del q, kp, vp, tables, cl
+    h, kvh, dh = nem.n_heads, nem.n_kv_heads, nem.head_dim
+    for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+        q, k, v, cl = dense_decode_case(dev, gen, 8, h, kvh, dh, 1024, 1224,
+                                        q_scale)
+        got = decode_attention_op(q, k, v, cl, window=1024)
+        want = decode_attention_dense_reference(q, k, v, cl, window=1024)
+        torch.cuda.synchronize()
+        rows["decode_attention_dense"]["max_abs_err"] = max(
+            rows["decode_attention_dense"]["max_abs_err"],
+            attn_check(f"dense decode nemotron-4-340b {draw} (bf16, H{h}/"
+                       f"KV{kvh}, dh {dh}, S_max 1024, cache_len 1..1224, "
+                       f"window 1024, {int((cl > 1024).sum())} rows "
+                       f"wrapped)", got, want))
+        if draw == "flat":
+            ms = device_ms(lambda: decode_attention_op(q, k, v, cl))
+            lib = dense_decode_sdpa_ms(q, k, v, cl)
+            bnd, by = bound_ms(*dense_decode_bytes_flops(q, k, cl),
+                               BF16_FLOPS)
+            print(f"  dense decode nemotron-4-340b: kernel {ms:.4f} ms, SDPA "
+                  f"with a boolean mask {lib:.4f} ms, bound {bnd:.5f} ms "
+                  f"({by})")
+        del q, k, v, cl
+    for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+        q, k, v, pos, kv_pos = flash_case(nem, dev, gen, 512, 512, 512)
+        q = (q.float() * q_scale).bfloat16()
+        got = flash_attention(q, k, v, pos, kv_pos)
+        want = attention_reference(q, k, v, pos, kv_pos)
+        torch.cuda.synchronize()
+        rows["flash_attention_prefill"]["max_abs_err"] = max(
+            rows["flash_attention_prefill"]["max_abs_err"],
+            attn_check(f"flash prefill nemotron-4-340b {draw} (bf16, H{h}/"
+                       f"KV{kvh}, dh {dh}, C=512, S_past=512, start=512)",
+                       got, want))
+        if draw == "flat":
+            ms = device_ms(lambda: flash_attention(q, k, v, pos, kv_pos))
+            mask = (kv_pos[None, :] >= 0) & (pos[:, None] >= kv_pos[None, :])
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 \
+                + (pos.numel() + kv_pos.numel()) * 4
+            bnd, by = bound_ms(n_bytes, 4.0 * float(mask.sum()) * h * dh,
+                               BF16_FLOPS)
+            print(f"  flash prefill nemotron-4-340b (C=512, S_past=512): "
+                  f"kernel {ms:.4f} ms, SDPA {lib:.4f} ms, bound "
+                  f"{bnd:.5f} ms ({by})")
+            del qt, kt, vt
+        del q, k, v, want, got
+    for cfg in (gra, nem):
+        h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+            q, kp, vp, tables, cl = lse_case(dev, gen, h, kvh, dh, q_scale)
+            bt, cls = stripe(tables, cl, 0)
+            out, lse = decode_attention_paged_lse_op(q, kp, vp, bt, cls)
+            want_o, want_l = decode_attention_paged_lse_reference(
+                q, kp, vp, bt, cls)
+            torch.cuda.synchronize()
+            what = (f"paged lse {cfg.name} {draw} (bf16, H{h}/KV{kvh}, dh "
+                    f"{dh}) stripe 0")
+            if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+                raise SystemExit(f"FAIL {what}: non-finite output")
+            rows["decode_attention_paged_lse"]["max_abs_err"] = max(
+                rows["decode_attention_paged_lse"]["max_abs_err"],
+                attn_check(f"{what}: out", out, want_o))
+            check(f"{what}: lse (f32)", lse, want_l, LSE_TOL)
+            if draw == "flat":
+                ms = device_ms(lambda: decode_attention_paged_lse_op(
+                    q, kp, vp, bt, cls))
+                lib_name, lib = lse_library_ms(q, kp, vp, bt, cls)
+                bnd, by = bound_ms(*lse_bytes_flops(q, kvh, bt, cls),
+                                   BF16_FLOPS)
+                print(f"  paged lse {cfg.name} stripe 0 of 4: kernel "
+                      f"{ms:.4f} ms, {lib_name} {lib:.4f} ms, bound "
+                      f"{bnd:.5f} ms ({by})")
+            del q, kp, vp, tables, cl
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- phase 4
@@ -939,6 +1115,45 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
     total = {s: launches["fused"][s] + launches["orchestrated"][s]
              for s in launches["fused"]}
     return total, max_shape
+
+
+def phase_serve_wide(cfg, params, dev) -> dict:
+    """One fused drive of the two waves at a WIDE shape: every request
+    must finish, the scheduler must preempt and swap, and the paged
+    decode and flash kernels must launch exactly as often as the path
+    calls them (one a layer per decode call and per prefill chunk).
+    Returns the launches."""
+    kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
+               FLASH_PREFILL_KERNEL)
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    engine, reqs, secs, _ = serve(cfg, params, dev, "fused")
+    launches = {k.symbol: k.launches for k in kernels}
+    m = engine.metrics.summary(reqs)
+    gen_tokens = sum(r.generated for r in reqs)
+    ttft = np.array([r.ttft for r in reqs])
+    ttlt = np.array([r.ttlt for r in reqs])
+    print(f"  serve[fused] {cfg.name} {torch.cuda.get_device_name(0)}: "
+          f"{len(reqs)}/{len(reqs)} finished, {gen_tokens} tokens in "
+          f"{secs:.3f} s = {gen_tokens / secs:.1f} tok/s, TTFT p50 "
+          f"{np.median(ttft):.4f} s, TTLT p50 {np.median(ttlt):.4f} s, "
+          f"preemptions {m['preemptions']}, swap outs {m['swap_outs']}, "
+          f"swap ins {m['swap_ins']}, decode calls "
+          f"{m['decode_iterations']}, prefill chunks {m['prefill_chunks']}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+          f"launches {launches}")
+    if m["preemptions"] == 0 or m["swap_outs"] == 0:
+        raise SystemExit(f"FAIL serve {cfg.name}: the scheduler did not "
+                         "preempt and swap")
+    want = tp_launches(cfg, engine, m)
+    if {k: launches[k] for k in want} != want \
+            or launches[GITTINS_KERNEL.symbol] == 0:
+        raise SystemExit(f"FAIL serve {cfg.name}: launches {launches}, the "
+                         f"path calls {want} and Gittins")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -------------------------------------------------------------- phase 4b
@@ -1119,14 +1334,16 @@ def generate_launches(cfg, steps: int) -> dict:
 
 def phase_generate(cfg, dev, *, b: int, prompt: int, max_len: int,
                    steps: int, logit_ulps: int | None,
-                   n_frames: int = 0) -> dict:
+                   n_frames: int = 0, params=None) -> dict:
     """Drive Model.prefill -> Model.decode_step at full width from random
-    weights of a seeded generator on the card; returns the launches of
-    the drive's kernels.  The teacher-forced comparison is held at
-    ``logit_ulps`` bf16 steps, or printed but not held where it is None."""
+    weights of a seeded generator on the card (or the given ``params``,
+    another drive's); returns the launches of the drive's kernels.  The
+    teacher-forced comparison is held at ``logit_ulps`` bf16 steps, or
+    printed but not held where it is None."""
     gen = torch.Generator(device=dev).manual_seed(0)
     model = build_model(cfg)
-    params = model.init(gen)
+    if params is None:
+        params = model.init(gen)
     batch = {"tokens": torch.randint(3, cfg.vocab_size, (b, prompt),
                                      generator=gen, device=dev)}
     encdec = cfg.family == "encdec"
@@ -1281,7 +1498,12 @@ def main() -> int:
           f"{ {k: round(v[0], 2) for k, v in built.items()} })")
     for _, log in built.values():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            entry = "Compiling entry" in line and re.search(
+                r"\d+([a-z_]+kernel)I(\w*?)EEv", line)
+            if entry:   # a kernel's template arguments, e.g. <192, 1, 4>
+                args = re.findall(r"L[ib](\d+)E", entry.group(2) + "E")
+                print(f"  ptxas: {entry.group(1)}<{', '.join(args)}>")
+            elif "Used" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
     if trace:
@@ -1302,6 +1524,7 @@ def main() -> int:
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
                                  phase_flash_dh128(dev, gen))
     rows.append(phase_lse(dev, gen))
+    phase_wide_heads(dev, gen, {r["name"]: r for r in rows}, kernels_only)
     if kernels_only:
         return 0
 
@@ -1316,6 +1539,21 @@ def main() -> int:
             launches[sym] = launches.get(sym, 0) + n
         if shp[0] * shp[1] > shape[0] * shape[1]:
             shape = shp
+    shared = {}   # nemotron's weights, for its phase-5 drive too
+    for arch, cut in WIDE:
+        cfg = get_config(arch).with_overrides(**cut)
+        print(f"phase 4: serving {cfg.name} at full width cut to "
+              f"{cfg.n_layers} layers (d {cfg.d_model}, H{cfg.n_heads}/"
+              f"KV{cfg.n_kv_heads}, dh {cfg.head_dim}, vocab "
+              f"{cfg.vocab_size}), fused")
+        params = build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(0))
+        for sym, n in phase_serve_wide(cfg, params, dev).items():
+            launches[sym] = launches.get(sym, 0) + n
+        if any(arch == a for a, c, _ in GENERATE_DRIVES if c == cut):
+            shared[arch] = params
+        del params
+        torch.cuda.empty_cache()
     cfg = get_config(TP_ARCH)
     print(f"phase 4b: serving {cfg.name} at full width tensor-parallel "
           f"({cfg.n_layers} layers, d {cfg.d_model}, H{cfg.n_heads}/"
@@ -1331,8 +1569,10 @@ def main() -> int:
               f"layers{f', cut by {cut}' if cut else ''}, d {cfg.d_model}, "
               f"vocab {cfg.vocab_size}) through Model.prefill -> "
               f"Model.decode_step")
-        for sym, n in phase_generate(cfg, dev, **kw).items():
+        for sym, n in phase_generate(cfg, dev, params=shared.pop(arch, None),
+                                     **kw).items():
             launches[sym] = launches.get(sym, 0) + n
+        torch.cuda.empty_cache()
     print(f"phase 6: gittins kernel (largest main-path refresh {shape})")
     rows.insert(0, phase_gittins(dev, shape))
     symbols = {"gittins_attained": GITTINS_KERNEL.symbol,

@@ -1,42 +1,571 @@
 // Decode attention: one query token per batch row, in three entry points
-// that share this file's helpers.  decode_attention_paged (below) reads the
-// shared (n_pages, page, KV, dh) KV pool through (B, P) block tables;
-// decode_attention_paged_lse (after it) computes the partial softmax over
-// a stripe of those tables, split across blocks; decode_attention_dense
-// (further down) reads dense per-row (B, S_max, KV, dh) caches and has its
-// own header.
+// that share this file's helpers.  decode_attention_paged reads the shared
+// (n_pages, page, KV, dh) KV pool through (B, P) block tables;
+// decode_attention_dense reads dense per-row (B, S_max, KV, dh) caches,
+// which may be ring buffers; both are one split-KV kernel template (below)
+// with two row-address policies.  decode_attention_paged_lse (further down)
+// computes the partial softmax over a stripe of the block tables and has
+// its own header.
 //
-// The paged kernel.
-//
-// Replaces src/repro/kernels/decode_attention/kernel.py::
+// The paged kernel replaces src/repro/kernels/decode_attention/kernel.py::
 // decode_attention_paged_kernel (its pl.pallas_call at kernel.py:266); the
 // function is src/repro/models/attention.py::decode_attention_paged with
 // n_splits = 1: f32 scores scaled by dh^-1/2, positions >= cache_len (and,
 // with a window, < cache_len - window) masked to -1e30, unnormalised exp,
 // f32 p into the value sum, one late divide by max(l, 1e-30).
 //
-// What bounds it on the H100: bytes.  Each (row, kv head) reads its
-// cache_len K and V rows once (2 * dh * 2 bytes each) and does 4 flops per
-// element read, about 1 flop per byte, so the pool read is the whole cost;
-// at serving batch sizes the B * KV blocks (64 for llama3.2-1b at 8 lanes)
-// leave half the 132 SMs idle and one block walks its pages in sequence,
-// so the simple kernel is latency bound well above the byte bound.
+// The dense kernel replaces src/repro/kernels/decode_attention/kernel.py::
+// decode_attention_kernel (its pl.pallas_call at kernel.py:113); the
+// function is src/repro/models/attention.py::decode_attention, which
+// Model.decode_step runs in every attention layer: the same arithmetic,
+// slot idx valid iff idx < cache_len or (window > 0 and cache_len >=
+// S_max).  That ring rule is over physical slots (once a ring has wrapped
+// every slot holds one of the last S_max tokens), unlike the paged
+// kernel's logical window: for any window it reduces to "the first
+// min(cache_len, S_max) slots", so the dense kernel takes no window.
 //
-// Design: one block per (kv head, batch row); the block's rep = H / KV query
-// heads share every K/V page it loads.  The block reads its own row of the
-// block table and walks only the logical pages that hold unmasked positions
-// (cache_len and the window bound the loop), loading one physical page of K
-// and V into shared memory per step with 16-byte loads.  Scores go to shared
-// memory; each thread owns up to 8 (head, dh) outputs and keeps their
-// running max, sum and accumulator in registers (the online softmax of the
-// Pallas kernel).  Shared rows are padded by one word so the score loop's
-// threads, which read different token rows, hit different banks.
+// What bounds both on the H100: bytes.  Each (row, kv head) reads its live
+// K and V rows once (2 * dh * 2 bytes each) and does 4 flops a head per
+// element read: about rep flops per byte, under the f32 cores' ~20 flops
+// per byte (67 TFLOP/s over 3.35 TB/s) at every ratio the configs have but
+// granite's MQA (48).  So the limit is bytes in flight, not arithmetic,
+// which stays in f32 on the CUDA cores (wgmma would buy nothing and a bf16
+// p moves the rounding).  The first kernels of this file ran one block per
+// (kv head, row) -- 64 blocks on 132 SMs at llama3.2-1b's 8 lanes -- each
+// walking its whole cache with no load in flight across tiles: 37x
+// (paged) and 27x (dense ring) their byte bounds.
+//
+// Design: a split across blocks with a cp.async ring.  The grid is
+// (KV * n_groups, B, n_sub).  A kv head's rep = H / KV query heads share
+// every K/V tile a block loads; where rep * dh > 1024 (granite's 48 heads
+// of 128, nemotron's 12 of 192) they are split into the fewest equal
+// groups of at most 1024 / dh heads, one block each.  Sub-split z takes the contiguous rows [z * per, (z + 1) *
+// per) of the row's cache, intersected with the row's live rows (a
+// sub-split with no live row visits no tile), with per a fixed number of
+// 64-row units (the op's SPLIT_UNITS, 4) and n_sub = ceil(rows / per): a
+// row's partition, and so its rounding, is the same whatever the batch or
+// the table's padded width (the engine's fused step pads tables to a pow2
+// of the pages in use, its orchestrated step passes them whole; a count
+// chosen from those shapes made the two steps' greedy streams part).
+// Trailing sub-splits with no live row add exact zeros in the merge.
+//
+// A block walks its rows in tiles of 64 (32 at dh 192; 24 KB of K and V)
+// held in a ring of three stages in shared memory, filled with 16-byte
+// cp.async: two tiles are in flight while one is used.  The paged policy
+// gathers each tile row by row through the block table (any page size;
+// rows outside the live range are not loaded, never scratch page 0); the
+// dense policy reads rows KV * dh apart.  Per tile, with the query heads
+// taken in quads (a thread works for several heads at once, so each K or
+// V element it reads is converted to f32 once per quad, not per head):
+// scores by groups of 8 lanes, an item being 8 rows x kQS heads, each lane
+// holding its 8-column chunks of the quad's q in registers and reading 16
+// bytes of K a chunk, the partial dots reduced over the 8 lanes by a
+// butterfly of shuffles that leaves row j's dots on lane j (kQS is the
+// widest of 4, 2, 1 that still gives all 16 groups an item); one warp per
+// head takes the tile max, rescales the head's running max and sum and
+// writes p = exp(s - m) back once; then each thread adds p times 8 columns
+// of V (one 16-byte load) into the kQP x 8 f32 accumulators of one (quad,
+// chunk), threads beyond the block's chunks taking every R-th row (their
+// partial sums added at the end, through the freed ring).  Per-tile
+// latency (three block-wide barriers, the softmax's shuffle chains) on
+// top of the copies still sets the time above the byte bound (PERF.md
+// §6).  With n_sub = 1 the block writes out itself; otherwise it
+// writes f32 partials (m, l and the unnormalised acc per (row, head)) to
+// the op's scratch and merge_kernel writes out: M = max m, L = sum l
+// exp(m - M), out = sum acc exp(m - M) / max(L, 1e-30).  A sub-split with
+// no live row leaves m = -1e30, l = 0, acc = 0, which the merge weighs
+// exactly 0 (exp(-1e30 - M) = 0 for a live M).
 //
 // Differs from the reference only for a row with cache_len == 0 (every
-// position masked): the reference averages all P * page values uniformly
-// (exp(-1e30 - -1e30) = 1), this kernel visits no page and writes 0.  The
-// engine always passes cache_len + 1 >= 1 (transformer.py:500).
-//
+// position masked): the reference averages all values uniformly
+// (exp(-1e30 - -1e30) = 1), these kernels visit no tile and write 0.  Every
+// caller passes cache_len + 1 >= 1 (transformer.py _attn_decode and the
+// paged decode step).
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kMaxOutPerThread = 8;
+constexpr int kMaxOutputs = kThreads * kMaxOutPerThread;  // heads * dh a block
+constexpr int kSplitUnit = 64;  // a sub-split's rows are a multiple of this
+
+// A kv head's query heads split into the fewest equal groups of at most
+// kMaxOutputs / dh heads: n_groups blocks of up to hpb heads each.
+struct HeadGroups {
+  int n_groups, hpb;
+};
+
+inline HeadGroups head_groups(int rep, int dh) {
+  const int max_heads = kMaxOutputs / dh;
+  const int n = (rep + max_heads - 1) / max_heads;
+  return {n, (rep + n - 1) / n};
+}
+
+// One bf16 of a packed pair, exactly, as an f32.
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// ------------------------------------------------- the split-KV decode
+
+template <int DH>
+struct Split {
+  static constexpr int kRows = DH == 192 ? 32 : 64;  // K/V rows a tile
+  static constexpr int kStages = 3;                  // ring depth
+  static constexpr int kVec = DH / 8;                // 16-byte chunks a row
+  static constexpr int kTile = kRows * DH;           // bf16 of one K or V tile
+  static_assert(kSplitUnit % kRows == 0, "a sub-split is whole tiles");
+  static_assert(kRows * kVec % kThreads == 0, "whole chunks a thread");
+  // the end-of-block reduction ([replicas][heads][DH] <= 4096 floats)
+  // reuses the ring
+  static_assert(kStages * 2 * kTile * 2 >= 4096 * 4, "ring too small");
+};
+constexpr int kMaxQuad = 4;  // query heads a thread takes at once, at most
+
+// Dynamic shared memory: the ring [stage][K, V][kRows][DH] bf16 (after
+// the last tile, the end-of-block reduction), then f32 q [hpb][DH], p
+// [kRows][hpb | 1] and the running max, sum and tile correction [hpb]
+// each.
+template <int DH>
+size_t split_smem_bytes(int hpb) {
+  using C = Split<DH>;
+  return static_cast<size_t>(C::kStages) * 2 * C::kTile * 2 +
+         (static_cast<size_t>(hpb) * DH + C::kRows * (hpb | 1) + 3 * hpb) *
+             sizeof(float);
+}
+
+template <int DH, bool kPaged, int kQS, int kQP>
+__global__ void __launch_bounds__(kThreads) split_decode_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ tables,
+    const int* __restrict__ cache_len, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part, int B, int H, int KV, int hpb, int n_groups,
+    int S, int per, int page, int P, int window, float scale) {
+  using C = Split<DH>;
+  const int g = blockIdx.x / n_groups;  // kv head
+  const int grp = blockIdx.x % n_groups;
+  const int b = blockIdx.y;             // batch row
+  const int z = blockIdx.z;             // sub-split
+  const int n_sub = gridDim.z;
+  const int rep = H / KV;
+  const int h_first = g * rep + grp * hpb;
+  const int nh = min(hpb, rep - grp * hpb);  // query heads of this block
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sp = hpb | 1;  // p row stride: odd, so the softmax warp's
+                           // column reads hit 32 banks
+
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(split_smem);
+  float* q_s = reinterpret_cast<float*>(ring + C::kStages * 2 * C::kTile);
+  float* p_s = q_s + hpb * DH;
+  float* m_s = p_s + C::kRows * sp;
+  float* l_s = m_s + hpb;
+  float* c_s = l_s + hpb;
+  for (int r = tid; r < hpb; r += kThreads) {
+    m_s[r] = kNeg;
+    l_s[r] = 0.0f;
+  }
+  {
+    const __nv_bfloat16* q_row = q + (static_cast<size_t>(b) * H + h_first) * DH;
+    for (int i = tid; i < nh * DH; i += kThreads)
+      q_s[i] = __bfloat162float(q_row[i]);
+  }
+
+  // the row's live rows, and this sub-split's share of them
+  const int len = cache_len[b];
+  const int hi = max(0, min(len, S));
+  const int lo = kPaged && window > 0 ? max(0, len - window) : 0;
+  const int r0 = max(lo, z * per), r1 = min(hi, (z + 1) * per);
+  const int n_tiles = r1 > r0 ? (r1 - r0 + C::kRows - 1) / C::kRows : 0;
+
+  // Query heads go in quads: a thread computes scores for kQS heads at
+  // once and sums values for kQP (4, 2 or 1 each; the launch picks kQS
+  // so that every lane group has a score item), so each K or V element it
+  // reads is converted to f32 once per quad, not once per head.
+  // scores: the tile's rows in blocks of 8; an item is (row block, quad),
+  // and group sg of 8 lanes takes the items sg, sg + 16, ...; lane j
+  // holds q's chunks j, j + 8, ... of the quad's heads in registers,
+  // loaded from q_s when the quad changes
+  const int s_quads = (nh + kQS - 1) / kQS;
+  const int sg = tid >> 3, j = tid & 7;
+  const int n_items = C::kRows / 8 * s_quads;
+  float qv[kQS][DH / 64][8];
+  int q_quad = -1;
+  // value sums: thread tid owns 8 columns (chunk pc) of quad pq for the
+  // rows prho + R_pv i
+  const int n_pv = (nh + kQP - 1) / kQP * C::kVec;
+  const int r_pv = kThreads / n_pv;
+  const int pidx = tid % n_pv, prho = tid / n_pv;
+  const bool pv_on = prho < r_pv;
+  const int pq = pidx / C::kVec, pc = pidx % C::kVec;
+  float acc[kQP][8];
+#pragma unroll
+  for (int hh = 0; hh < kQP; ++hh)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[hh][e] = 0.0f;
+
+  // a tile's copies: every source offset first (the paged policy's table
+  // reads all in flight together), then the 16-byte copies
+  auto load_tile = [&](int i, int stage) {
+    constexpr int kPer = C::kRows * C::kVec / kThreads;  // chunks a thread
+    const int t0 = r0 + i * C::kRows;
+    const int rows = min(C::kRows, r1 - t0);
+    __nv_bfloat16* k_s = ring + stage * 2 * C::kTile;
+    __nv_bfloat16* v_s = k_s + C::kTile;
+    size_t off[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int x = tid + u * kThreads;
+      const int pos = t0 + min(x / C::kVec, rows - 1);
+      if constexpr (kPaged) {
+        const int phys = __ldg(tables + static_cast<size_t>(b) * P + pos / page);
+        off[u] = ((static_cast<size_t>(phys) * page + pos % page) * KV + g) * DH;
+      } else {
+        off[u] = ((static_cast<size_t>(b) * S + pos) * KV + g) * DH;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int x = tid + u * kThreads;
+      const int t = x / C::kVec, c = x % C::kVec;
+      if (t < rows) {
+        cp_async16(k_s + t * DH + c * 8, k + off[u] + c * 8, 16);
+        cp_async16(v_s + t * DH + c * 8, v + off[u] + c * 8, 16);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();  // tile i has landed for every thread; tile i - 1's
+                      // stage, p and corrections are free
+    if (i + C::kStages - 1 < n_tiles)
+      load_tile(i + C::kStages - 1, (i + C::kStages - 1) % C::kStages);
+    cp_async_commit();
+    const int rows = min(C::kRows, r1 - (r0 + i * C::kRows));
+    const __nv_bfloat16* k_s = ring + (i % C::kStages) * 2 * C::kTile;
+    const __nv_bfloat16* v_s = k_s + C::kTile;
+
+    // 8 rows x kQS heads at a time: 8 kQS independent partial dots a
+    // lane, then a butterfly over the group's 8 lanes (7 kQS shuffles)
+    // leaves row j's full dots on lane j.  The trip count is the warp's (its 4 groups
+    // take items base .. base + 3), so that every lane takes part in each
+    // shuffle and a warp with no item skips the phase; a row past the
+    // tile, or a head past the block's, sums only with itself and is not
+    // stored.
+    for (int base = sg & ~3; base < n_items; base += 16) {
+      const int it = base + (sg & 3);
+      const bool on = it < n_items;
+      const int rb = on ? it / s_quads : 0, hq = on ? it % s_quads : 0;
+      if (hq != q_quad) {
+#pragma unroll
+        for (int hh = 0; hh < kQS; ++hh) {
+          const int r = min(hq * kQS + hh, nh - 1);
+#pragma unroll
+          for (int c = 0; c < DH / 64; ++c) {
+            const float4* qr = reinterpret_cast<const float4*>(q_s + r * DH) +
+                               2 * (j + 8 * c);
+            const float4 a = qr[0], e = qr[1];
+            qv[hh][c][0] = a.x; qv[hh][c][1] = a.y;
+            qv[hh][c][2] = a.z; qv[hh][c][3] = a.w;
+            qv[hh][c][4] = e.x; qv[hh][c][5] = e.y;
+            qv[hh][c][6] = e.z; qv[hh][c][7] = e.w;
+          }
+        }
+        q_quad = hq;
+      }
+      float d[8][kQS];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const uint4* kr = reinterpret_cast<const uint4*>(k_s + (rb * 8 + u) * DH);
+#pragma unroll
+        for (int hh = 0; hh < kQS; ++hh) d[u][hh] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < DH / 64; ++c) {
+          const uint4 w = kr[j + 8 * c];
+          const float kf[8] = {bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y),
+                               bf16_hi(w.y), bf16_lo(w.z), bf16_hi(w.z),
+                               bf16_lo(w.w), bf16_hi(w.w)};
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+#pragma unroll
+            for (int hh = 0; hh < kQS; ++hh)
+              d[u][hh] = fmaf(qv[hh][c][e], kf[e], d[u][hh]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)  // lanes with j & 4 keep rows 4..7
+#pragma unroll
+        for (int hh = 0; hh < kQS; ++hh) {
+          const bool up = j & 4;
+          d[u][hh] = (up ? d[u + 4][hh] : d[u][hh]) +
+                     __shfl_xor_sync(kFullMask, up ? d[u][hh] : d[u + 4][hh], 4);
+        }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)  // then j & 2: rows + 2, 3
+#pragma unroll
+        for (int hh = 0; hh < kQS; ++hh) {
+          const bool up = j & 2;
+          d[u][hh] = (up ? d[u + 2][hh] : d[u][hh]) +
+                     __shfl_xor_sync(kFullMask, up ? d[u][hh] : d[u + 2][hh], 2);
+        }
+#pragma unroll
+      for (int hh = 0; hh < kQS; ++hh) {
+        const bool up = j & 1;
+        d[0][hh] = (up ? d[1][hh] : d[0][hh]) +
+                   __shfl_xor_sync(kFullMask, up ? d[0][hh] : d[1][hh], 1);
+      }
+      const int t = rb * 8 + j;
+      if (on && t < rows) {
+#pragma unroll
+        for (int hh = 0; hh < kQS; ++hh)
+          if (hq * kQS + hh < nh) p_s[t * sp + hq * kQS + hh] = d[0][hh] * scale;
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < nh; r += kThreads / 32) {
+      float* col = p_s + r;
+      const float s0 = lane < rows ? col[lane * sp] : kNeg;
+      const float s1 = lane + 32 < rows ? col[(lane + 32) * sp] : kNeg;
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
+      const float p0 = lane < rows ? expf(s0 - m_new) : 0.0f;
+      const float p1 = lane + 32 < rows ? expf(s1 - m_new) : 0.0f;
+      if (lane < rows) col[lane * sp] = p0;
+      if (lane + 32 < rows) col[(lane + 32) * sp] = p1;
+      const float psum = warp_sum(p0 + p1);
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        c_s[r] = corr;
+        l_s[r] = l_s[r] * corr + psum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+    if (pv_on) {
+      const int h0 = pq * kQP;
+#pragma unroll
+      for (int hh = 0; hh < kQP; ++hh) {
+        const float corr = c_s[min(h0 + hh, nh - 1)];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[hh][e] *= corr;
+      }
+      // two rows' loads issued together, then their products in order; a
+      // head past the block's reads its neighbour's p and is not stored
+      for (int t = prho; t < rows; t += 2 * r_pv) {
+        float p[2][kQP];
+        uint4 w[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const bool ok = t + u * r_pv < rows;
+          const int tu = ok ? t + u * r_pv : t;
+#pragma unroll
+          for (int hh = 0; hh < kQP; ++hh)
+            p[u][hh] = ok ? p_s[tu * sp + min(h0 + hh, nh - 1)] : 0.0f;
+          w[u] = reinterpret_cast<const uint4*>(v_s + tu * DH)[pc];
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float vf[8] = {bf16_lo(w[u].x), bf16_hi(w[u].x),
+                               bf16_lo(w[u].y), bf16_hi(w[u].y),
+                               bf16_lo(w[u].z), bf16_hi(w[u].z),
+                               bf16_lo(w[u].w), bf16_hi(w[u].w)};
+#pragma unroll
+          for (int hh = 0; hh < kQP; ++hh)
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              acc[hh][e] = fmaf(p[u][hh], vf[e], acc[hh][e]);
+        }
+      }
+    }
+  }
+
+  // the row replicas' partial sums, added in replica order, through the
+  // ring (free once every copy has landed and every thread is done)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);  // [r_pv][nh][DH]
+  if (pv_on) {
+#pragma unroll
+    for (int hh = 0; hh < kQP; ++hh) {
+      const int h = pq * kQP + hh;
+      if (h < nh) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          red[(prho * nh + h) * DH + pc * 8 + e] = acc[hh][e];
+      }
+    }
+  }
+  __syncthreads();
+  const size_t bh_n = static_cast<size_t>(B) * H;
+  const size_t bh0 = static_cast<size_t>(b) * H + h_first;  // first head
+  for (int o = tid; o < nh * DH; o += kThreads) {
+    const int r = o / DH;
+    float a = 0.0f;
+    for (int x = 0; x < r_pv; ++x) a += red[x * nh * DH + o];
+    if (n_sub == 1) {
+      out[bh0 * DH + o] = __float2bfloat16(a / fmaxf(l_s[r], 1e-30f));
+    } else {
+      // part: m [n_sub][B * H], l [n_sub][B * H], acc [n_sub][B * H][DH]
+      part[2 * n_sub * bh_n + (z * bh_n + bh0) * DH + o] = a;
+      if (o % DH == 0) {
+        part[z * bh_n + bh0 + r] = m_s[r];
+        part[bh_n * n_sub + z * bh_n + bh0 + r] = l_s[r];
+      }
+    }
+  }
+}
+
+// The sub-splits' f32 partials merged into out (and, for the partial
+// kernel, lse): one block per (row, head), one thread per output column.
+template <int DH, bool kLse>
+__global__ void __launch_bounds__(DH) merge_kernel(
+    const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int BH, int n_sub) {
+  const int bh = blockIdx.x, d = threadIdx.x;
+  const float* pm = part;
+  const float* pl = part + static_cast<size_t>(n_sub) * BH;
+  const float* pa = part + 2 * static_cast<size_t>(n_sub) * BH;
+  float mx = kNeg;
+  for (int z = 0; z < n_sub; ++z) mx = fmaxf(mx, pm[z * BH + bh]);
+  float l = 0.0f, a = 0.0f;
+  for (int z = 0; z < n_sub; ++z) {
+    const float w = expf(pm[z * BH + bh] - mx);
+    l += pl[z * BH + bh] * w;
+    a += pa[(static_cast<size_t>(z) * BH + bh) * DH + d] * w;
+  }
+  out[static_cast<size_t>(bh) * DH + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+  if constexpr (kLse) {
+    if (d == 0) lse[bh] = mx + logf(fmaxf(l, 1e-30f));
+  }
+}
+
+// The heads a thread takes at once in the value sums (kQP: 4, or the
+// block's 1 or 2 heads) and in the scores (kQS: the widest of 4, 2, 1 not
+// above kQP that still gives all 16 lane groups a score item, so that no
+// warp idles in that phase; else 1).
+template <int DH, bool kPaged>
+auto split_kernel_for(int hpb) {
+  constexpr int kBlocks = Split<DH>::kRows / 8;  // row blocks a tile
+  const int qp = hpb >= kMaxQuad ? 4 : hpb >= 2 ? 2 : 1;
+  auto busy = [&](int qs) { return kBlocks * ((hpb + qs - 1) / qs) >= 16; };
+  const int qs = qp == 4 && busy(4) ? 4 : qp >= 2 && busy(2) ? 2 : 1;
+  if (qp == 4)
+    return qs == 4 ? split_decode_kernel<DH, kPaged, 4, 4>
+         : qs == 2 ? split_decode_kernel<DH, kPaged, 2, 4>
+                   : split_decode_kernel<DH, kPaged, 1, 4>;
+  if (qp == 2)
+    return qs == 2 ? split_decode_kernel<DH, kPaged, 2, 2>
+                   : split_decode_kernel<DH, kPaged, 1, 2>;
+  return split_decode_kernel<DH, kPaged, 1, 1>;
+}
+
+// S: the rows a table or cache spans (P * page, or S_max); each sub-split
+// takes per_units 64-row units of them, n_sub = ceil(S / (64 per_units)).
+template <int DH, bool kPaged>
+int launch_split(const void* q, const void* k, const void* v,
+                 const void* tables, const void* cache_len, void* out,
+                 float* part, int B, int H, int KV, int S, int page, int P,
+                 int per_units, int window, float scale, cudaStream_t stream) {
+  const HeadGroups hg = head_groups(H / KV, DH);
+  if (per_units < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int per = per_units * kSplitUnit;
+  const int n_sub = (S + per - 1) / per;
+  const size_t smem = split_smem_bytes<DH>(hg.hpb);
+  auto kernel = split_kernel_for<DH, kPaged>(hg.hpb);
+  // above 48 KB a block's dynamic shared memory must be allowed first (per
+  // device, so on every launch)
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid(KV * hg.n_groups, B, n_sub);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(tables),
+      static_cast<const int*>(cache_len), static_cast<__nv_bfloat16*>(out),
+      part, B, H, KV, hg.hpb, hg.n_groups, S, per, page, P, window, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_sub == 1) return static_cast<int>(e);
+  merge_kernel<DH, false><<<B * H, DH, 0, stream>>>(
+      part, static_cast<__nv_bfloat16*>(out), nullptr, B * H, n_sub);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPaged>
+int dispatch_split(int dh, const void* q, const void* k, const void* v,
+                   const void* tables, const void* cache_len, void* out,
+                   void* part, int B, int H, int KV, int S, int page, int P,
+                   int per_units, int window, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(part);
+  if (dh == 64)
+    return launch_split<64, kPaged>(q, k, v, tables, cache_len, out, pt, B, H,
+                                    KV, S, page, P, per_units, window, scale,
+                                    s);
+  if (dh == 128)
+    return launch_split<128, kPaged>(q, k, v, tables, cache_len, out, pt, B, H,
+                                     KV, S, page, P, per_units, window, scale,
+                                     s);
+  if (dh == 192)
+    return launch_split<192, kPaged>(q, k, v, tables, cache_len, out, pt, B, H,
+                                     KV, S, page, P, per_units, window, scale,
+                                     s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// q: (B, H, dh) bf16; k_pool, v_pool: (n_pages, page, KV, dh) bf16, 16-byte
+// aligned; tables: (B, P) i32; cache_len: (B,) i32; out: (B, H, dh) bf16.
+// All contiguous.  dh is 64, 128 or 192.  The P * page rows are split
+// into n_sub = ceil(P * page / (64 per_units)) sub-splits of per_units
+// 64-row units each; with n_sub > 1, part is f32 scratch of n_sub * B * H *
+// (dh + 2) floats and a second kernel merges the partials (launched here,
+// on the same stream).
+REPRO_EXPORT int decode_attention_paged(const void* q, const void* k_pool,
+                                        const void* v_pool,
+                                        const void* tables,
+                                        const void* cache_len, void* out,
+                                        void* part, int B, int H, int KV,
+                                        int dh, int page, int P,
+                                        int per_units, int window,
+                                        float scale, void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || page <= 0 || P <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_split<true>(dh, q, k_pool, v_pool, tables, cache_len, out,
+                              part, B, H, KV, P * page, page, P, per_units,
+                              window, scale, stream);
+}
+
+// q: (B, H, dh) bf16; k_cache, v_cache: (B, S_max, KV, dh) bf16, 16-byte
+// aligned; cache_len: (B,) i32; out: (B, H, dh) bf16.  All contiguous.  dh
+// is 64, 128 or 192; any S_max >= 1 (no padding); per_units and part as
+// for decode_attention_paged, over the S_max rows.
+REPRO_EXPORT int decode_attention_dense(const void* q, const void* k_cache,
+                                        const void* v_cache,
+                                        const void* cache_len, void* out,
+                                        void* part, int B, int H, int KV,
+                                        int dh, int S_max, int per_units,
+                                        float scale, void* stream) {
+  if (B <= 0 || KV <= 0 || H % KV != 0 || S_max <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_split<false>(dh, q, k_cache, v_cache, nullptr, cache_len,
+                               out, part, B, H, KV, S_max, 1, 1, per_units,
+                               0, scale, stream);
+}
+
+// ---------------------------------------------------------------------------
 // The partial (LSE) paged kernel.
 //
 // Replaces src/repro/kernels/decode_attention/kernel.py::
@@ -53,21 +582,21 @@
 // block per (kv head, row) gave 16 blocks on 132 SMs, each walking up to 32
 // pages with no load in flight across pages: 133x its byte bound.
 //
-// Design: a split across blocks.  The grid is (KV, B, n_sub): sub-split z
+// Design: a split across blocks.  The grid is (KV * n_groups, B, n_sub):
+// the rep = H / KV query heads of a kv head share every page load, split,
+// where rep * dh > 1024, into the fewest equal groups of at most 1024 / dh
+// heads, one block each, as the split-KV kernel above does; sub-split z
 // takes the contiguous logical pages [z * per, (z + 1) * per) of the call's
-// table (per = ceil(P / n_sub); the op's lse_sub_splits chooses n_sub so
+// table (per = ceil(P / n_sub); the op's decode_sub_splits chooses n_sub so
 // that the blocks fill the SMs), intersected with the row's live pages.
-// Inside a block the rep = H / KV query heads share every page load, and
-// the pages are double-buffered with cp.async: the next page's K and V are
+// The pages are double-buffered with cp.async: the next page's K and V are
 // in flight while the current page is scored and summed.  Per page: scores
 // into shared memory (one thread a (head, slot)), one warp per head takes
 // the page max, rescales the head's running max and sum and writes p back
 // (one exp per (head, slot)), then each thread updates its up to 8 (head,
 // dh) accumulators.  With n_sub = 1 the block writes out and lse itself;
-// otherwise each block writes f32 partials (m, l and the unnormalised acc
-// per (row, head)) to the op's scratch and a second, short kernel merges
-// them: M = max m, L = sum l exp(m - M), out = sum acc exp(m - M) /
-// max(L, 1e-30), lse = M + log(max(L, 1e-30)).
+// otherwise each block writes f32 partials to the op's scratch and
+// merge_kernel merges them, lse = M + log(max(L, 1e-30)) besides out.
 //
 // A fully masked row is the normal case here, not an edge case: a short
 // row has no positions in the later stripes (the caller passes cache_len
@@ -83,136 +612,8 @@
 // A stripe is a column slice of the block tables; the op makes it
 // contiguous (it is B * P / n int32 entries) and passes it as a table of
 // width P / n.
-#include "common.cuh"
-#include "hopper.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kMaxOutPerThread = 8;  // rep * dh <= 1024
-
-template <int DH>
-__global__ void paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                                    const __nv_bfloat16* __restrict__ k_pool,
-                                    const __nv_bfloat16* __restrict__ v_pool,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ cache_len,
-                                    __nv_bfloat16* __restrict__ out, int H,
-                                    int KV, int page, int P, int window,
-                                    float scale) {
-  constexpr int kRowWords = DH / 2 + 1;  // padded row of bf16 pairs
-  const int g = blockIdx.x;              // kv head
-  const int b = blockIdx.y;              // batch row
-  const int rep = H / KV;
-  const int tid = threadIdx.x;
-
-  extern __shared__ unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);            // [rep][DH]
-  float* s_s = q_s + rep * DH;                                 // [rep][page]
-  unsigned* k_s = reinterpret_cast<unsigned*>(s_s + rep * page);  // [page][kRowWords]
-  unsigned* v_s = k_s + page * kRowWords;                      // [page][kRowWords]
-
-  const __nv_bfloat16* q_row = q + (static_cast<size_t>(b) * H + g * rep) * DH;
-  for (int i = tid; i < rep * DH; i += kThreads)
-    q_s[i] = __bfloat162float(q_row[i]);
-
-  const int len = cache_len[b];
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const int p_begin = lo / page;
-  const int p_end = min(P, (len + page - 1) / page);
-
-  float m[kMaxOutPerThread], l[kMaxOutPerThread], acc[kMaxOutPerThread];
-#pragma unroll
-  for (int j = 0; j < kMaxOutPerThread; ++j) {
-    m[j] = kNeg;
-    l[j] = 0.0f;
-    acc[j] = 0.0f;
-  }
-  const int n_out = rep * DH;
-  constexpr int kVecPerRow = DH / 8;  // 16-byte vectors per K/V row
-
-  for (int pg = p_begin; pg < p_end; ++pg) {
-    const int phys = tables[static_cast<size_t>(b) * P + pg];
-    __syncthreads();  // the previous page's smem reads are done
-    for (int i = tid; i < page * kVecPerRow; i += kThreads) {
-      const int t = i / kVecPerRow, c = i % kVecPerRow;
-      const size_t off = ((static_cast<size_t>(phys) * page + t) * KV + g) * DH;
-      const uint4 kv4 = reinterpret_cast<const uint4*>(k_pool + off)[c];
-      const uint4 vv4 = reinterpret_cast<const uint4*>(v_pool + off)[c];
-      unsigned* kd = k_s + t * kRowWords + c * 4;
-      unsigned* vd = v_s + t * kRowWords + c * 4;
-      kd[0] = kv4.x; kd[1] = kv4.y; kd[2] = kv4.z; kd[3] = kv4.w;
-      vd[0] = vv4.x; vd[1] = vv4.y; vd[2] = vv4.z; vd[3] = vv4.w;
-    }
-    __syncthreads();
-    for (int i = tid; i < rep * page; i += kThreads) {
-      const int r = i / page, t = i % page;
-      const float* qr = q_s + r * DH;
-      const unsigned* kr = k_s + t * kRowWords;
-      float dot = 0.0f;
-#pragma unroll 8
-      for (int d2 = 0; d2 < DH / 2; ++d2) {
-        const float2 kk = bf16x2_to_float2(kr[d2]);
-        dot += qr[2 * d2] * kk.x + qr[2 * d2 + 1] * kk.y;
-      }
-      const int pos = pg * page + t;
-      const bool valid = pos < len && (window <= 0 || pos >= len - window);
-      s_s[r * page + t] = valid ? dot * scale : kNeg;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kMaxOutPerThread; ++j) {
-      const int idx = tid + j * kThreads;
-      if (idx >= n_out) break;
-      const int r = idx / DH, d = idx % DH;
-      const float* sr = s_s + r * page;
-      float mx = m[j];
-      for (int t = 0; t < page; ++t) mx = fmaxf(mx, sr[t]);
-      const float corr = expf(m[j] - mx);
-      float psum = 0.0f, pv = 0.0f;
-      for (int t = 0; t < page; ++t) {
-        const float pt = expf(sr[t] - mx);
-        const float2 vv = bf16x2_to_float2(v_s[t * kRowWords + (d >> 1)]);
-        psum += pt;
-        pv += pt * ((d & 1) ? vv.y : vv.x);
-      }
-      l[j] = l[j] * corr + psum;
-      acc[j] = acc[j] * corr + pv;
-      m[j] = mx;
-    }
-  }
-  __nv_bfloat16* o_row = out + (static_cast<size_t>(b) * H + g * rep) * DH;
-#pragma unroll
-  for (int j = 0; j < kMaxOutPerThread; ++j) {
-    const int idx = tid + j * kThreads;
-    if (idx >= n_out) break;
-    o_row[idx] = __float2bfloat16(acc[j] / fmaxf(l[j], 1e-30f));
-  }
-}
-
-template <int DH>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* cache_len, void* out, int B,
-           int H, int KV, int page, int P, int window, float scale,
-           cudaStream_t stream) {
-  const int rep = H / KV;
-  const size_t smem = (static_cast<size_t>(rep) * DH + rep * page) *
-                          sizeof(float) +
-                      2 * static_cast<size_t>(page) * (DH / 2 + 1) *
-                          sizeof(unsigned);
-  if (rep * DH > kThreads * kMaxOutPerThread || smem > 48 * 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(KV, B);
-  paged_decode_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool),
-      static_cast<const int*>(tables), static_cast<const int*>(cache_len),
-      static_cast<__nv_bfloat16*>(out), H, KV, page, P, window, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------- the partial (LSE) split
 
 constexpr int kLseWarps = kThreads / 32;
 constexpr int kLseMaxPage = 64;      // the softmax warp takes two slots a lane
@@ -223,8 +624,8 @@ template <int DH>
 __host__ __device__ constexpr int lse_row_words() { return DH / 2 + 4; }
 
 template <int DH>
-size_t lse_smem_bytes(int rep, int page) {
-  return (static_cast<size_t>(rep) * DH + rep * page + 3 * rep) *
+size_t lse_smem_bytes(int hpb, int page) {
+  return (static_cast<size_t>(hpb) * DH + hpb * page + 3 * hpb) *
              sizeof(float) +
          4 * static_cast<size_t>(page) * lse_row_words<DH>() * sizeof(unsigned);
 }
@@ -236,33 +637,36 @@ __global__ void __launch_bounds__(kThreads) paged_lse_split_kernel(
     const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
     const int* __restrict__ cache_len, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, float* __restrict__ part, int B, int H, int KV,
-    int page, int P, int window, float scale) {
+    int hpb, int n_groups, int page, int P, int window, float scale) {
   constexpr int kRowWords = lse_row_words<DH>();
   constexpr int kVecPerRow = DH / 8;  // 16-byte vectors per K/V row
-  const int g = blockIdx.x;           // kv head
+  const int g = blockIdx.x / n_groups;  // kv head
+  const int grp = blockIdx.x % n_groups;
   const int b = blockIdx.y;           // batch row
   const int z = blockIdx.z;           // sub-split
   const int n_sub = gridDim.z;
   const int rep = H / KV;
+  const int h_first = g * rep + grp * hpb;
+  const int nh = min(hpb, rep - grp * hpb);  // query heads of this block
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
 
   extern __shared__ unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);   // [rep][DH]
-  float* s_s = q_s + rep * DH;                       // [rep][page]
-  float* m_s = s_s + rep * page;                     // [rep] running max
-  float* l_s = m_s + rep;                            // [rep] running sum
-  float* c_s = l_s + rep;                            // [rep] page correction
+  float* q_s = reinterpret_cast<float*>(smem_raw);   // [hpb][DH]
+  float* s_s = q_s + hpb * DH;                       // [hpb][page]
+  float* m_s = s_s + hpb * page;                     // [hpb] running max
+  float* l_s = m_s + hpb;                            // [hpb] running sum
+  float* c_s = l_s + hpb;                            // [hpb] page correction
   // [buf][K, V][page][kRowWords] at the next 16-byte aligned address
   // (cp.async's destinations)
-  const uint32_t kv_at = smem_u32(c_s + rep);
+  const uint32_t kv_at = smem_u32(c_s + hpb);
   unsigned* kv_s = reinterpret_cast<unsigned*>(
-      reinterpret_cast<unsigned char*>(c_s + rep) + ((16 - (kv_at & 15)) & 15));
+      reinterpret_cast<unsigned char*>(c_s + hpb) + ((16 - (kv_at & 15)) & 15));
 
-  const __nv_bfloat16* q_row = q + (static_cast<size_t>(b) * H + g * rep) * DH;
-  for (int i = tid; i < rep * DH; i += kThreads)
+  const __nv_bfloat16* q_row = q + (static_cast<size_t>(b) * H + h_first) * DH;
+  for (int i = tid; i < nh * DH; i += kThreads)
     q_s[i] = __bfloat162float(q_row[i]);
-  for (int r = tid; r < rep; r += kThreads) {
+  for (int r = tid; r < nh; r += kThreads) {
     m_s[r] = kNeg;
     l_s[r] = 0.0f;
   }
@@ -290,7 +694,7 @@ __global__ void __launch_bounds__(kThreads) paged_lse_split_kernel(
   float acc[kMaxOutPerThread];
 #pragma unroll
   for (int j = 0; j < kMaxOutPerThread; ++j) acc[j] = 0.0f;
-  const int n_out = rep * DH;
+  const int n_out = nh * DH;
 
   if (p_begin < p_end) load_page(p_begin, 0);
   __syncthreads();  // q_s, m_s, l_s
@@ -305,7 +709,7 @@ __global__ void __launch_bounds__(kThreads) paged_lse_split_kernel(
     __syncthreads();  // this page's K and V have landed for every thread
     const unsigned* k_s = kv_s + buf * 2 * page * kRowWords;
     const unsigned* v_s = k_s + page * kRowWords;
-    for (int i = tid; i < rep * page; i += kThreads) {
+    for (int i = tid; i < nh * page; i += kThreads) {
       const int r = i / page, t = i % page;
       const float* qr = q_s + r * DH;
       const unsigned* kr = k_s + t * kRowWords;
@@ -320,7 +724,7 @@ __global__ void __launch_bounds__(kThreads) paged_lse_split_kernel(
       s_s[r * page + t] = valid ? dot * scale : kNeg;
     }
     __syncthreads();
-    for (int r = warp; r < rep; r += kLseWarps) {
+    for (int r = warp; r < nh; r += kLseWarps) {
       float* sr = s_s + r * page;
       const float s0 = lane < page ? sr[lane] : kNeg;
       const float s1 = lane + 32 < page ? sr[lane + 32] : kNeg;
@@ -355,7 +759,7 @@ __global__ void __launch_bounds__(kThreads) paged_lse_split_kernel(
     __syncthreads();  // the buffer and s_s are free for the next page
   }
 
-  const size_t bh0 = static_cast<size_t>(b) * H + g * rep;  // first head
+  const size_t bh0 = static_cast<size_t>(b) * H + h_first;  // first head
 #pragma unroll
   for (int j = 0; j < kMaxOutPerThread; ++j) {
     const int idx = tid + j * kThreads;
@@ -376,81 +780,38 @@ __global__ void __launch_bounds__(kThreads) paged_lse_split_kernel(
   }
 }
 
-// One block per (row, head), one thread per output dim.
-template <int DH>
-__global__ void __launch_bounds__(DH) lse_merge_kernel(
-    const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int BH, int n_sub) {
-  const int bh = blockIdx.x, d = threadIdx.x;
-  const float* pm = part;
-  const float* pl = part + static_cast<size_t>(n_sub) * BH;
-  const float* pa = part + 2 * static_cast<size_t>(n_sub) * BH;
-  float mx = kNeg;
-  for (int z = 0; z < n_sub; ++z) mx = fmaxf(mx, pm[z * BH + bh]);
-  float l = 0.0f, a = 0.0f;
-  for (int z = 0; z < n_sub; ++z) {
-    const float w = expf(pm[z * BH + bh] - mx);
-    l += pl[z * BH + bh] * w;
-    a += pa[(static_cast<size_t>(z) * BH + bh) * DH + d] * w;
-  }
-  out[static_cast<size_t>(bh) * DH + d] = __float2bfloat16(a / fmaxf(l, 1e-30f));
-  if (d == 0) lse[bh] = mx + logf(fmaxf(l, 1e-30f));
-}
-
 template <int DH>
 int launch_lse(const void* q, const void* k_pool, const void* v_pool,
                const void* tables, const void* cache_len, void* out,
                float* lse, float* part, int B, int H, int KV, int page, int P,
                int n_sub, int window, float scale, cudaStream_t stream) {
-  const int rep = H / KV;
-  const size_t smem = lse_smem_bytes<DH>(rep, page) + 16;
-  if (rep * DH > kThreads * kMaxOutPerThread || page > kLseMaxPage ||
-      n_sub < 1 || n_sub > P || smem > 48 * 1024)
+  const HeadGroups hg = head_groups(H / KV, DH);
+  const size_t smem = lse_smem_bytes<DH>(hg.hpb, page) + 16;
+  if (page > kLseMaxPage || n_sub < 1 || n_sub > P || smem > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(KV, B, n_sub);
+  dim3 grid(KV * hg.n_groups, B, n_sub);
   paged_lse_split_kernel<DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool),
       static_cast<const int*>(tables), static_cast<const int*>(cache_len),
-      static_cast<__nv_bfloat16*>(out), lse, part, B, H, KV, page, P, window,
-      scale);
+      static_cast<__nv_bfloat16*>(out), lse, part, B, H, KV, hg.hpb,
+      hg.n_groups, page, P, window, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_sub == 1) return static_cast<int>(e);
-  lse_merge_kernel<DH><<<B * H, DH, 0, stream>>>(
+  merge_kernel<DH, true><<<B * H, DH, 0, stream>>>(
       part, static_cast<__nv_bfloat16*>(out), lse, B * H, n_sub);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q: (B, H, dh) bf16; k_pool, v_pool: (n_pages, page, KV, dh) bf16;
-// tables: (B, P) i32; cache_len: (B,) i32; out: (B, H, dh) bf16.  All
-// contiguous.  dh is 64 or 128.
-REPRO_EXPORT int decode_attention_paged(const void* q, const void* k_pool,
-                                        const void* v_pool,
-                                        const void* tables,
-                                        const void* cache_len, void* out,
-                                        int B, int H, int KV, int dh,
-                                        int page, int P, int window,
-                                        float scale, void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || page <= 0 || P <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh == 64)
-    return launch<64>(q, k_pool, v_pool, tables, cache_len, out, B, H, KV,
-                      page, P, window, scale, s);
-  if (dh == 128)
-    return launch<128>(q, k_pool, v_pool, tables, cache_len, out, B, H, KV,
-                       page, P, window, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // As decode_attention_paged, plus lse: (B, H) f32.  tables is the (B, P)
 // table of this call's pages (a stripe, made contiguous by the caller),
 // split into n_sub sub-splits of ceil(P / n_sub) pages; with n_sub > 1,
 // part is f32 scratch of n_sub * B * H * (dh + 2) floats and a second
-// kernel merges the partials (launched here, on the same stream).
+// kernel merges the partials (launched here, on the same stream).  The
+// page is at most 64 slots.
 REPRO_EXPORT int decode_attention_paged_lse(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* cache_len, void* out, void* lse, void* part, int B, int H,
@@ -459,225 +820,16 @@ REPRO_EXPORT int decode_attention_paged_lse(
   if (B <= 0 || KV <= 0 || H % KV != 0 || page <= 0 || P <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  float* pt = static_cast<float*>(part);
   if (dh == 64)
-    return launch_lse<64>(q, k_pool, v_pool, tables, cache_len, out,
-                          static_cast<float*>(lse), static_cast<float*>(part),
-                          B, H, KV, page, P, n_sub, window, scale, s);
+    return launch_lse<64>(q, k_pool, v_pool, tables, cache_len, out, l, pt, B,
+                          H, KV, page, P, n_sub, window, scale, s);
   if (dh == 128)
-    return launch_lse<128>(q, k_pool, v_pool, tables, cache_len, out,
-                           static_cast<float*>(lse), static_cast<float*>(part),
+    return launch_lse<128>(q, k_pool, v_pool, tables, cache_len, out, l, pt,
                            B, H, KV, page, P, n_sub, window, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ---------------------------------------------------------------------------
-// Dense-cache decode attention: one query token per batch row over dense
-// per-row (B, S_max, KV, dh) K and V caches, which may be ring buffers.
-//
-// Replaces src/repro/kernels/decode_attention/kernel.py::
-// decode_attention_kernel (its pl.pallas_call at kernel.py:113); the
-// function is src/repro/models/attention.py::decode_attention, which
-// Model.decode_step runs in every attention layer: f32 scores of q.k scaled
-// by dh^-1/2, slot idx valid iff idx < cache_len or (window > 0 and
-// cache_len >= S_max), invalid slots at -1e30, unnormalised exp, f32 p into
-// the value sum, one late divide by max(l, 1e-30).  The ring rule is over
-// physical slots (once a ring has wrapped every slot holds one of the last
-// S_max tokens), unlike the paged kernel's logical window: for any window
-// it reduces to "the first min(cache_len, S_max) slots", so the kernel
-// takes no window at all and walks exactly those rows.
-//
-// What bounds it on the H100: bytes.  Each (row, kv head) reads its
-// min(cache_len, S_max) K and V rows once (2 * dh * 2 bytes each) and does
-// 4 flops per element read, about 1 flop per byte, so the cache read is the
-// whole cost.  This first kernel walks a row's cache in one block, in
-// sequence, one tile at a time with no loads in flight across tiles, so at
-// decode batch sizes (B * KV blocks: 128 for seamless-m4t-medium at 8 rows,
-// 64 for llama3.2-1b) it is latency bound well above the byte bound.
-// Split-KV and cp.async double buffering are later work.
-//
-// Design: one block per (kv head, query-head group, batch row).  The
-// rep = H / KV query heads of a kv head share every K/V tile the block
-// loads; where rep * dh > 1024 (granite's MQA: 48 heads of 128) they are
-// split into the fewest equal groups of at most 1024 / dh heads, one block
-// each, which re-read the same K/V (from L2 where it fits).  64-row tiles of
-// K and V go to shared memory with 16-byte loads.  Each tile: scores into
-// shared memory (one thread a (head, slot)); one warp per head takes the
-// tile max, rescales the head's running max and sum and writes p = exp(s -
-// m) back once (one exp per (head, slot), not per output); then each thread
-// updates its up to 8 (head, dh) accumulators in registers.  Shared rows are
-// padded by one word so threads reading different rows hit different banks.
-//
-// Differs from the reference only for a row with cache_len == 0 (every
-// slot masked): the reference averages all S_max values uniformly
-// (exp(-1e30 - -1e30) = 1), this kernel visits no slot and writes 0.  Every
-// caller passes cache_len + 1 >= 1 (transformer.py _attn_decode).
-
-namespace {
-
-constexpr int kDenseTile = 64;                 // cache rows per tile
-constexpr int kDenseWarps = kThreads / 32;
-
-template <int DH>
-__global__ void dense_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                                    const __nv_bfloat16* __restrict__ k_cache,
-                                    const __nv_bfloat16* __restrict__ v_cache,
-                                    const int* __restrict__ cache_len,
-                                    __nv_bfloat16* __restrict__ out, int H,
-                                    int KV, int S_max, int hpb, float scale) {
-  constexpr int kRowWords = DH / 2 + 1;  // padded row of bf16 pairs
-  constexpr int kVecPerRow = DH / 8;     // 16-byte vectors per K/V row
-  const int rep = H / KV;
-  const int n_groups = (rep + hpb - 1) / hpb;
-  const int g = blockIdx.x / n_groups;   // kv head
-  const int h_first = g * rep + (blockIdx.x % n_groups) * hpb;
-  const int nh = min(hpb, g * rep + rep - h_first);  // query heads here
-  const int b = blockIdx.y;              // batch row
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-
-  extern __shared__ unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);   // [hpb][DH]
-  float* s_s = q_s + hpb * DH;                       // [hpb][kDenseTile]
-  float* m_s = s_s + hpb * kDenseTile;               // [hpb] running max
-  float* l_s = m_s + hpb;                            // [hpb] running sum
-  float* c_s = l_s + hpb;                            // [hpb] tile correction
-  unsigned* k_s = reinterpret_cast<unsigned*>(c_s + hpb);  // [tile][kRowWords]
-  unsigned* v_s = k_s + kDenseTile * kRowWords;            // [tile][kRowWords]
-
-  const __nv_bfloat16* q_row = q + (static_cast<size_t>(b) * H + h_first) * DH;
-  for (int i = tid; i < nh * DH; i += kThreads)
-    q_s[i] = __bfloat162float(q_row[i]);
-  for (int r = tid; r < nh; r += kThreads) {
-    m_s[r] = kNeg;
-    l_s[r] = 0.0f;
-  }
-  __syncthreads();
-
-  // the ring rule over physical slots: the first min(cache_len, S_max)
-  const int n_valid = max(0, min(cache_len[b], S_max));
-  const size_t row_stride = static_cast<size_t>(KV) * DH;
-  const size_t base = (static_cast<size_t>(b) * S_max * KV + g) * DH;
-  const __nv_bfloat16* k_row0 = k_cache + base;
-  const __nv_bfloat16* v_row0 = v_cache + base;
-  const int n_out = nh * DH;
-
-  float acc[kMaxOutPerThread];
-#pragma unroll
-  for (int j = 0; j < kMaxOutPerThread; ++j) acc[j] = 0.0f;
-
-  for (int t0 = 0; t0 < n_valid; t0 += kDenseTile) {
-    const int rows = min(kDenseTile, n_valid - t0);
-    __syncthreads();  // the previous tile's smem reads are done
-    for (int i = tid; i < rows * kVecPerRow; i += kThreads) {
-      const int t = i / kVecPerRow, c = i % kVecPerRow;
-      const size_t off = static_cast<size_t>(t0 + t) * row_stride;
-      const uint4 kv4 = reinterpret_cast<const uint4*>(k_row0 + off)[c];
-      const uint4 vv4 = reinterpret_cast<const uint4*>(v_row0 + off)[c];
-      unsigned* kd = k_s + t * kRowWords + c * 4;
-      unsigned* vd = v_s + t * kRowWords + c * 4;
-      kd[0] = kv4.x; kd[1] = kv4.y; kd[2] = kv4.z; kd[3] = kv4.w;
-      vd[0] = vv4.x; vd[1] = vv4.y; vd[2] = vv4.z; vd[3] = vv4.w;
-    }
-    __syncthreads();
-    for (int i = tid; i < nh * kDenseTile; i += kThreads) {
-      const int r = i / kDenseTile, t = i % kDenseTile;
-      if (t >= rows) continue;
-      const float* qr = q_s + r * DH;
-      const unsigned* kr = k_s + t * kRowWords;
-      float dot = 0.0f;
-#pragma unroll 8
-      for (int d2 = 0; d2 < DH / 2; ++d2) {
-        const float2 kk = bf16x2_to_float2(kr[d2]);
-        dot += qr[2 * d2] * kk.x + qr[2 * d2 + 1] * kk.y;
-      }
-      s_s[r * kDenseTile + t] = dot * scale;
-    }
-    __syncthreads();
-    for (int r = warp; r < nh; r += kDenseWarps) {
-      float* sr = s_s + r * kDenseTile;
-      const float s0 = lane < rows ? sr[lane] : kNeg;
-      const float s1 = lane + 32 < rows ? sr[lane + 32] : kNeg;
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = lane < rows ? expf(s0 - m_new) : 0.0f;
-      const float p1 = lane + 32 < rows ? expf(s1 - m_new) : 0.0f;
-      if (lane < rows) sr[lane] = p0;
-      if (lane + 32 < rows) sr[lane + 32] = p1;
-      const float psum = warp_sum(p0 + p1);
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + psum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kMaxOutPerThread; ++j) {
-      const int idx = tid + j * kThreads;
-      if (idx >= n_out) break;
-      const int r = idx / DH, d = idx % DH;
-      const float* pr = s_s + r * kDenseTile;
-      float pv = 0.0f;
-      for (int t = 0; t < rows; ++t) {
-        const float2 vv = bf16x2_to_float2(v_s[t * kRowWords + (d >> 1)]);
-        pv += pr[t] * ((d & 1) ? vv.y : vv.x);
-      }
-      acc[j] = acc[j] * c_s[r] + pv;
-    }
-  }
-  __nv_bfloat16* o_row = out + (static_cast<size_t>(b) * H + h_first) * DH;
-#pragma unroll
-  for (int j = 0; j < kMaxOutPerThread; ++j) {
-    const int idx = tid + j * kThreads;
-    if (idx >= n_out) break;
-    o_row[idx] = __float2bfloat16(acc[j] / fmaxf(l_s[idx / DH], 1e-30f));
-  }
-}
-
-template <int DH>
-int launch_dense(const void* q, const void* k_cache, const void* v_cache,
-                 const void* cache_len, void* out, int B, int H, int KV,
-                 int S_max, float scale, cudaStream_t stream) {
-  constexpr int kMaxHeads = kThreads * kMaxOutPerThread / DH;
-  const int rep = H / KV;
-  const int n_groups = (rep + kMaxHeads - 1) / kMaxHeads;
-  const int hpb = (rep + n_groups - 1) / n_groups;  // <= kMaxHeads
-  const size_t smem = (static_cast<size_t>(hpb) * DH + hpb * kDenseTile +
-                       3 * hpb) * sizeof(float) +
-                      2 * static_cast<size_t>(kDenseTile) * (DH / 2 + 1) *
-                          sizeof(unsigned);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(KV * n_groups, B);
-  dense_decode_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache),
-      static_cast<const int*>(cache_len), static_cast<__nv_bfloat16*>(out), H,
-      KV, S_max, hpb, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// q: (B, H, dh) bf16; k_cache, v_cache: (B, S_max, KV, dh) bf16, 16-byte
-// aligned; cache_len: (B,) i32; out: (B, H, dh) bf16.  All contiguous.  dh
-// is 64 or 128; any S_max >= 1 (no padding).
-REPRO_EXPORT int decode_attention_dense(const void* q, const void* k_cache,
-                                        const void* v_cache,
-                                        const void* cache_len, void* out,
-                                        int B, int H, int KV, int dh,
-                                        int S_max, float scale,
-                                        void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV != 0 || S_max <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh == 64)
-    return launch_dense<64>(q, k_cache, v_cache, cache_len, out, B, H, KV,
-                            S_max, scale, s);
-  if (dh == 128)
-    return launch_dense<128>(q, k_cache, v_cache, cache_len, out, B, H, KV,
-                             S_max, scale, s);
+  if (dh == 192)
+    return launch_lse<192>(q, k_pool, v_pool, tables, cache_len, out, l, pt,
+                           B, H, KV, page, P, n_sub, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

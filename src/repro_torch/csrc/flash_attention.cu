@@ -26,16 +26,19 @@
 // Design, for sm_90a: one block per (64-row query tile, query head, batch
 // row): one consumer warpgroup owns the tile's 64 rows, one producer warp
 // keeps a ring of K/V tiles (64 key rows; three stages at dh 64, two at dh
-// 128) in flight with cp.async while the consumers compute.  Three blocks
-// fit an SM at dh 64 (127 registers a thread, 58 KB of shared memory), two
-// at dh 128, and their warpgroups take turns on the tensor cores.  (128-row
+// 128 and 192) in flight with cp.async while the consumers compute.  Three
+// blocks fit an SM at dh 64 (127 registers a thread, 58 KB of shared
+// memory), two at dh 128, and their warpgroups take turns on the tensor
+// cores; one fits at dh 192 (Q 24 KB and two 48 KB K/V stages, 121 KB; the
+// O accumulator alone is 96 f32 registers a thread).  (128-row
 // tiles, two consumer warpgroups sharing each K/V load, were dropped: with
 // the split of P a 288-thread block needs 120 registers a thread, which
 // leaves one block per SM, and chip_smoke.py timed the seamless encoder at
 // 0.39-0.41 ms with them against 0.35 ms with 64-row tiles on the H100; no
-// path's dh-128 call has enough rows to fill the card with them.)  Tiles are stored in the 128-byte swizzle that the
-// wgmma descriptors name: a bf16 row of 64 is one swizzle row, dh 128 is
-// two 64-column blocks.  S = Q K^T is wgmma m64n64k16 from shared memory
+// path's dh-128 call has enough rows to fill the card with them.)  Tiles
+// are stored in the 128-byte swizzle that the wgmma descriptors name: a
+// bf16 row of 64 is one swizzle row, dh 128 and 192 are two and three
+// 64-column blocks.  S = Q K^T is wgmma m64n64k16 from shared memory
 // (both operands K-major); the online softmax runs in f32 registers in the
 // accumulator layout (row max and sum over the four lanes that share a row);
 // P's two bf16 parts are packed in registers and are the A operands of
@@ -81,7 +84,7 @@ namespace {
 constexpr int kBc = 64;  // key rows per tile
 constexpr float kLog2e = 1.4426950408889634f;
 // a running max (log2 domain) below this comes from masked scores alone:
-// -1e30 times the scale, 0.18 at dh 64 and 0.13 at dh 128
+// -1e30 times the scale, 0.18 at dh 64, 0.13 at dh 128 and 0.10 at dh 192
 constexpr float kMaskedMax = -1e28f;
 
 // Shared-memory layout, byte offsets from a 1024-byte aligned base.
@@ -346,9 +349,12 @@ __device__ __forceinline__ void consumer(
       if constexpr (DH == 64) {
         wgmma_m64n64k16_rs_tb(o, pa[kk], desc_v);
         wgmma_m64n64k16_rs_tb(o, pb[kk], desc_v);
-      } else {
+      } else if constexpr (DH == 128) {
         wgmma_m64n128k16_rs_tb(o, pa[kk], desc_v);
         wgmma_m64n128k16_rs_tb(o, pb[kk], desc_v);
+      } else {
+        wgmma_m64n192k16_rs_tb(o, pa[kk], desc_v);
+        wgmma_m64n192k16_rs_tb(o, pb[kk], desc_v);
       }
     }
     wgmma_commit();
@@ -436,7 +442,7 @@ int launch(const void* q, const void* k, const void* v, const void* qpos,
 
 // q: (B, Sq, H, dh) bf16; k, v: (B, Sk, KV, dh) bf16; qpos: (Sq,) i32;
 // kpos: (Sk,) i32; out: (B, Sq, H, dh) bf16.  All contiguous, q, k and v
-// 16-byte aligned.  dh is 64 or 128.
+// 16-byte aligned.  dh is 64, 128 or 192.
 REPRO_EXPORT int flash_attention_prefill(const void* q, const void* k,
                                          const void* v, const void* qpos,
                                          const void* kpos, void* out, int B,
@@ -451,6 +457,9 @@ REPRO_EXPORT int flash_attention_prefill(const void* q, const void* k,
                       window, scale, s);
   if (dh == 128)
     return launch<128>(q, k, v, qpos, kpos, out, B, Sq, Sk, H, KV, causal,
+                       window, scale, s);
+  if (dh == 192)
+    return launch<192>(q, k, v, qpos, kpos, out, B, Sq, Sk, H, KV, causal,
                        window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

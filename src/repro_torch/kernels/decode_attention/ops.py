@@ -7,6 +7,17 @@ a pow2 width with scratch page 0 first; the padded entries sit past every
 row's ``cache_len`` and are masked.  Dense: the JAX op pads S_max to a
 ``block_s`` multiple for its grid; the CUDA kernel takes any S_max and
 pads nothing (a pad would copy the whole cache on every call).
+
+Every CUDA kernel here splits a row's keys across blocks: the grid is
+(KV * n_groups, B, n_sub), ``head_groups`` giving n_groups and
+``decode_sub_splits`` (partial kernel) or ``split_kv_sub_splits`` (paged
+and dense) n_sub, from shapes alone (never from cache_len, so that a CUDA
+graph captured at one shape stays valid).  With n_sub > 1 the
+op allocates f32 scratch for the partials on the current stream and one C
+call launches the split kernel and the merge kernel after it, counted as
+one launch.  The paged and dense kernels cut every row at the same fixed
+boundaries (``SPLIT_UNITS`` 64-row units a sub-split), so their result
+for a row never depends on the batch or the table's padded width.
 """
 
 from __future__ import annotations
@@ -20,32 +31,64 @@ from .ref import (decode_attention_dense_reference,
                   decode_attention_paged_reference)
 
 __all__ = ["decode_attention_op", "decode_attention_paged_op",
-           "decode_attention_paged_lse_op", "lse_sub_splits",
+           "decode_attention_paged_lse_op", "decode_sub_splits",
+           "split_kv_sub_splits", "head_groups", "SPLIT_UNIT", "SPLIT_UNITS",
            "DENSE_DECODE_KERNEL", "PAGED_DECODE_KERNEL", "PAGED_LSE_KERNEL"]
 
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 192)
 H100_SMS = 132
-# the LSE kernel's limits: rep * dh outputs over 128 threads, 8 each; the
-# page's slots over one warp, two each
-_LSE_MAX_OUTPUTS = 1024
+# a block's query heads * dh: 128 threads, 8 outputs each
+_MAX_OUTPUTS = 1024
+# the LSE kernel's page: its slots over one warp, two each
 _LSE_MAX_PAGE = 64
+# the split-KV kernels cut a row's keys into sub-splits of whole units of
+# this many rows (their tiles are 64 rows, 32 at dh 192), SPLIT_UNITS each
+# (tools/decode_split_tune.py times the choices on the card)
+SPLIT_UNIT = 64
+SPLIT_UNITS = 4
 
 
-def lse_sub_splits(b: int, kvh: int, n_pages: int,
-                   sms: int = H100_SMS) -> int:
+def head_groups(rep: int, dh: int) -> tuple[int, int]:
+    """The kernels' split of a kv head's ``rep`` query heads: the fewest
+    equal groups of at most 1024 / dh heads, one block each.  Returns
+    (n_groups, heads per group); the last group may have fewer."""
+    max_heads = _MAX_OUTPUTS // dh
+    n = -(-rep // max_heads)
+    return n, -(-rep // n)
+
+
+def decode_sub_splits(b: int, kvh: int, rep: int, dh: int, n_pages: int,
+                      sms: int = H100_SMS) -> int:
     """How many sub-splits the partial paged kernel cuts a call's
-    ``n_pages`` table columns into, so that its b * kvh * n_sub blocks
-    reach the card's ``sms`` where the pages allow: 1 when b * kvh blocks
-    already fill the card, else ``ceil(n_pages / per)`` with per =
-    ``n_pages // ceil(sms / (b * kvh))`` pages each (at least one).  The
-    kernel gives sub-split z the columns [z * c, (z + 1) * c), c =
-    ceil(n_pages / n_sub), which this count leaves non-empty; only a
-    short row leaves some with no live position."""
-    blocks = b * kvh
+    ``n_pages`` table columns into, so that its b * kvh * n_groups * n_sub
+    blocks (``head_groups``) reach the card's ``sms`` where the pages
+    allow: 1 when b * kvh * n_groups blocks already fill the card, else
+    ``ceil(n_pages / per)`` with per = ``n_pages // ceil(sms / blocks)``
+    pages each (at least one).  The kernel gives sub-split z the columns
+    [z * c, (z + 1) * c), c = ceil(n_pages / n_sub), which this count
+    leaves non-empty; only a short row leaves some with no live position.
+    Shapes only: the count never depends on a row's length.  (The paged
+    and dense kernels cut fixed ``SPLIT_UNITS`` units instead: see
+    ``split_kv_sub_splits``.)"""
+    blocks = b * kvh * head_groups(rep, dh)[0]
     if n_pages <= 1 or blocks >= sms:
         return 1
     per = max(1, n_pages // -(-sms // blocks))
     return -(-n_pages // per)
+
+
+def split_kv_sub_splits(n_rows: int, units: int = SPLIT_UNITS) -> int:
+    """The paged and dense kernels' sub-splits of a row's ``n_rows`` (P *
+    page, or S_max): ``units`` 64-row units each from the row's first, so
+    the boundaries, and with them a row's result, never move with the
+    batch or the table's padded width."""
+    return -(-n_rows // (units * SPLIT_UNIT))
+
+
+def _scratch(n_sub: int, b: int, h: int, dh: int, dev) -> torch.Tensor:
+    """f32 partials (m, l, acc) of every sub-split, or a placeholder."""
+    return torch.empty((n_sub * b * h * (dh + 2) if n_sub > 1 else 1,),
+                       dtype=torch.float32, device=dev)
 
 
 def _check(q, k_pool, v_pool, block_tables, cache_len):
@@ -70,6 +113,11 @@ def _check(q, k_pool, v_pool, block_tables, cache_len):
             raise ValueError(f"decode_attention_paged: {name} must be a "
                              f"contiguous {dtype} tensor on {dev}, got "
                              f"{t.dtype} on {t.device}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention_paged: {name} must be "
+                             "16-byte aligned (the kernels copy 16-byte "
+                             "chunks)")
 
 
 def _pad_tables(block_tables):
@@ -87,9 +135,13 @@ def decode_attention_paged_op(q, k_pool, v_pool, block_tables, cache_len, *,
     """q: (B, H, dh); pools (n_pages, page, KV, dh); block_tables (B, P)
     int32; cache_len (B,) int32.  Returns (B, H, dh) in q's dtype.
 
-    On CUDA everything is bf16 (q, pools, output) and the result differs
-    from the plain version only for a row with cache_len == 0, which the
-    engine never passes (see ``csrc/decode_attention.cu``)."""
+    On CUDA everything is bf16 (q, pools, output), dh is 64, 128 or 192,
+    any page size and H / KV are taken, and the result differs from the
+    plain version only for a row with cache_len == 0, which the engine
+    never passes (see ``csrc/decode_attention.cu``).  The kernel splits
+    the P * page rows into sub-splits of ``SPLIT_UNITS`` 64-row units
+    (scratch allocated here, two launches counted as one call); a row's
+    result is the same for any table width and batch."""
     block_tables = _pad_tables(block_tables)
     pb = block_tables.shape[1]
     dev = q.device
@@ -102,10 +154,12 @@ def decode_attention_paged_op(q, k_pool, v_pool, block_tables, cache_len, *,
     b, h, dh = q.shape
     _, page, kvh, _ = k_pool.shape
     out = torch.empty_like(q)
+    part = _scratch(split_kv_sub_splits(pb * page), b, h, dh, dev)
     PAGED_DECODE_KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                         block_tables.data_ptr(), cache_len.data_ptr(),
-                        out.data_ptr(), b, h, kvh, dh, page, pb, int(window),
-                        dh ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+                        out.data_ptr(), part.data_ptr(), b, h, kvh, dh, page,
+                        pb, SPLIT_UNITS, int(window), dh ** -0.5,
+                        torch.cuda.current_stream(dev).cuda_stream)
     PAGED_DECODE_KERNEL.launches += 1
     return out
 
@@ -118,12 +172,13 @@ def decode_attention_paged_lse_op(q, k_pool, v_pool, block_tables,
     normalised over those pages; lse (B, H) f32), the partial that
     ``models.attention.combine_lse_partials`` merges.
 
-    On CUDA everything but lse is bf16, H / KV * dh is at most 1024 and
-    the page at most 64 slots.  The kernel splits the table's columns
-    over ``lse_sub_splits`` sub-splits per (kv head, row), for the card's
-    SM count; with more than one, it writes f32 partials to scratch
-    allocated here and a second, short kernel merges them in the same
-    call (two launches, counted as one call in
+    On CUDA everything but lse is bf16, dh is 64, 128 or 192 and the
+    page at most 64 slots; query heads beyond 1024 / dh per kv head go to
+    further blocks (``head_groups``).  The kernel splits the table's
+    columns over ``decode_sub_splits`` sub-splits per (kv head, head
+    group, row), for the card's SM count; with more than one, it writes
+    f32 partials to scratch allocated here and a second, short kernel
+    merges them in the same call (two launches, counted as one call in
     ``PAGED_LSE_KERNEL.launches``).  A row whose positions
     are all masked (cache_len 0, or every position before the window)
     gets out 0 from the kernel, where the plain version averages the
@@ -140,17 +195,16 @@ def decode_attention_paged_lse_op(q, k_pool, v_pool, block_tables,
     _check(q, k_pool, v_pool, block_tables, cache_len)
     b, h, dh = q.shape
     _, page, kvh, _ = k_pool.shape
-    if h // kvh * dh > _LSE_MAX_OUTPUTS or page > _LSE_MAX_PAGE:
-        raise ValueError(f"decode_attention_paged_lse: H / KV * dh = "
-                         f"{h // kvh * dh} (at most {_LSE_MAX_OUTPUTS}) and "
-                         f"page {page} (at most {_LSE_MAX_PAGE})")
+    if page > _LSE_MAX_PAGE:
+        raise ValueError(f"decode_attention_paged_lse: page {page} (at most "
+                         f"{_LSE_MAX_PAGE})")
     p = block_tables.shape[1]
-    n_sub = lse_sub_splits(
-        b, kvh, p, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_sub = decode_sub_splits(
+        b, kvh, h // kvh, dh, p,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty_like(q)
     lse = torch.empty((b, h), dtype=torch.float32, device=dev)
-    part = torch.empty((n_sub * b * h * (dh + 2) if n_sub > 1 else 1,),
-                       dtype=torch.float32, device=dev)
+    part = _scratch(n_sub, b, h, dh, dev)
     PAGED_LSE_KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                      block_tables.data_ptr(), cache_len.data_ptr(),
                      out.data_ptr(), lse.data_ptr(), part.data_ptr(), b, h,
@@ -193,11 +247,12 @@ def decode_attention_op(q, k_cache, v_cache, cache_len, *,
     when ``window > 0``; cache_len (B,) int32.  Returns (B, H, dh) in q's
     dtype.
 
-    On CUDA everything is bf16 (q, caches, output), dh is 64 or 128 and
-    any S_max and H / KV are taken (query heads beyond 1024 / dh per kv
-    head go to further blocks).  The result differs from the plain
-    version only for a row with cache_len == 0, which no caller passes
-    (see ``csrc/decode_attention.cu``).  The ring rule (every slot valid
+    On CUDA everything is bf16 (q, caches, output), dh is 64, 128 or 192
+    and any S_max and H / KV are taken (query heads beyond 1024 / dh per
+    kv head go to further blocks; the S_max rows are split into
+    sub-splits of ``SPLIT_UNITS`` 64-row units).  The result differs from
+    the plain version only for a row with cache_len == 0, which no caller
+    passes (see ``csrc/decode_attention.cu``).  The ring rule (every slot valid
     once cache_len >= S_max) is the first min(cache_len, S_max) slots
     for any window, so the kernel takes no window: ``window`` changes no
     result and is accepted only for parity with the reference's
@@ -212,9 +267,10 @@ def decode_attention_op(q, k_cache, v_cache, cache_len, *,
     b, h, dh = q.shape
     _, s_max, kvh, _ = k_cache.shape
     out = torch.empty_like(q)
+    part = _scratch(split_kv_sub_splits(s_max), b, h, dh, dev)
     DENSE_DECODE_KERNEL(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                        cache_len.data_ptr(), out.data_ptr(), b, h, kvh, dh,
-                        s_max, dh ** -0.5,
+                        cache_len.data_ptr(), out.data_ptr(), part.data_ptr(),
+                        b, h, kvh, dh, s_max, SPLIT_UNITS, dh ** -0.5,
                         torch.cuda.current_stream(dev).cuda_stream)
     DENSE_DECODE_KERNEL.launches += 1
     return out

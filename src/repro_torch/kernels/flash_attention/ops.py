@@ -11,7 +11,7 @@ from .ref import attention_reference
 
 __all__ = ["flash_attention", "FLASH_PREFILL_KERNEL"]
 
-HEAD_DIMS = (64, 128)    # the CUDA kernel's head dims
+HEAD_DIMS = (64, 128, 192)    # the CUDA kernel's head dims
 
 
 def _check(q, k, v, positions, kv_positions):
@@ -48,7 +48,7 @@ def flash_attention(q, k, v, positions, kv_positions, *, causal: bool = True,
     kv_positions (Sk,) int32, a negative kv position masking its row.
     Returns (B, Sq, H, dh) in q's dtype.
 
-    On CUDA everything is bf16 with dh 64 or 128, q, k and v 16-byte
+    On CUDA everything is bf16 with dh 64, 128 or 192, q, k and v 16-byte
     aligned.  The kernel's value product takes p as two bf16 parts (p to
     ~2^-16, where the plain version keeps f32 p); its result differs
     otherwise only for a query row that sees no key, which no caller

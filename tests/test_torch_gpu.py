@@ -7,8 +7,11 @@ llama3.2-1b against its paged decode), and tensor-parallel serving with
 every shard on the one card (the partial (out, lse) kernel stripe by
 stripe and across its sub-splits, the LSE split merged against the
 unsplit kernel, exact tp = 2 token-identical to no mesh).  The flash
-kernel is held at ragged query and key counts, GQA ratios 1 to 6, both
-head dims, causal and not, masked prefix tiles and a straddling window.
+kernel is held at ragged query and key counts, GQA ratios 1 to 6, head
+dims 64, 128 and 192, causal and not, masked prefix tiles and a
+straddling window; the paged, partial and dense decode kernels at
+granite-34b's 48 query heads a kv head and nemotron-4-340b's head dim
+192, and across their sub-split counts.
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -26,8 +29,9 @@ import repro_torch.serving as port_serving
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import (
     DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
-    decode_attention_op, decode_attention_paged_lse_op,
-    decode_attention_paged_op, lse_sub_splits)
+    SPLIT_UNIT, SPLIT_UNITS, decode_attention_op,
+    decode_attention_paged_lse_op, split_kv_sub_splits,
+    decode_attention_paged_op, decode_sub_splits)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_dense_reference, decode_attention_paged_lse_reference,
     decode_attention_paged_reference)
@@ -138,7 +142,7 @@ def _flash_case(cuda, seed, b, sq, sk, h, kvh, dh, q_scale, *, start=None,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sq,rep", [(1, 1), (63, 4), (65, 6), (200, 4)])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 192])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("q_scale", [1.0, PEAKED_Q])
 def test_cuda_flash_ragged_edges_vs_plain(cuda, sq, rep, dh, causal,
@@ -146,7 +150,7 @@ def test_cuda_flash_ragged_edges_vs_plain(cuda, sq, rep, dh, causal,
     """The wgmma flash kernel against attention_reference: query counts
     below, at and past its 64-row tiles, 333 keys (not a multiple of the
     64-key tile: the last tile's rows are zero-filled and masked), GQA
-    with rep 1, 4 and 6, both head dims, causal and not, a flat and a
+    with rep 1, 4 and 6, every head dim, causal and not, a flat and a
     peaked draw."""
     kvh = 2
     q, k, v, pos, kv_pos = _flash_case(cuda, sq * rep + dh, 2, sq, 333,
@@ -160,7 +164,7 @@ def test_cuda_flash_ragged_edges_vs_plain(cuda, sq, rep, dh, causal,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 192])
 @pytest.mark.parametrize("rep", [1, 6])
 def test_cuda_flash_masked_prefix_and_window_vs_plain(cuda, dh, rep):
     """Tiles the kernel skips or masks by position: a chunk at 128 over a
@@ -197,6 +201,145 @@ def test_cuda_paged_decode_vs_plain(cuda, dh, window):
     want = decode_attention_paged_reference(q, kp, vp, tables, cl,
                                             window=window)
     _attn_close(got, want)
+
+
+def _paged_case(cuda, seed, h, kvh, dh, *, b=8, p=32, n_pages=300):
+    """b rows of 1 .. p * 16 tokens over (b, p) tables of distinct pages
+    (page 16; n_pages > b * p), row 0 at the full table."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    page = 16
+    q = torch.randn(b, h, dh, generator=g, device=cuda).bfloat16()
+    kp = torch.randn(n_pages, page, kvh, dh, generator=g,
+                     device=cuda).bfloat16()
+    vp = torch.randn(n_pages, page, kvh, dh, generator=g,
+                     device=cuda).bfloat16()
+    tables = (torch.randperm(n_pages - 1, generator=g, device=cuda)[:b * p]
+              + 1).reshape(b, p).to(torch.int32)
+    cl = torch.randint(1, p * page + 1, (b,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    cl[0] = p * page
+    return q, kp, vp, tables, cl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,dh", [(48, 1, 128), (96, 8, 192)])
+@pytest.mark.parametrize("window", [0, 100])
+def test_cuda_paged_decode_large_gqa_vs_plain(cuda, h, kvh, dh, window):
+    """granite-34b's MQA (48 query heads of 128 over one kv head: six head
+    groups) and nemotron-4-340b's head dim 192 (12 query heads a kv head:
+    three groups), with and without a window; one launch a call."""
+    q, kp, vp, tables, cl = _paged_case(cuda, h + dh + window, h, kvh, dh)
+    n0 = PAGED_DECODE_KERNEL.launches
+    got = decode_attention_paged_op(q, kp, vp, tables, cl, window=window)
+    torch.cuda.synchronize()
+    assert PAGED_DECODE_KERNEL.launches == n0 + 1
+    _attn_close(got, decode_attention_paged_reference(q, kp, vp, tables, cl,
+                                                      window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,h,kvh,dh,window", [
+    ("paged", 32, 8, 64, 0), ("paged", 32, 8, 64, 100),
+    ("paged", 48, 1, 128, 0), ("paged", 96, 8, 192, 0),
+    ("dense", 32, 8, 64, 0), ("dense", 48, 1, 128, 0),
+    ("dense", 96, 8, 192, 0), ("dense", 16, 16, 64, 0)])
+def test_cuda_split_decode_sub_splits_agree(cuda, kind, h, kvh, dh, window):
+    """The split-KV paged and dense kernels through their bindings at
+    every sub-split size they take (the whole table in one sub-split, 1,
+    2 and 3 64-row units, the op's) against one sub-split: the same out
+    up to the merge's rounding.  Rows of 1 .. 512 tokens leave sub-splits
+    partly masked, fully masked, or cut by the window."""
+    q, kp, vp, tables, cl = _paged_case(cuda, 5 * h + dh + window, h, kvh,
+                                        dh)
+    b, p = tables.shape
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    if kind == "paged":
+        n_units = -(-p * 16 // SPLIT_UNIT)
+    else:
+        s_max = 300          # not a multiple of the 64- and 32-row tiles
+        kp, vp = (x.reshape(-1, kvh, dh)[:b * s_max].reshape(b, s_max, kvh,
+                                                              dh)
+                  for x in (kp, vp))
+        cl = torch.clamp(cl, max=s_max + 50)     # row 0 wraps the ring
+        n_units = -(-s_max // SPLIT_UNIT)
+    outs = {}
+    for units in sorted({n_units, 1, 2, 3, SPLIT_UNITS}):
+        n_sub = split_kv_sub_splits(n_units * SPLIT_UNIT, units)
+        out = torch.empty_like(q)
+        part = torch.empty(n_sub * b * h * (dh + 2), device=cuda)
+        if kind == "paged":
+            PAGED_DECODE_KERNEL(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                                tables.data_ptr(), cl.data_ptr(),
+                                out.data_ptr(), part.data_ptr(), b, h, kvh,
+                                dh, 16, p, units, window, dh ** -0.5, stream)
+        else:
+            DENSE_DECODE_KERNEL(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                                cl.data_ptr(), out.data_ptr(),
+                                part.data_ptr(), b, h, kvh, dh, s_max, units,
+                                dh ** -0.5, stream)
+        torch.cuda.synchronize()
+        outs[units] = out
+    for units, out in outs.items():
+        torch.testing.assert_close(out.float(), outs[n_units].float(),
+                                   rtol=2e-2, atol=1e-2)
+    want = (decode_attention_paged_reference(q, kp, vp, tables, cl,
+                                             window=window)
+            if kind == "paged" else
+            decode_attention_dense_reference(q, kp, vp, cl, window=1))
+    _attn_close(outs[n_units], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,dh", [(32, 8, 64), (48, 1, 128),
+                                      (96, 8, 192)])
+def test_cuda_split_decode_same_for_any_table_width_and_batch(cuda, h, kvh,
+                                                             dh):
+    """A row's paged decode is bit-identical whatever the table's padded
+    width (the engine's fused step pads to a pow2 of the pages in use,
+    its orchestrated step passes whole tables) and whichever other rows
+    share the call; the dense decode's whatever the batch."""
+    q, kp, vp, tables, cl = _paged_case(cuda, 7 * h + dh, h, kvh, dh)
+    want = decode_attention_paged_op(q, kp, vp, tables, cl)
+    for extra in (32, 96, 480):      # scratch page 0 past every cache_len
+        wide = torch.nn.functional.pad(tables, (0, extra))
+        assert torch.equal(decode_attention_paged_op(q, kp, vp, wide, cl),
+                           want)
+    assert torch.equal(decode_attention_paged_op(
+        q[2:5].contiguous(), kp, vp, tables[2:5].contiguous(),
+        cl[2:5].contiguous()), want[2:5])
+    b = q.shape[0]
+    kd, vd = (x.reshape(-1, kvh, dh)[:b * 400].reshape(b, 400, kvh, dh)
+              for x in (kp, vp))
+    dense = decode_attention_op(q, kd, vd, cl)
+    assert torch.equal(decode_attention_op(
+        q[3:].contiguous(), kd[3:], vd[3:], cl[3:].contiguous()), dense[3:])
+
+
+@pytest.mark.gpu
+def test_cuda_split_decode_one_launch_a_call(cuda):
+    """Each decode op adds exactly 1 to its kernel's launch count per
+    call, whether its kernel splits the keys (two launches: split and
+    merge) or not, and nothing to the other decode kernels' counts."""
+    kernels = (PAGED_DECODE_KERNEL, DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL)
+    for h, kvh, dh in [(32, 8, 64), (48, 1, 128), (96, 8, 192),
+                       (32, 32, 64)]:
+        q, kp, vp, tables, cl = _paged_case(cuda, h * dh, h, kvh, dh, b=16,
+                                            n_pages=600)
+        b = q.shape[0]
+        dense = kp.reshape(-1, kvh, dh)[:b * 256].reshape(b, 256, kvh, dh)
+        for op, args, kern in (
+                (decode_attention_paged_op, (q, kp, vp, tables, cl),
+                 PAGED_DECODE_KERNEL),
+                (decode_attention_paged_lse_op, (q, kp, vp, tables, cl),
+                 PAGED_LSE_KERNEL),
+                (decode_attention_op, (q, dense, dense, cl),
+                 DENSE_DECODE_KERNEL)):
+            before = [k.launches for k in kernels]
+            op(*args)
+            torch.cuda.synchronize()
+            after = [k.launches for k in kernels]
+            assert [a - b0 for a, b0 in zip(after, before)] == \
+                [int(k is kern) for k in kernels]
 
 
 @pytest.mark.gpu
@@ -360,12 +503,14 @@ def test_cuda_engine_fused_close_to_orchestrated(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("h,kvh,dh", [(32, 8, 64), (16, 16, 64),
-                                      (12, 2, 128), (48, 1, 128)])
+                                      (12, 2, 128), (48, 1, 128),
+                                      (96, 8, 192)])
 @pytest.mark.parametrize("window", [0, 300])
 @pytest.mark.parametrize("q_scale", [1.0, PEAKED_Q])
 def test_cuda_dense_decode_vs_plain(cuda, h, kvh, dh, window, q_scale):
-    """The dense-cache decode kernel: GQA, MHA, dh 128 and granite's MQA
-    (48 heads of 128 over one kv head, split over blocks); with a ring of
+    """The dense-cache decode kernel: GQA, MHA, dh 128, granite's MQA
+    (48 heads of 128 over one kv head, split over blocks) and nemotron's
+    dh 192 (12 heads a kv head, three groups); with a ring of
     300 slots some rows have wrapped (cache_len up to S_max + 200), and
     S_max is not a multiple of the kernel's 64-row tile.  A flat draw (a
     wide softmax) and a peaked one (O(1) outputs)."""
@@ -531,7 +676,8 @@ def _lse_case(cuda, h, kvh, dh, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,kvh,dh", [(12, 2, 128), (32, 8, 64)])
+@pytest.mark.parametrize("h,kvh,dh", [(12, 2, 128), (32, 8, 64),
+                                      (48, 1, 128), (96, 8, 192)])
 @pytest.mark.parametrize("window", [0, 150])
 def test_cuda_paged_lse_vs_plain(cuda, h, kvh, dh, window):
     """Each of 4 stripes: out (BF16 bar) and lse (1e-4) against the plain
@@ -580,7 +726,8 @@ def test_cuda_paged_split_merged_equals_unsplit(cuda, n_splits):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,kvh,dh", [(12, 2, 128), (32, 8, 64)])
+@pytest.mark.parametrize("h,kvh,dh", [(12, 2, 128), (32, 8, 64),
+                                      (48, 1, 128)])
 @pytest.mark.parametrize("window", [0, 150])
 def test_cuda_paged_lse_sub_splits_agree(cuda, h, kvh, dh, window):
     """The split across blocks: the op's sub-split count (more than one
@@ -591,7 +738,7 @@ def test_cuda_paged_lse_sub_splits_agree(cuda, h, kvh, dh, window):
     masked, or cut by the window."""
     q, kp, vp, tables, cl = _lse_case(cuda, h, kvh, dh, 3 * h + window)
     b, p = tables.shape
-    assert lse_sub_splits(b, kvh, p) > 1
+    assert decode_sub_splits(b, kvh, h // kvh, dh, p) > 1
     want_o, want_l = decode_attention_paged_lse_op(q, kp, vp, tables, cl,
                                                    window=window)
     stream = torch.cuda.current_stream(cuda).cuda_stream

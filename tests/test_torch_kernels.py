@@ -32,13 +32,15 @@ from repro.models.attention import encoder_attention as jax_encoder_attn
 from repro.models.attention import gqa_attention as jax_gqa
 from repro_torch.kernels.decode_attention.ops import (
     DENSE_DECODE_KERNEL, H100_SMS, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
-    _check_dense, decode_attention_op, decode_attention_paged_lse_op,
-    decode_attention_paged_op, lse_sub_splits)
+    SPLIT_UNIT, SPLIT_UNITS, _check, _check_dense, decode_attention_op,
+    decode_attention_paged_lse_op, decode_attention_paged_op,
+    decode_sub_splits, head_groups, split_kv_sub_splits)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_dense_reference, decode_attention_paged_lse_reference,
     decode_attention_reference)
 from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
                                                      flash_attention)
+from repro_torch.kernels.flash_attention.ops import _check as _check_flash
 from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
                                              gittins_attained)
 from repro_torch.models.attention import (combine_lse_partials,
@@ -167,6 +169,28 @@ def test_paged_decode_model_vs_jnp_twin(window):
     np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
 
 
+@pytest.mark.parametrize("h,kvh,dh", [(24, 2, 192), (48, 1, 128),
+                                      (48, 1, 192)])
+@pytest.mark.parametrize("window", [0, 24])
+def test_paged_decode_model_vs_jnp_twin_large_gqa(h, kvh, dh, window):
+    """The port's paged decode at the shapes whose kernels split the query
+    heads of a kv head over blocks: nemotron-4-340b's head dim 192 with 12
+    query heads a kv head, granite-34b's 48 (MQA), and both at once;
+    port vs reference, f32 q over bf16 pools on both sides."""
+    rng = np.random.default_rng(h + dh + window)
+    q, kp, vp, tables, cl = _paged_case(rng, 2, h, kvh, dh, 16, 16, 4)
+    want = np.asarray(jax_decode_paged(
+        jnp.asarray(q)[:, None], jnp.asarray(kp, jnp.bfloat16),
+        jnp.asarray(vp, jnp.bfloat16), jnp.asarray(tables), jnp.asarray(cl),
+        window=window))
+    got = decode_attention_paged(
+        torch.from_numpy(q)[:, None], torch.from_numpy(kp).bfloat16(),
+        torch.from_numpy(vp).bfloat16(), torch.from_numpy(tables),
+        torch.from_numpy(cl), window=window)
+    assert got.shape == (2, 1, h, dh)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
 def test_paged_decode_table_padding_is_inert():
     """Scratch-page columns past every cache_len change nothing."""
     rng = np.random.default_rng(3)
@@ -275,7 +299,8 @@ def test_paged_decode_split_runs_each_stripe_on_its_pools():
 def _sub_ranges(n_pages: int, n_sub: int) -> list[tuple[int, int]]:
     """The [begin, end) table columns of each sub-split, as the partial
     kernel takes them (csrc/decode_attention.cu): ceil(n_pages / n_sub)
-    columns each, the last cut at n_pages."""
+    columns each, the last cut at n_pages.  The split-KV kernels cut
+    their SPLIT_UNIT-row units the same way."""
     per = -(-n_pages // n_sub)
     return [(z * per, min(n_pages, (z + 1) * per)) for z in range(n_sub)]
 
@@ -287,7 +312,7 @@ def test_lse_sub_splits_partition_the_pages(b, kvh, n_pages):
     """The partial kernel's sub-splits: every page of the call in exactly
     one of them, none empty, and b * kvh * n_sub blocks reach the H100's
     132 SMs wherever the pages allow it (one page a sub-split at most)."""
-    n_sub = lse_sub_splits(b, kvh, n_pages)
+    n_sub = decode_sub_splits(b, kvh, 1, 64, n_pages)
     ranges = _sub_ranges(n_pages, n_sub)
     assert 1 <= n_sub <= n_pages and len(ranges) == n_sub
     covered = [p for lo, hi in ranges for p in range(lo, hi)]
@@ -305,11 +330,89 @@ def test_lse_sub_splits_partition_the_pages(b, kvh, n_pages):
 def test_lse_sub_splits_is_deterministic_and_follows_sms():
     """A pure function of its arguments: the same call gives the same
     count, and a card with more SMs gets at least as many sub-splits."""
-    for args in [(8, 2, 32), (8, 8, 32), (1, 1, 128), (4, 3, 17)]:
-        assert lse_sub_splits(*args) == lse_sub_splits(*args)
-        assert lse_sub_splits(*args, sms=264) >= lse_sub_splits(*args)
-    assert lse_sub_splits(8, 2, 32) == 11          # qwen2-1.5b at tp 4
+    for args in [(8, 2, 6, 128, 32), (8, 8, 4, 64, 32), (1, 1, 1, 64, 128),
+                 (4, 3, 2, 64, 17), (8, 1, 48, 128, 32)]:
+        assert decode_sub_splits(*args) == decode_sub_splits(*args)
+        assert decode_sub_splits(*args, sms=264) >= decode_sub_splits(*args)
+    assert decode_sub_splits(8, 2, 6, 128, 32) == 11   # qwen2-1.5b at tp 4
     assert _sub_ranges(32, 11)[-1] == (30, 32)
+    # the split-KV ops cut fixed units: llama3.2-1b's paged shape
+    # (2048-token tables) and 8192-slot ring, seamless's 512-slot cache;
+    # the batch and the heads change nothing
+    assert SPLIT_UNITS == 4
+    assert split_kv_sub_splits(2048) == 8
+    assert split_kv_sub_splits(8192) == 32
+    assert split_kv_sub_splits(512) == 2
+    assert split_kv_sub_splits(300) == split_kv_sub_splits(257) == 2
+
+
+@pytest.mark.parametrize("rep,dh,want", [
+    (4, 64, (1, 4)),        # llama3.2-1b
+    (16, 64, (1, 16)),      # 1024 / 64 heads: one block
+    (6, 128, (1, 6)),       # qwen2-1.5b
+    (48, 128, (6, 8)),      # granite-34b's MQA
+    (12, 192, (3, 4)),      # nemotron-4-340b
+    (5, 192, (1, 5)),       # 5 * 192 = 960 <= 1024
+    (9, 128, (2, 5)),       # unequal: groups of 5 and 4
+    (1, 192, (1, 1)),
+])
+def test_head_groups_split_the_query_heads(rep, dh, want):
+    """The kernels' head groups: the fewest groups of at most 1024 / dh
+    heads, as equal as the count allows, covering every head once."""
+    n, hpb = head_groups(rep, dh)
+    assert (n, hpb) == want
+    assert hpb * dh <= 1024 and n * hpb >= rep > (n - 1) * hpb
+    assert n == -(-rep // (1024 // dh))
+
+
+@pytest.mark.parametrize("b,kvh,rep,dh,n_units,want", [
+    (8, 8, 4, 64, 1, 1),          # one unit (one page, or <= 64 rows)
+    (8, 8, 4, 64, 2, 2),          # two units, every unit its own block
+    (17, 8, 4, 64, 32, 1),        # 136 blocks: the rows alone fill 132
+    (8, 8, 12, 192, 32, 1),       # nemotron: 3 head groups, 192 blocks
+    (8, 1, 48, 128, 32, 4),       # granite: 6 head groups, 48 blocks
+    (8, 8, 4, 64, 32, 4),         # llama's paged shape: 2048 rows
+    (8, 8, 4, 64, 128, 4),        # llama's 8192-slot ring
+    (8, 16, 1, 64, 8, 2),         # seamless-m4t-medium's 512-slot cache
+    (8, 1, 48, 128, 16, 4),       # the MQA check: 1024 slots
+])
+def test_decode_sub_splits_edge_cases(b, kvh, rep, dh, n_units, want):
+    """The split count every decode kernel takes: one unit never splits,
+    a grid that already fills the card never splits, a head-grouped grid
+    counts its groups' blocks; elsewhere blocks reach the SMs, every unit
+    lies in exactly one sub-split and none is empty."""
+    n_sub = decode_sub_splits(b, kvh, rep, dh, n_units)
+    assert n_sub == want
+    blocks = b * kvh * head_groups(rep, dh)[0]
+    ranges = _sub_ranges(n_units, n_sub)
+    assert [u for lo, hi in ranges for u in range(lo, hi)] \
+        == list(range(n_units))
+    assert all(hi > lo for lo, hi in ranges)
+    if blocks < H100_SMS and n_units > 1:
+        assert blocks * n_sub >= min(H100_SMS, blocks * n_units)
+
+
+@pytest.mark.parametrize("s_rows", [1, 63, 64, 300, 2048, 8192, 8392])
+def test_split_decode_rows_partition_into_whole_units(s_rows):
+    """The split-KV kernels' sub-split z covers the rows [z * per, (z + 1)
+    * per), per = units * SPLIT_UNIT: together exactly the S rows, each a
+    whole number of the kernels' 64- and 32-row tiles, and every row in
+    the same sub-split whatever the table's padded width (the engine's
+    fused step pads to a pow2 of the pages in use, its orchestrated step
+    passes whole tables)."""
+    n_units = -(-s_rows // SPLIT_UNIT)
+    for units in (SPLIT_UNITS, 3, 1):
+        per = units * SPLIT_UNIT
+        which = {}
+        for width in (n_units, 2 * n_units, 4 * n_units + 3):
+            n_sub = split_kv_sub_splits(width * SPLIT_UNIT, units)
+            rows = [(r, z) for z in range(n_sub)
+                    for r in range(z * per, min(width * SPLIT_UNIT,
+                                                (z + 1) * per))]
+            assert [r for r, _ in rows] == list(range(width * SPLIT_UNIT))
+            for r, z in rows[:s_rows]:
+                assert which.setdefault(r, z) == z
+        assert per % 64 == 0
 
 
 @pytest.mark.parametrize("p_used,window", [(8, 0), (7, 20), (5, 0)])
@@ -430,6 +533,31 @@ def test_dense_decode_model_vs_jnp_twin(window, hi):
     np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
 
 
+@pytest.mark.parametrize("h,kvh,dh", [(24, 2, 192), (48, 1, 128),
+                                      (48, 1, 192)])
+@pytest.mark.parametrize("window", [0, 96])
+def test_dense_decode_model_vs_jnp_twin_large_gqa(h, kvh, dh, window):
+    """models.attention.decode_attention at nemotron-4-340b's head dim 192
+    with 12 query heads a kv head, granite-34b's 48, and both; a ring of
+    96 slots with one row wrapped; port vs reference, f32 q over bf16
+    caches."""
+    rng = np.random.default_rng(31 + h + dh + window)
+    b, s = 3, 96
+    q = rng.normal(0, 1, (b, 1, h, dh)).astype(np.float32)
+    k = _bf16_values(rng.normal(0, 1, (b, s, kvh, dh)))
+    v = _bf16_values(rng.normal(0, 1, (b, s, kvh, dh)))
+    cl = rng.integers(1, s, (b,)).astype(np.int32)
+    cl[0] = s + 40 if window else s
+    want = np.asarray(jax_decode_dense(
+        jnp.asarray(q), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), jnp.asarray(cl), window=window))
+    got = decode_attention(torch.from_numpy(q), torch.from_numpy(k).bfloat16(),
+                           torch.from_numpy(v).bfloat16(),
+                           torch.from_numpy(cl), window=window)
+    assert got.shape == (b, 1, h, dh)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
 def test_dense_decode_ring_rule():
     """Once a ring has wrapped every slot is valid, so a windowed call at
     cache_len >= S_max sees the whole cache, and below S_max only the
@@ -448,8 +576,8 @@ def test_dense_decode_ring_rule():
 
 def test_dense_decode_launch_checks():
     """The checks the op makes before a CUDA launch (run here on CPU
-    tensors of the right and the wrong kind): dh 64 / 128 only, matching
-    shapes, contiguous bf16 and int32."""
+    tensors of the right and the wrong kind): dh 64 / 128 / 192 only,
+    matching shapes, contiguous bf16 and int32."""
     q = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
     kc = torch.zeros(2, 32, 2, 64, dtype=torch.bfloat16)
     cl = torch.ones(2, dtype=torch.int32)
@@ -457,6 +585,9 @@ def test_dense_decode_launch_checks():
     _check_dense(torch.zeros(2, 48, 128, dtype=torch.bfloat16),
                  torch.zeros(2, 9, 1, 128, dtype=torch.bfloat16),
                  torch.zeros(2, 9, 1, 128, dtype=torch.bfloat16), cl)
+    _check_dense(torch.zeros(2, 96, 192, dtype=torch.bfloat16),
+                 torch.zeros(2, 9, 8, 192, dtype=torch.bfloat16),
+                 torch.zeros(2, 9, 8, 192, dtype=torch.bfloat16), cl)
     bad = [
         (q[..., :32].contiguous(), kc[..., :32].contiguous(),
          kc[..., :32].contiguous(), cl, "head dim"),
@@ -492,6 +623,38 @@ def test_encoder_attention_vs_jnp_twin(sq, sk, kvh):
 
 
 # ------------------------------------------------------ device dispatching
+
+def test_paged_and_flash_launch_checks_take_head_dim_192():
+    """The checks the paged and flash ops make before a CUDA launch (run
+    here on CPU tensors): head dims 64, 128 and 192 and any query heads
+    per kv head pass; another head dim, and a pool that is not 16-byte
+    aligned (the kernels copy 16-byte chunks), raise."""
+    tables = torch.ones(2, 4, dtype=torch.int32)
+    cl = torch.ones(2, dtype=torch.int32)
+    for h, kvh, dh in [(32, 8, 64), (48, 1, 128), (96, 8, 192)]:
+        q = torch.zeros(2, h, dh, dtype=torch.bfloat16)
+        pool = torch.zeros(9, 16, kvh, dh, dtype=torch.bfloat16)
+        _check(q, pool, pool, tables, cl)
+        qf = torch.zeros(1, 64, h, dh, dtype=torch.bfloat16)
+        kf = torch.zeros(1, 64, kvh, dh, dtype=torch.bfloat16)
+        pos = torch.zeros(64, dtype=torch.int32)
+        _check_flash(qf, kf, kf, pos, pos)
+    q = torch.zeros(2, 8, 96, dtype=torch.bfloat16)
+    pool = torch.zeros(9, 16, 2, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        _check(q, pool, pool, tables, cl)
+    with pytest.raises(ValueError, match="head dim"):
+        _check_flash(torch.zeros(1, 8, 8, 96, dtype=torch.bfloat16),
+                     torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16),
+                     torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16),
+                     torch.zeros(8, dtype=torch.int32),
+                     torch.zeros(8, dtype=torch.int32))
+    q = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
+    flat = torch.zeros(9 * 16 * 2 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(9, 16, 2, 64)          # 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check(q, shifted, shifted, tables, cl)
+
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     """A tensor that is not on the CPU never reaches a plain version: a

@@ -279,6 +279,41 @@ def test_dense_decode_logits_match_reference(dense_pair):
                                    atol=ATOL, rtol=0, err_msg=str(path))
 
 
+def test_dense_decode_deep_recurrent_matches_reference_and_forward():
+    """Depth does not part the port from the reference: mamba2-2.7b cut to
+    reduced width but 16 layers, f32 weights and caches, 12 decode steps
+    from an empty cache held to the reference's logits and to the port's
+    own teacher-forced forward at 1e-4 (at full width the bf16 drift
+    between decode and forward grows with depth by rounding alone,
+    ``tools/recurrent_depth_drift.py``)."""
+    cfg = ref_get_config("mamba2-2.7b", reduced=True).with_overrides(
+        n_layers=16)
+    ref = ref_build_model(cfg)
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        ref.init(jax.random.PRNGKey(0)))
+    ref_params = jax.tree.map(jnp.asarray, tree)
+    port = build_model(get_config("mamba2-2.7b", reduced=True)
+                       .with_overrides(n_layers=16))
+    params = params_from_numpy(tree, "cpu")
+    b, n = 2, 12
+    toks = np.random.default_rng(8).integers(3, cfg.vocab_size, (b, n))
+    ref_cache, cache = _f32_caches(ref, port, b, n + 1)
+    steps = []
+    for t in range(n):
+        tok = toks[:, t:t + 1].astype(np.int32)
+        cl = np.full((b,), t, np.int32)
+        want, ref_cache = ref.decode_step(ref_params, jnp.asarray(tok),
+                                          ref_cache, jnp.asarray(cl))
+        got, cache = port.decode_step(params, torch.from_numpy(tok), cache,
+                                      torch.from_numpy(cl))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=0, err_msg=f"step {t}")
+        steps.append(got)
+    forced = port.forward(params, {"tokens": torch.from_numpy(toks)})[0]
+    np.testing.assert_allclose(torch.stack(steps, 1).numpy(),
+                               forced.float().numpy(), atol=ATOL, rtol=0)
+
+
 def test_dense_decode_greedy_tokens_identical_16_steps(dense_pair):
     cfg, ref, ref_params, port, params, max_len = dense_pair
     b = 2

@@ -20,18 +20,22 @@ Phases:
      dense-cache decode kernel against its plain version at
      seamless-m4t-medium's decode shape, llama3.2-1b's long-context ring
      (some rows wrapped) and an MQA shape (48 heads of 128 over one kv
-     head), and time it with SDPA at each; hold the flash kernel at
-     seamless's three non-causal shapes (encoder self-attention over 4096
-     frames, a prompt's and one decode step's cross-attention over them)
-     and time each, SDPA at the encoder's;
+     head; the tensor-core instance, one block a kv head), and time it
+     with SDPA at each; hold the flash op at seamless's three non-causal
+     shapes (encoder self-attention over 4096 frames, a prompt's and one
+     decode step's cross-attention over them: the last through the key
+     split, the split-KV decode template with key positions) and time
+     each, SDPA and the byte bound at the decode step's and the
+     encoder's;
      each new shape with a flat draw (a wide softmax) and a peaked one
      (q scaled by 3: O(1) outputs that a wrong tile or rescale moves);
      hold the SSD scan kernel against its two plain versions (chunked and
      sequential) at the mamba2-2.7b and zamba2-1.2b prefill shapes, with
      short- and long-memory decays, check that end padding leaves its
      result bit-unchanged, and time it; hold the partial (out, lse) paged
-     kernel against its plain version stripe by stripe at qwen2-1.5b's
-     tp = 4 shape (H12/KV2, dh 128) and llama3.2-1b's (H32/KV8, dh 64),
+     kernel (fixed 64-row sub-splits) against its plain version stripe by
+     stripe at qwen2-1.5b's tp = 4 shape (H12/KV2, dh 128) and
+     llama3.2-1b's (H32/KV8, dh 64),
      2048-token tables split in 4 with rows short enough that later
      stripes are fully masked (out 0, lse <= -1e29, no NaN), the stripes
      merged by combine_lse_partials against the unsplit paged kernel and
@@ -64,9 +68,12 @@ Phases:
      one card (make_local_mesh(devices=["cuda:0"] * tp)), the same mix
      (fused): (a) without a mesh; (b) parallel="exact", tp 2, held
      token-identical to (a); (c) parallel="efficient", tp 2 (heads,
-     MLP and vocab sharded); (d) parallel="efficient", tp 4 (kv heads 2
-     do not divide: the LSE split, one stripe per shard), fused and
-     orchestrated.  Each drive must finish every request, preempt and
+     MLP and vocab sharded), fused and orchestrated; (d)
+     parallel="efficient", tp 4 (kv heads 2 do not divide: the LSE
+     split, one stripe per shard), fused and orchestrated; the fused and
+     orchestrated streams of (c) held token-identical, (d)'s printed with
+     a check of what parts them (the split's stripes follow the table's
+     width; each stripe's partial kernel does not).  Each drive must finish every request, preempt and
      swap, report its plan's branch and launch each kernel of its path
      exactly as often as the path calls it; (c) and (d) hold one decode
      step of the plan to the same step without a mesh on the same pool
@@ -84,7 +91,8 @@ Phases:
      4's weights).  Every logit must be
      finite, the logits and greedy streams must agree under the
      tolerance contract with a teacher-forced Model.forward over prompt +
-     generated tokens (see
+     generated tokens (the decode step's cross-attention through the key
+     split; see
      ``repro_torch.testing.generate.teacher_forced_check``, at each
      drive's bar in GENERATE_DRIVES; printed but not held for the
      recurrent families at full depth), and the dense-decode, flash and
@@ -94,7 +102,8 @@ Phases:
      refresh shape the runs gave it, and time it beside the numpy float64
      oracle at n = 4096, k = 64;
   7. print one JSON line of per-kernel results (launches summed over
-     every serve and generate drive), then the result line.
+     every serve and generate drive; the flash row counts both of the
+     flash op's entry points and names them), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -127,6 +136,7 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_dense_reference, decode_attention_paged_lse_reference,
     decode_attention_paged_reference)
+from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     FLASH_PREFILL_KERNEL, HEAD_DIMS, flash_attention)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -150,6 +160,9 @@ from repro_torch.testing import assert_tokens_close  # noqa: E402
 from repro_torch.testing.generate import (  # noqa: E402
     bf16_ulp, greedy_generate, teacher_forced_check)
 
+# the flash op's key split for a few bidirectional queries (None over an
+# older package, timed with --kernels)
+FLASH_SPLIT_KERNEL = getattr(flash_kernel, "FLASH_SPLIT_KERNEL", None)
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12
@@ -179,8 +192,16 @@ WIDE = (("nemotron-4-340b", dict(n_layers=2)),
 TP_ARCH = "qwen2-1.5b"
 TP_DRIVES = (("a", None, "exact", ("fused",)),
              ("b", 2, "exact", ("fused",)),
-             ("c", 2, "efficient", ("fused",)),
+             ("c", 2, "efficient", ("fused", "orchestrated")),
              ("d", 4, "efficient", ("fused", "orchestrated")))
+# phase 4b: the drives whose fused and orchestrated streams must be
+# token-identical, as phase 4's are without a mesh.  (d)'s are printed:
+# its LSE split cuts the logical pages into tp stripes of a width that
+# follows the table's (models/attention.py _decode_attention_paged_split:
+# a pow2 of the pages in use in the fused step, the whole table in the
+# orchestrated one), so one row's keys are merged across other stripes
+# in the two steps (ROADMAP Queue C; lse_stripe_check shows it)
+TP_SAME_STREAMS = ("c",)
 # phase 4b: one decode step of an efficient plan vs the same step without
 # a mesh, max |logit| difference in bf16 steps at the largest |logit|: its
 # drift on an H100 (2.00 for tp 2, 1.81 for tp 4; the step is
@@ -426,6 +447,7 @@ def phase_flash(cfgs, dev, gen) -> dict:
     ms = device_ms(lambda: flash_attention(q, k, v, pos, kv_pos))
     plain_ms = cuda_ms(lambda: attention_reference(q, k, v, pos, kv_pos),
                        iters=5)
+
     mask = (kv_pos[None, :] >= 0) & (pos[:, None] >= kv_pos[None, :])
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
@@ -570,15 +592,21 @@ def phase_flash_noncausal(dev, gen) -> float:
                 lib = ""
                 if sq == 1:
                     # the yardstick of one decode step's cross-attention
+                    # (the key split), and its bound: K and V read once
                     qt, kt, vt = (x.transpose(1, 2).contiguous()
                                   for x in (q, k, v))
+                    bnd, by = bound_ms(
+                        (2 * q.numel() + k.numel() + v.numel()) * 2,
+                        4.0 * b * s_enc * h * dh, BF16_FLOPS)
                     lib = (f", SDPA "
-                           f"{device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5):.4f} ms")
+                           f"{device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5):.4f} ms, "
+                           f"bound {bnd:.5f} ms ({by})")
                     del qt, kt, vt
                 print(f"  flash {cfg.name} {what} (B {b}, Sq {sq}): kernel "
                       f"{ms:.4f} ms{lib}")
             if sq == s_enc and draw == "flat":
                 enc = (q, k, v, pos, kv_pos)
+
             del want
             torch.cuda.empty_cache()
     q, k, v, pos, kv_pos = enc
@@ -1236,6 +1264,32 @@ def tp_step_check(cfg, params, engine, dev) -> dict:
     return out
 
 
+def lse_stripe_check(dev, n: int) -> None:
+    """Whether the LSE split's merged decode of one row is the same at two
+    table widths (the fused step's pow2 of the pages in use, 64, and the
+    orchestrated step's whole table, 128): each stripe's partial kernel
+    is width-invariant, the stripes' boundaries are not."""
+    cfg = get_config(TP_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, kp, vp, tables, cl = lse_case(dev, gen, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.head_dim)
+    cl = torch.clamp(cl, max=1024)      # every row within the first 64 pages
+    args = (q[:, None], kp, vp)
+    narrow = decode_attention_paged(*args, tables[:, :64].contiguous(), cl,
+                                    n_splits=n)
+    whole = decode_attention_paged(*args, tables, cl, n_splits=n)
+    cls = torch.clamp(cl, max=16 * 16)  # live rows within the 16 pages
+    part = [decode_attention_paged_lse_op(q, kp, vp, t.contiguous(), cls)
+            for t in (tables[:, :16], torch.nn.functional.pad(
+                tables[:, :16], (0, 16)))]
+    torch.cuda.synchronize()
+    same = [int(torch.equal(narrow[r], whole[r])) for r in range(len(cl))]
+    print(f"    LSE split of {n} stripes, tables of 64 and 128 pages: "
+          f"{sum(same)}/{len(same)} rows bit-identical; one stripe's "
+          f"partial at widths 16 and 32: "
+          f"{'bit-identical' if all(torch.equal(a, b) for a, b in zip(*part)) else 'DIFFERENT'}")
+
+
 def phase_serve_tp(dev) -> dict:
     """qwen2-1.5b at full width through the drives of TP_DRIVES, every
     shard on the one card.  Returns the summed launches."""
@@ -1301,6 +1355,17 @@ def phase_serve_tp(dev) -> dict:
                 print(f"    streams vs (a): match rate {st['rate']:.4f} "
                       f"({st['matched']}/{st['compared']}, "
                       f"{st['divergences']} streams diverged)")
+            if mode == "orchestrated":
+                same = sum(a == b for a, b in zip(got,
+                                                  streams[label, "fused"]))
+                held = label in TP_SAME_STREAMS
+                print(f"    fused vs orchestrated: {same}/{len(got)} streams "
+                      f"identical ({'held' if held else 'printed'})")
+                if held and got != streams[label, "fused"]:
+                    raise SystemExit(f"FAIL tp ({label}): the fused and "
+                                     "orchestrated streams part")
+                if not held:
+                    lse_stripe_check(dev, engine.tp)
             if label in ("c", "d") and mode == "fused":
                 tp_step_check(cfg, params, engine, dev)
             for k, n in launches.items():
@@ -1317,17 +1382,21 @@ def phase_serve_tp(dev) -> dict:
 def generate_launches(cfg, steps: int) -> dict:
     """The kernel launches the dense-cache path makes: per step, one dense
     decode per attention layer (the hybrid's G group layers) and, for the
-    encoder-decoder, one flash cross-attention per decoder layer; in the
-    prefill, flash for each attention layer's self-attention (plus the
-    encoder's layers and the cross-attention of the encoder-decoder), and
-    one SSD scan per Mamba2 layer."""
+    encoder-decoder, one flash cross-attention per decoder layer through
+    the key split; in the prefill, flash for each attention layer's
+    self-attention (plus the encoder's layers and the cross-attention of
+    the encoder-decoder), and one SSD scan per Mamba2 layer."""
     attn = {"dense": cfg.n_layers, "encdec": cfg.n_layers, "ssm": 0,
             "hybrid": -(-cfg.n_layers // cfg.hybrid_attn_every)}[cfg.family]
-    flash = attn
+    flash, split = attn, 0
     if cfg.family == "encdec":
-        flash += cfg.n_encoder_layers + cfg.n_layers + steps * cfg.n_layers
+        # the prefill's encoder and cross-attention layers; each step's
+        # cross-attention (one query over the frames) takes the key split
+        flash += cfg.n_encoder_layers + cfg.n_layers
+        split = steps * cfg.n_layers
     return {DENSE_DECODE_KERNEL.symbol: steps * attn,
             FLASH_PREFILL_KERNEL.symbol: flash,
+            FLASH_SPLIT_KERNEL.symbol: split,
             SSD_SCAN_KERNEL.symbol: cfg.n_layers
             if cfg.family in ("ssm", "hybrid") else 0}
 
@@ -1353,7 +1422,8 @@ def phase_generate(cfg, dev, *, b: int, prompt: int, max_len: int,
                            * 0.02).bfloat16()
         enc_ms = cuda_ms(lambda: encode(params, cfg, batch["frames"]),
                          iters=1, warmup=1)
-    kernels = (DENSE_DECODE_KERNEL, FLASH_PREFILL_KERNEL, SSD_SCAN_KERNEL)
+    kernels = (DENSE_DECODE_KERNEL, FLASH_PREFILL_KERNEL, FLASH_SPLIT_KERNEL,
+               SSD_SCAN_KERNEL)
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
         kern.launches = 0
@@ -1583,13 +1653,28 @@ def main() -> int:
                "decode_attention_paged_lse": PAGED_LSE_KERNEL.symbol}
     for row in rows:
         row["launches"] = launches[symbols[row["name"]]]
+    # the flash kernel's two entry points: one launch a call each
+    flash = next(r for r in rows if r["name"] == "flash_attention_prefill")
+    flash["split_launches"] = launches.get(FLASH_SPLIT_KERNEL.symbol, 0)
+    flash["launches"] += flash["split_launches"]
+    flash["instances"] = {
+        "Sq > 16, causal or windowed": "flash_attention_prefill (1 consumer "
+        "warpgroup a 64-row query tile)",
+        "Sq <= 16, bidirectional": "attention_short_queries in "
+        "src/repro_torch/csrc/decode_attention.cu (split-KV decode template "
+        "with key positions, 256-row sub-splits) + merge_kernel"}
+    if flash["split_launches"] == 0:
+        raise SystemExit("FAIL: the flash key split never launched on a "
+                         "main path")
     idle = [r["name"] for r in rows if r["launches"] == 0]
     if idle:
         raise SystemExit(f"FAIL: kernels never launched on a main path: "
                          f"{idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "split_launches", "instances")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

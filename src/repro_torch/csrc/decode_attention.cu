@@ -1,11 +1,15 @@
-// Decode attention: one query token per batch row, in three entry points
+// Decode attention: one query token per batch row, in four entry points
 // that share this file's helpers.  decode_attention_paged reads the shared
 // (n_pages, page, KV, dh) KV pool through (B, P) block tables;
 // decode_attention_dense reads dense per-row (B, S_max, KV, dh) caches,
-// which may be ring buffers; both are one split-KV kernel template (below)
-// with two row-address policies.  decode_attention_paged_lse (further down)
-// computes the partial softmax over a stripe of the block tables and has
-// its own header.
+// which may be ring buffers; attention_short_queries takes the flash op's
+// few bidirectional queries (one decode step's cross-attention) over
+// (B, Sk, KV, dh) keys whose positions mask them; the three are one
+// split-KV kernel template (below) with three row-address policies, in an
+// f32 instance and, where a kv head serves many query heads, a
+// tensor-core one.  decode_attention_paged_lse (further down) computes the
+// partial softmax over a stripe of the block tables and has its own
+// header.
 //
 // The paged kernel replaces src/repro/kernels/decode_attention/kernel.py::
 // decode_attention_paged_kernel (its pl.pallas_call at kernel.py:266); the
@@ -27,19 +31,20 @@
 // What bounds both on the H100: bytes.  Each (row, kv head) reads its live
 // K and V rows once (2 * dh * 2 bytes each) and does 4 flops a head per
 // element read: about rep flops per byte, under the f32 cores' ~20 flops
-// per byte (67 TFLOP/s over 3.35 TB/s) at every ratio the configs have but
-// granite's MQA (48).  So the limit is bytes in flight, not arithmetic,
-// which stays in f32 on the CUDA cores (wgmma would buy nothing and a bf16
-// p moves the rounding).  The first kernels of this file ran one block per
+// per byte (67 TFLOP/s over 3.35 TB/s) below 8 query heads a kv head, so
+// there the limit is bytes in flight and the arithmetic stays in f32 on
+// the CUDA cores; from 8 (nemotron's 12, granite's 48) the f32 dots pass
+// that ridge and the tensor-core instance takes them (further down).  The first kernels of this file ran one block per
 // (kv head, row) -- 64 blocks on 132 SMs at llama3.2-1b's 8 lanes -- each
 // walking its whole cache with no load in flight across tiles: 37x
 // (paged) and 27x (dense ring) their byte bounds.
 //
 // Design: a split across blocks with a cp.async ring.  The grid is
 // (KV * n_groups, B, n_sub).  A kv head's rep = H / KV query heads share
-// every K/V tile a block loads; where rep * dh > 1024 (granite's 48 heads
-// of 128, nemotron's 12 of 192) they are split into the fewest equal
-// groups of at most 1024 / dh heads, one block each.  Sub-split z takes the contiguous rows [z * per, (z + 1) *
+// every K/V tile a block loads; in the f32 instance, where rep * dh > 1024
+// they are split into the fewest equal groups of at most 1024 / dh heads,
+// one block each (the tensor-core instance takes up to 64 heads a
+// block).  Sub-split z takes the contiguous rows [z * per, (z + 1) *
 // per) of the row's cache, intersected with the row's live rows (a
 // sub-split with no live row visits no tile), with per a fixed number of
 // 64-row units (the op's SPLIT_UNITS, 4) and n_sub = ceil(rows / per): a
@@ -81,6 +86,14 @@
 // (exp(-1e30 - -1e30) = 1), these kernels visit no tile and write 0.  Every
 // caller passes cache_len + 1 >= 1 (transformer.py _attn_decode and the
 // paged decode step).
+//
+// Key positions (the kDenseKeyPos policy, attention_short_queries): every
+// row sees all Sk keys, a key with a negative position is masked for every
+// query (score -1e30, p = 0 even while the running max is still at that
+// level), and a query whose keys are all masked gets 0 where the flash
+// reference averages them.  The flash op folds a row's (query, head) pairs
+// into the kv head's query heads, so short queries ride the same sub-splits
+// (fixed 64-row units from key 0) and merge as a decode step does.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -90,6 +103,11 @@ constexpr int kThreads = 128;
 constexpr int kMaxOutPerThread = 8;
 constexpr int kMaxOutputs = kThreads * kMaxOutPerThread;  // heads * dh a block
 constexpr int kSplitUnit = 64;  // a sub-split's rows are a multiple of this
+constexpr float kMaskedS = -1e29f;  // a score at or below this is masked
+// The split-KV kernels' row-address policies: a dense per-row cache, the
+// paged pool through block tables, and a dense cache whose key rows carry
+// positions (a negative one masks the key; the flash op's short queries)
+constexpr int kDenseRows = 0, kPagedRows = 1, kDenseKeyPos = 2;
 
 // A kv head's query heads split into the fewest equal groups of at most
 // kMaxOutputs / dh heads: n_groups blocks of up to hpb heads each.
@@ -139,14 +157,17 @@ size_t split_smem_bytes(int hpb) {
              sizeof(float);
 }
 
-template <int DH, bool kPaged, int kQS, int kQP>
+template <int DH, int kPolicy, int kQS, int kQP>
 __global__ void __launch_bounds__(kThreads) split_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ tables,
-    const int* __restrict__ cache_len, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ part, int B, int H, int KV, int hpb, int n_groups,
-    int S, int per, int page, int P, int window, float scale) {
+    const int* __restrict__ cache_len, const int* __restrict__ kpos,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part, int B, int H,
+    int KV, int hpb, int n_groups, int S, int per, int page, int P,
+    int window, float scale) {
   using C = Split<DH>;
+  constexpr bool kPaged = kPolicy == kPagedRows;
+  constexpr bool kKeyPos = kPolicy == kDenseKeyPos;
   const int g = blockIdx.x / n_groups;  // kv head
   const int grp = blockIdx.x % n_groups;
   const int b = blockIdx.y;             // batch row
@@ -176,8 +197,9 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(
       q_s[i] = __bfloat162float(q_row[i]);
   }
 
-  // the row's live rows, and this sub-split's share of them
-  const int len = cache_len[b];
+  // the row's live rows (every row with key positions), and this
+  // sub-split's share of them
+  const int len = kKeyPos ? S : cache_len[b];
   const int hi = max(0, min(len, S));
   const int lo = kPaged && window > 0 ? max(0, len - window) : 0;
   const int r0 = max(lo, z * per), r1 = min(hi, (z + 1) * per);
@@ -327,9 +349,11 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(
       }
       const int t = rb * 8 + j;
       if (on && t < rows) {
+        const bool dead = kKeyPos && kpos[r0 + i * C::kRows + t] < 0;
 #pragma unroll
         for (int hh = 0; hh < kQS; ++hh)
-          if (hq * kQS + hh < nh) p_s[t * sp + hq * kQS + hh] = d[0][hh] * scale;
+          if (hq * kQS + hh < nh)
+            p_s[t * sp + hq * kQS + hh] = dead ? kNeg : d[0][hh] * scale;
       }
     }
     __syncthreads();
@@ -339,8 +363,12 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(
       const float s1 = lane + 32 < rows ? col[(lane + 32) * sp] : kNeg;
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = lane < rows ? expf(s0 - m_new) : 0.0f;
-      const float p1 = lane + 32 < rows ? expf(s1 - m_new) : 0.0f;
+      // a masked key (kpos < 0) takes p = 0 even while the running max is
+      // still at the masked level
+      const float p0 = lane < rows && (!kKeyPos || s0 > kMaskedS)
+                           ? expf(s0 - m_new) : 0.0f;
+      const float p1 = lane + 32 < rows && (!kKeyPos || s1 > kMaskedS)
+                           ? expf(s1 - m_new) : 0.0f;
       if (lane < rows) col[lane * sp] = p0;
       if (lane + 32 < rows) col[(lane + 32) * sp] = p1;
       const float psum = warp_sum(p0 + p1);
@@ -426,6 +454,335 @@ __global__ void __launch_bounds__(kThreads) split_decode_kernel(
   }
 }
 
+// ---------------------------- the split-KV decode on the tensor cores
+//
+// Where one kv head serves many query heads (H / KV >= kMmaMinRep: granite's
+// 48, nemotron's 12) the f32 score dots above run past the f32 cores'
+// ridge (~48 flops a byte of K at 48 heads, against ~20).  This instance
+// takes the scores and the value sums to the tensor cores with
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate), and one block takes all of
+// a kv head's query heads (up to kMmaMaxHeads), so every K/V tile is read
+// once per (kv head, row, sub-split), not once per head group.  The same
+// sub-splits (fixed 64-row units from the row's first), ring, masks and
+// merge as split_decode_kernel.
+//
+// Per tile of kRows keys held in the ring (rows padded by 16 bytes, so
+// the ldmatrix rows of a warp hit distinct banks; rows past the sub-split
+// zero-filled): the query heads, zero-padded to kMT tiles of 16, are the M
+// dimension and q (bf16, in shared memory) the A operand; warp w takes the
+// keys [w kRows / 4, (w + 1) kRows / 4) as N, its K rows as the B operand
+// through ldmatrix.  Each row's tile max goes through shared memory (one
+// partial a warp), so every thread holds the same running max for the
+// rows of its fragments, and p = exp(s - m) in f32 is written to shared
+// memory in two bf16 parts, p = hi + lo (p to ~2^-16, as the flash
+// kernel's value product; a bf16 p moves the rounding).  Then warp w sums
+// O[:, w dh / 4 .. (w + 1) dh / 4) += (P_hi + P_lo) V over the tile's keys,
+// V through ldmatrix.trans, O in the mma fragments (48 x 128 f32 over 128
+// threads: 48 registers a thread at granite's shape).  Each thread keeps
+// the row sums of its own keys; they are added over the quad and then the
+// warps, in a fixed order, at the end.
+constexpr int kMmaMinRep = 8;     // query heads a kv head from which
+constexpr int kMmaMaxHeads = 64;  // query heads a block, at most
+
+template <int DH>
+struct MmaSplit {
+  static constexpr int kRows = Split<DH>::kRows;  // K/V rows a tile
+  static constexpr int kStages = 3;
+  static constexpr int kVec = DH / 8;             // 16-byte chunks a row
+  static constexpr int kLd = DH + 8;              // bf16 a K/V or q row
+  static constexpr int kPld = kRows + 8;          // bf16 a P row
+  static constexpr int kTile = kRows * kLd;       // bf16 of one K or V tile
+  static constexpr int kNT = kRows / 32;          // score n8 tiles a warp
+  static constexpr int kVT = DH / 32;             // value n8 tiles a warp
+  static_assert(kRows * kVec % kThreads == 0, "whole chunks a thread");
+};
+
+// Dynamic shared memory: the ring [stage][K, V][kRows][kLd] bf16, q
+// [16 kMT][kLd] bf16, P hi and lo [16 kMT][kPld] bf16 each, then f32
+// [4 warps][16 kMT] row partials (the tile max, and at the end the sums).
+template <int DH, int kMT>
+constexpr size_t mma_smem_bytes() {
+  using C = MmaSplit<DH>;
+  return (static_cast<size_t>(C::kStages) * 2 * C::kTile +
+          16 * kMT * C::kLd + 2 * 16 * kMT * C::kPld) * 2 +
+         4 * 16 * kMT * sizeof(float);
+}
+
+template <int DH, int kPolicy, int kMT>
+__global__ void __launch_bounds__(kThreads) split_decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ tables,
+    const int* __restrict__ cache_len, const int* __restrict__ kpos,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part, int B, int H,
+    int KV, int hpb, int n_groups, int S, int per, int page, int P,
+    int window, float scale) {
+  using C = MmaSplit<DH>;
+  constexpr bool kPaged = kPolicy == kPagedRows;
+  constexpr bool kKeyPos = kPolicy == kDenseKeyPos;
+  constexpr int kM = 16 * kMT;
+  const int g = blockIdx.x / n_groups;  // kv head
+  const int grp = blockIdx.x % n_groups;
+  const int b = blockIdx.y;             // batch row
+  const int z = blockIdx.z;             // sub-split
+  const int n_sub = gridDim.z;
+  const int rep = H / KV;
+  const int h_first = g * rep + grp * hpb;
+  const int nh = min(hpb, rep - grp * hpb);  // query heads of this block
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int fr = lane >> 2, fc = (lane & 3) * 2;  // fragment row, column
+
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(split_smem);
+  __nv_bfloat16* q_s = ring + C::kStages * 2 * C::kTile;
+  __nv_bfloat16* ph_s = q_s + kM * C::kLd;
+  __nv_bfloat16* pl_s = ph_s + kM * C::kPld;
+  float* red = reinterpret_cast<float*>(pl_s + kM * C::kPld);  // [4][kM]
+  {
+    const uint4* q_row = reinterpret_cast<const uint4*>(
+        q + (static_cast<size_t>(b) * H + h_first) * DH);
+    for (int i = tid; i < kM * C::kVec; i += kThreads) {
+      const int r = i / C::kVec, c = i % C::kVec;
+      *reinterpret_cast<uint4*>(q_s + r * C::kLd + c * 8) =
+          r < nh ? q_row[r * C::kVec + c] : make_uint4(0, 0, 0, 0);
+    }
+  }
+
+  const int len = kKeyPos ? S : cache_len[b];
+  const int hi = max(0, min(len, S));
+  const int lo = kPaged && window > 0 ? max(0, len - window) : 0;
+  const int r0 = max(lo, z * per), r1 = min(hi, (z + 1) * per);
+  const int n_tiles = r1 > r0 ? (r1 - r0 + C::kRows - 1) / C::kRows : 0;
+
+  // rows past the sub-split are zero-filled: their p is 0, and 0 times
+  // a stale (possibly non-finite) V row would not be
+  auto load_tile = [&](int i, int stage) {
+    constexpr int kPer = C::kRows * C::kVec / kThreads;  // chunks a thread
+    const int t0 = r0 + i * C::kRows;
+    const int rows = min(C::kRows, r1 - t0);
+    __nv_bfloat16* k_s = ring + stage * 2 * C::kTile;
+    __nv_bfloat16* v_s = k_s + C::kTile;
+    size_t off[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int x = tid + u * kThreads;
+      const int pos = t0 + min(x / C::kVec, rows - 1);
+      if constexpr (kPaged) {
+        const int phys = __ldg(tables + static_cast<size_t>(b) * P + pos / page);
+        off[u] = ((static_cast<size_t>(phys) * page + pos % page) * KV + g) * DH;
+      } else {
+        off[u] = ((static_cast<size_t>(b) * S + pos) * KV + g) * DH;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int x = tid + u * kThreads;
+      const int t = x / C::kVec, c = x % C::kVec;
+      const int n = t < rows ? 16 : 0;
+      cp_async16(k_s + t * C::kLd + c * 8, k + off[u] + c * 8, n);
+      cp_async16(v_s + t * C::kLd + c * 8, v + off[u] + c * 8, n);
+    }
+  };
+
+  float o[kMT][C::kVT][4];
+  float m_run[kMT][2], l_run[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < C::kVT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][j][e] = 0.0f;
+    m_run[mt][0] = m_run[mt][1] = kNeg;
+    l_run[mt][0] = l_run[mt][1] = 0.0f;
+  }
+  // ldmatrix lane addresses: x4 row r of matrix lane / 8 (A: rows + 8 for
+  // odd matrices, columns + 8 for the upper two); x2 rows of lanes 0..15
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = lane & 7, b_col = ((lane >> 3) & 1) * 8;
+  const int key0 = warp * (C::kRows / 4);  // this warp's first score key
+  const int col0 = warp * (DH / 4);        // its first value column
+
+#pragma unroll
+  for (int s = 0; s < C::kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();  // tile i has landed (and q_s, at i = 0); tile i - 1's
+                      // stage, P and row partials are free
+    if (i + C::kStages - 1 < n_tiles)
+      load_tile(i + C::kStages - 1, (i + C::kStages - 1) % C::kStages);
+    cp_async_commit();
+    const int rows = min(C::kRows, r1 - (r0 + i * C::kRows));
+    const __nv_bfloat16* k_s = ring + (i % C::kStages) * 2 * C::kTile;
+    const __nv_bfloat16* v_s = k_s + C::kTile;
+
+    // S = q K^T over this warp's keys
+    float sc[kMT][C::kNT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < C::kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[mt][nt][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      uint32_t bk[C::kNT][2];
+#pragma unroll
+      for (int nt = 0; nt < C::kNT; ++nt)
+        ldmatrix_x2(bk[nt], smem_u32(k_s + (key0 + nt * 8 + b_row) * C::kLd +
+                                     ks * 16 + b_col));
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        uint32_t aq[4];
+        ldmatrix_x4(aq, smem_u32(q_s + (mt * 16 + a_row) * C::kLd + ks * 16 +
+                                 a_col));
+#pragma unroll
+        for (int nt = 0; nt < C::kNT; ++nt) mma_m16n8k16_bf16(sc[mt][nt], aq,
+                                                              bk[nt]);
+      }
+    }
+    // scale, mask the keys past the tile's rows, and this warp's row max
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int nt = 0; nt < C::kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = key0 + nt * 8 + fc + (e & 1);
+          const bool live =
+              t < rows && !(kKeyPos && kpos[r0 + i * C::kRows + t] < 0);
+          const float x = live ? sc[mt][nt][e] * scale : kNeg;
+          sc[mt][nt][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float x = mx[hh];
+        x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+        if ((lane & 3) == 0) red[warp * kM + mt * 16 + fr + 8 * hh] = x;
+      }
+    }
+    __syncthreads();
+    // the tile max over the warps, p = exp(s - m) in two bf16 parts
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = mt * 16 + fr + 8 * hh;
+        const float tm = fmaxf(fmaxf(red[r], red[kM + r]),
+                               fmaxf(red[2 * kM + r], red[3 * kM + r]));
+        const float m_new = fmaxf(m_run[mt][hh], tm);
+        corr[hh] = expf(m_run[mt][hh] - m_new);
+        m_run[mt][hh] = m_new;
+      }
+      float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int nt = 0; nt < C::kNT; ++nt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // a masked key takes p = 0 even at a masked-level running max
+          const float s0 = sc[mt][nt][2 * hh], s1 = sc[mt][nt][2 * hh + 1];
+          const float p0 = !kKeyPos || s0 > kMaskedS
+                               ? expf(s0 - m_run[mt][hh]) : 0.0f;
+          const float p1 = !kKeyPos || s1 > kMaskedS
+                               ? expf(s1 - m_run[mt][hh]) : 0.0f;
+          ps[hh] += p0 + p1;
+          __nv_bfloat162 h2 = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(h2);
+          __nv_bfloat162 l2 = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+          const int off = (mt * 16 + fr + 8 * hh) * C::kPld + key0 + nt * 8 +
+                          fc;
+          *reinterpret_cast<__nv_bfloat162*>(ph_s + off) = h2;
+          *reinterpret_cast<__nv_bfloat162*>(pl_s + off) = l2;
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        l_run[mt][hh] = l_run[mt][hh] * corr[hh] + ps[hh];
+#pragma unroll
+      for (int j = 0; j < C::kVT; ++j) {
+        o[mt][j][0] *= corr[0];
+        o[mt][j][1] *= corr[0];
+        o[mt][j][2] *= corr[1];
+        o[mt][j][3] *= corr[1];
+      }
+    }
+    __syncthreads();
+    // O[:, this warp's columns] += (P_hi + P_lo) V over the tile's keys
+#pragma unroll
+    for (int ks = 0; ks < C::kRows / 16; ++ks) {
+      uint32_t ah[kMT][4], al[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const int off = (mt * 16 + a_row) * C::kPld + ks * 16 + a_col;
+        ldmatrix_x4(ah[mt], smem_u32(ph_s + off));
+        ldmatrix_x4(al[mt], smem_u32(pl_s + off));
+      }
+#pragma unroll
+      for (int j = 0; j < C::kVT; ++j) {
+        uint32_t bv[2];
+        ldmatrix_x2_trans(bv, smem_u32(v_s + (ks * 16 + b_col + b_row) *
+                                                 C::kLd + col0 + j * 8));
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          mma_m16n8k16_bf16(o[mt][j], ah[mt], bv);
+          mma_m16n8k16_bf16(o[mt][j], al[mt], bv);
+        }
+      }
+    }
+  }
+
+  // the row sums: over the quad, then the warps in order
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is past its last read of red
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float x = l_run[mt][hh];
+      x += __shfl_xor_sync(kFullMask, x, 1);
+      x += __shfl_xor_sync(kFullMask, x, 2);
+      if ((lane & 3) == 0) red[warp * kM + mt * 16 + fr + 8 * hh] = x;
+    }
+  __syncthreads();
+  const size_t bh_n = static_cast<size_t>(B) * H;
+  const size_t bh0 = static_cast<size_t>(b) * H + h_first;  // first head
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = mt * 16 + fr + 8 * hh;
+      if (r >= nh) continue;
+      const float l = ((red[r] + red[kM + r]) + red[2 * kM + r]) +
+                      red[3 * kM + r];
+      if (n_sub == 1) {
+        const float inv = 1.0f / fmaxf(l, 1e-30f);
+        __nv_bfloat16* orow = out + (bh0 + r) * DH + col0 + fc;
+#pragma unroll
+        for (int j = 0; j < C::kVT; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+              __floats2bfloat162_rn(o[mt][j][2 * hh] * inv,
+                                    o[mt][j][2 * hh + 1] * inv);
+      } else {
+        // part: m [n_sub][B * H], l [n_sub][B * H], acc [n_sub][B * H][DH]
+        float* arow = part + 2 * n_sub * bh_n + (z * bh_n + bh0 + r) * DH +
+                      col0 + fc;
+#pragma unroll
+        for (int j = 0; j < C::kVT; ++j)
+          *reinterpret_cast<float2*>(arow + j * 8) =
+              make_float2(o[mt][j][2 * hh], o[mt][j][2 * hh + 1]);
+        if (warp == 0 && (lane & 3) == 0) {
+          part[z * bh_n + bh0 + r] = m_run[mt][hh];
+          part[bh_n * n_sub + z * bh_n + bh0 + r] = l;
+        }
+      }
+    }
+}
+
 // The sub-splits' f32 partials merged into out (and, for the partial
 // kernel, lse): one block per (row, head), one thread per output column.
 template <int DH, bool kLse>
@@ -454,35 +811,67 @@ __global__ void __launch_bounds__(DH) merge_kernel(
 // block's 1 or 2 heads) and in the scores (kQS: the widest of 4, 2, 1 not
 // above kQP that still gives all 16 lane groups a score item, so that no
 // warp idles in that phase; else 1).
-template <int DH, bool kPaged>
+template <int DH, int kPolicy>
 auto split_kernel_for(int hpb) {
   constexpr int kBlocks = Split<DH>::kRows / 8;  // row blocks a tile
   const int qp = hpb >= kMaxQuad ? 4 : hpb >= 2 ? 2 : 1;
   auto busy = [&](int qs) { return kBlocks * ((hpb + qs - 1) / qs) >= 16; };
   const int qs = qp == 4 && busy(4) ? 4 : qp >= 2 && busy(2) ? 2 : 1;
   if (qp == 4)
-    return qs == 4 ? split_decode_kernel<DH, kPaged, 4, 4>
-         : qs == 2 ? split_decode_kernel<DH, kPaged, 2, 4>
-                   : split_decode_kernel<DH, kPaged, 1, 4>;
+    return qs == 4 ? split_decode_kernel<DH, kPolicy, 4, 4>
+         : qs == 2 ? split_decode_kernel<DH, kPolicy, 2, 4>
+                   : split_decode_kernel<DH, kPolicy, 1, 4>;
   if (qp == 2)
-    return qs == 2 ? split_decode_kernel<DH, kPaged, 2, 2>
-                   : split_decode_kernel<DH, kPaged, 1, 2>;
-  return split_decode_kernel<DH, kPaged, 1, 1>;
+    return qs == 2 ? split_decode_kernel<DH, kPolicy, 2, 2>
+                   : split_decode_kernel<DH, kPolicy, 1, 2>;
+  return split_decode_kernel<DH, kPolicy, 1, 1>;
+}
+
+// A kv head's query heads on the tensor-core path: the fewest equal groups
+// of at most kMmaMaxHeads, one block each (one group up to 64 heads).
+inline HeadGroups mma_head_groups(int rep) {
+  const int n = (rep + kMmaMaxHeads - 1) / kMmaMaxHeads;
+  return {n, (rep + n - 1) / n};
+}
+
+template <int DH, int kPolicy>
+auto mma_kernel_for(int hpb) {
+  const int mt = (hpb + 15) / 16;
+  return mt == 1   ? split_decode_mma_kernel<DH, kPolicy, 1>
+         : mt == 2 ? split_decode_mma_kernel<DH, kPolicy, 2>
+         : mt == 3 ? split_decode_mma_kernel<DH, kPolicy, 3>
+                   : split_decode_mma_kernel<DH, kPolicy, 4>;
+}
+
+template <int DH>
+size_t mma_smem_for(int hpb) {
+  const int mt = (hpb + 15) / 16;
+  return mt == 1   ? mma_smem_bytes<DH, 1>()
+         : mt == 2 ? mma_smem_bytes<DH, 2>()
+         : mt == 3 ? mma_smem_bytes<DH, 3>()
+                   : mma_smem_bytes<DH, 4>();
 }
 
 // S: the rows a table or cache spans (P * page, or S_max); each sub-split
 // takes per_units 64-row units of them, n_sub = ceil(S / (64 per_units)).
-template <int DH, bool kPaged>
+// H / KV >= kMmaMinRep takes the tensor-core instance, one block a kv head
+// (up to 64 query heads); below, the f32 instance with its head groups.
+template <int DH, int kPolicy>
 int launch_split(const void* q, const void* k, const void* v,
-                 const void* tables, const void* cache_len, void* out,
-                 float* part, int B, int H, int KV, int S, int page, int P,
-                 int per_units, int window, float scale, cudaStream_t stream) {
-  const HeadGroups hg = head_groups(H / KV, DH);
+                 const void* tables, const void* cache_len, const int* kpos,
+                 void* out, float* part, int B, int H, int KV, int S,
+                 int page, int P, int per_units, int window, float scale,
+                 cudaStream_t stream) {
   if (per_units < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int rep = H / KV;
+  const bool mma = rep >= kMmaMinRep;
+  const HeadGroups hg = mma ? mma_head_groups(rep) : head_groups(rep, DH);
   const int per = per_units * kSplitUnit;
   const int n_sub = (S + per - 1) / per;
-  const size_t smem = split_smem_bytes<DH>(hg.hpb);
-  auto kernel = split_kernel_for<DH, kPaged>(hg.hpb);
+  const size_t smem = mma ? mma_smem_for<DH>(hg.hpb)
+                          : split_smem_bytes<DH>(hg.hpb);
+  auto kernel = mma ? mma_kernel_for<DH, kPolicy>(hg.hpb)
+                    : split_kernel_for<DH, kPolicy>(hg.hpb);
   // above 48 KB a block's dynamic shared memory must be allowed first (per
   // device, so on every launch)
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -493,8 +882,9 @@ int launch_split(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(cache_len), static_cast<__nv_bfloat16*>(out),
-      part, B, H, KV, hg.hpb, hg.n_groups, S, per, page, P, window, scale);
+      static_cast<const int*>(cache_len), kpos,
+      static_cast<__nv_bfloat16*>(out), part, B, H, KV, hg.hpb, hg.n_groups,
+      S, per, page, P, window, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_sub == 1) return static_cast<int>(e);
   merge_kernel<DH, false><<<B * H, DH, 0, stream>>>(
@@ -502,25 +892,27 @@ int launch_split(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPaged>
+template <int kPolicy>
 int dispatch_split(int dh, const void* q, const void* k, const void* v,
-                   const void* tables, const void* cache_len, void* out,
-                   void* part, int B, int H, int KV, int S, int page, int P,
-                   int per_units, int window, float scale, void* stream) {
+                   const void* tables, const void* cache_len,
+                   const void* kpos, void* out, void* part, int B, int H,
+                   int KV, int S, int page, int P, int per_units, int window,
+                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pt = static_cast<float*>(part);
+  const int* kp = static_cast<const int*>(kpos);
   if (dh == 64)
-    return launch_split<64, kPaged>(q, k, v, tables, cache_len, out, pt, B, H,
-                                    KV, S, page, P, per_units, window, scale,
-                                    s);
+    return launch_split<64, kPolicy>(q, k, v, tables, cache_len, kp, out, pt,
+                                    B, H, KV, S, page, P, per_units, window,
+                                    scale, s);
   if (dh == 128)
-    return launch_split<128, kPaged>(q, k, v, tables, cache_len, out, pt, B, H,
-                                     KV, S, page, P, per_units, window, scale,
-                                     s);
+    return launch_split<128, kPolicy>(q, k, v, tables, cache_len, kp, out, pt,
+                                     B, H, KV, S, page, P, per_units, window,
+                                     scale, s);
   if (dh == 192)
-    return launch_split<192, kPaged>(q, k, v, tables, cache_len, out, pt, B, H,
-                                     KV, S, page, P, per_units, window, scale,
-                                     s);
+    return launch_split<192, kPolicy>(q, k, v, tables, cache_len, kp, out, pt,
+                                     B, H, KV, S, page, P, per_units, window,
+                                     scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -543,9 +935,10 @@ REPRO_EXPORT int decode_attention_paged(const void* q, const void* k_pool,
                                         float scale, void* stream) {
   if (B <= 0 || KV <= 0 || H % KV != 0 || page <= 0 || P <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_split<true>(dh, q, k_pool, v_pool, tables, cache_len, out,
-                              part, B, H, KV, P * page, page, P, per_units,
-                              window, scale, stream);
+  return dispatch_split<kPagedRows>(dh, q, k_pool, v_pool, tables,
+                                    cache_len, nullptr, out, part, B, H, KV,
+                                    P * page, page, P, per_units, window,
+                                    scale, stream);
 }
 
 // q: (B, H, dh) bf16; k_cache, v_cache: (B, S_max, KV, dh) bf16, 16-byte
@@ -560,9 +953,31 @@ REPRO_EXPORT int decode_attention_dense(const void* q, const void* k_cache,
                                         float scale, void* stream) {
   if (B <= 0 || KV <= 0 || H % KV != 0 || S_max <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_split<false>(dh, q, k_cache, v_cache, nullptr, cache_len,
-                               out, part, B, H, KV, S_max, 1, 1, per_units,
-                               0, scale, stream);
+  return dispatch_split<kDenseRows>(dh, q, k_cache, v_cache, nullptr,
+                                    cache_len, nullptr, out, part, B, H, KV,
+                                    S_max, 1, 1, per_units, 0, scale, stream);
+}
+
+// Bidirectional attention of a few queries over their row's keys, through
+// the dense policy with key positions: q: (B, Hq, dh) bf16, the queries of
+// kv head g being Hq / KV consecutive rows (the flash op folds (query,
+// head) pairs into them); k, v: (B, Sk, KV, dh) bf16, 16-byte aligned;
+// kpos: (Sk,) i32, a negative position masking its key for every query;
+// out: (B, Hq, dh) bf16.  Every row sees all Sk keys (no cache_len), cut
+// into sub-splits of per_units 64-row units from key 0, merged by a second
+// kernel as decode_attention_dense does.  A query whose keys are all
+// masked gets 0.
+REPRO_EXPORT int attention_short_queries(const void* q, const void* k,
+                                         const void* v, const void* kpos,
+                                         void* out, void* part, int B,
+                                         int Hq, int KV, int dh, int Sk,
+                                         int per_units, float scale,
+                                         void* stream) {
+  if (B <= 0 || KV <= 0 || Hq % KV != 0 || Sk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_split<kDenseKeyPos>(dh, q, k, v, nullptr, nullptr, kpos, out,
+                                      part, B, Hq, KV, Sk, 1, 1, per_units, 0,
+                                      scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -586,9 +1001,16 @@ REPRO_EXPORT int decode_attention_dense(const void* q, const void* k_cache,
 // the rep = H / KV query heads of a kv head share every page load, split,
 // where rep * dh > 1024, into the fewest equal groups of at most 1024 / dh
 // heads, one block each, as the split-KV kernel above does; sub-split z
-// takes the contiguous logical pages [z * per, (z + 1) * per) of the call's
-// table (per = ceil(P / n_sub); the op's decode_sub_splits chooses n_sub so
-// that the blocks fill the SMs), intersected with the row's live pages.
+// takes the rows [z * per, (z + 1) * per) of the call's table, per a fixed
+// number of 64-row units (the op's LSE_SPLIT_UNITS, 1: a stripe is short)
+// and n_sub = ceil(P * page / per), intersected with the row's live rows:
+// fixed boundaries, as the split-KV kernel's, so a row's partition, and
+// with it its rounding,
+// never follows the batch, the table's padded width or the card (the
+// engine's fused step pads tables to a pow2, its orchestrated step passes
+// them whole; a count chosen from those shapes and the SM count rounded
+// one row two ways).  A sub-split visits the pages its rows touch and
+// masks the rows outside it, so a page need not divide the 64-row unit.
 // The pages are double-buffered with cp.async: the next page's K and V are
 // in flight while the current page is scored and summed.  Per page: scores
 // into shared memory (one thread a (head, slot)), one warp per head takes
@@ -600,7 +1022,8 @@ REPRO_EXPORT int decode_attention_dense(const void* q, const void* k_cache,
 //
 // A fully masked row is the normal case here, not an edge case: a short
 // row has no positions in the later stripes (the caller passes cache_len
-// clipped at 0 there) or sub-splits.  Such a block visits no page and
+// clipped at 0 there) or sub-splits (trailing ones past its rows, or past
+// a padded table's live width).  Such a block visits no page and
 // leaves m = -1e30, l = 0, acc = 0, which the merge weighs exactly 0
 // (exp(-1e30 - M) = 0 for a live M); with no live sub-split at all it
 // writes out 0 and lse = -1e30 + log(1e-30), which f32 rounds to -1e30:
@@ -637,7 +1060,8 @@ __global__ void __launch_bounds__(kThreads) paged_lse_split_kernel(
     const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ tables,
     const int* __restrict__ cache_len, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, float* __restrict__ part, int B, int H, int KV,
-    int hpb, int n_groups, int page, int P, int window, float scale) {
+    int hpb, int n_groups, int page, int P, int per, int window,
+    float scale) {
   constexpr int kRowWords = lse_row_words<DH>();
   constexpr int kVecPerRow = DH / 8;  // 16-byte vectors per K/V row
   const int g = blockIdx.x / n_groups;  // kv head
@@ -671,11 +1095,13 @@ __global__ void __launch_bounds__(kThreads) paged_lse_split_kernel(
     l_s[r] = 0.0f;
   }
 
+  // this sub-split's live rows [r0, r1) and the pages they touch
   const int len = cache_len[b];
   const int lo = window > 0 ? max(0, len - window) : 0;
-  const int per = (P + n_sub - 1) / n_sub;
-  const int p_begin = max(lo / page, z * per);
-  const int p_end = min(min(P, (len + page - 1) / page), (z + 1) * per);
+  const int r0 = max(lo, z * per);
+  const int r1 = min(min(len, P * page), (z + 1) * per);
+  const int p_begin = r0 / page;
+  const int p_end = r1 > r0 ? (r1 + page - 1) / page : p_begin;
 
   auto load_page = [&](int pg, int buf) {
     const int phys = tables[static_cast<size_t>(b) * P + pg];
@@ -720,7 +1146,7 @@ __global__ void __launch_bounds__(kThreads) paged_lse_split_kernel(
         dot += qr[2 * d2] * kk.x + qr[2 * d2 + 1] * kk.y;
       }
       const int pos = pg * page + t;
-      const bool valid = pos < len && (window <= 0 || pos >= len - window);
+      const bool valid = pos >= r0 && pos < r1;
       s_s[r * page + t] = valid ? dot * scale : kNeg;
     }
     __syncthreads();
@@ -784,11 +1210,13 @@ template <int DH>
 int launch_lse(const void* q, const void* k_pool, const void* v_pool,
                const void* tables, const void* cache_len, void* out,
                float* lse, float* part, int B, int H, int KV, int page, int P,
-               int n_sub, int window, float scale, cudaStream_t stream) {
+               int per_units, int window, float scale, cudaStream_t stream) {
   const HeadGroups hg = head_groups(H / KV, DH);
   const size_t smem = lse_smem_bytes<DH>(hg.hpb, page) + 16;
-  if (page > kLseMaxPage || n_sub < 1 || n_sub > P || smem > 48 * 1024)
+  if (page > kLseMaxPage || per_units < 1 || smem > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int per = per_units * kSplitUnit;
+  const int n_sub = (P * page + per - 1) / per;
   dim3 grid(KV * hg.n_groups, B, n_sub);
   paged_lse_split_kernel<DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -796,7 +1224,7 @@ int launch_lse(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const __nv_bfloat16*>(v_pool),
       static_cast<const int*>(tables), static_cast<const int*>(cache_len),
       static_cast<__nv_bfloat16*>(out), lse, part, B, H, KV, hg.hpb,
-      hg.n_groups, page, P, window, scale);
+      hg.n_groups, page, P, per, window, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_sub == 1) return static_cast<int>(e);
   merge_kernel<DH, true><<<B * H, DH, 0, stream>>>(
@@ -808,14 +1236,15 @@ int launch_lse(const void* q, const void* k_pool, const void* v_pool,
 
 // As decode_attention_paged, plus lse: (B, H) f32.  tables is the (B, P)
 // table of this call's pages (a stripe, made contiguous by the caller),
-// split into n_sub sub-splits of ceil(P / n_sub) pages; with n_sub > 1,
-// part is f32 scratch of n_sub * B * H * (dh + 2) floats and a second
-// kernel merges the partials (launched here, on the same stream).  The
-// page is at most 64 slots.
+// its P * page rows split into n_sub = ceil(P * page / (64 per_units))
+// sub-splits of per_units 64-row units each; with n_sub > 1, part is f32
+// scratch of n_sub * B * H * (dh + 2) floats and a second kernel merges
+// the partials (launched here, on the same stream).  The page is at most
+// 64 slots.
 REPRO_EXPORT int decode_attention_paged_lse(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* cache_len, void* out, void* lse, void* part, int B, int H,
-    int KV, int dh, int page, int P, int n_sub, int window, float scale,
+    int KV, int dh, int page, int P, int per_units, int window, float scale,
     void* stream) {
   if (B <= 0 || KV <= 0 || H % KV != 0 || page <= 0 || P <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -824,12 +1253,12 @@ REPRO_EXPORT int decode_attention_paged_lse(
   float* pt = static_cast<float*>(part);
   if (dh == 64)
     return launch_lse<64>(q, k_pool, v_pool, tables, cache_len, out, l, pt, B,
-                          H, KV, page, P, n_sub, window, scale, s);
+                          H, KV, page, P, per_units, window, scale, s);
   if (dh == 128)
     return launch_lse<128>(q, k_pool, v_pool, tables, cache_len, out, l, pt,
-                           B, H, KV, page, P, n_sub, window, scale, s);
+                           B, H, KV, page, P, per_units, window, scale, s);
   if (dh == 192)
     return launch_lse<192>(q, k_pool, v_pool, tables, cache_len, out, l, pt,
-                           B, H, KV, page, P, n_sub, window, scale, s);
+                           B, H, KV, page, P, per_units, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

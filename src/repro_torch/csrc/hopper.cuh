@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // shared-memory addresses, mbarriers, cp.async with zero fill, proxy
-// fences, and the warpgroup matrix multiply (wgmma) with its shared-memory
+// fences, the warp-level matrix multiply (mma.sync, ldmatrix) and
+// the warpgroup matrix multiply (wgmma) with its shared-memory
 // descriptors.  Inline PTX only; no library.
 #pragma once
 
@@ -82,6 +83,53 @@ __device__ __forceinline__ void cp_async_wait() {
 // proxy (st.shared, cp.async) before its later async-proxy reads (wgmma).
 __device__ __forceinline__ void fence_proxy_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------- mma.sync, ldmatrix
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// row addresses of matrix i (16 bytes each), and r[i] is this lane's pair
+// of matrix i (row lane / 4, columns 2 (lane % 4) and + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Two 8x8 b16 matrices (lanes 0 .. 15 give the row addresses), transposed:
+// r[i] is this lane's pair of matrix i's column lane / 4, rows 2 (lane % 4)
+// and + 1.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+// Two 8x8 b16 matrices, not transposed (lanes 0 .. 15 give the addresses).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+// D (m16n8 f32) += A (m16k16 bf16, row-major fragment) * B (k16n8 bf16,
+// column-major fragment), the warp's mma.sync.
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4],
+                                                  const uint32_t (&a)[4],
+                                                  const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // -------------------------------------------------------------------- wgmma

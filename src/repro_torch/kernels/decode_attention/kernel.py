@@ -25,9 +25,11 @@ PAGED_DECODE_KERNEL = CudaKernel(
     [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f, _p])
 
 # decode_attention_paged_lse(q, k_pool, v_pool, tables, cache_len, out, lse,
-#                            part, B, H, KV, dh, page, P, n_sub, window,
-#                            scale, stream): the split kernel and, where
-#                            n_sub > 1, the merge kernel after it
+#                            part, B, H, KV, dh, page, P, per_units, window,
+#                            scale, stream): the split kernel over
+#                            sub-splits of per_units 64-row units and,
+#                            where there is more than one, the merge kernel
+#                            after it
 PAGED_LSE_KERNEL = CudaKernel(
     "decode_attention", "decode_attention_paged_lse",
     [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _f,

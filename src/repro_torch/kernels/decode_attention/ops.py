@@ -9,15 +9,19 @@ row's ``cache_len`` and are masked.  Dense: the JAX op pads S_max to a
 pads nothing (a pad would copy the whole cache on every call).
 
 Every CUDA kernel here splits a row's keys across blocks: the grid is
-(KV * n_groups, B, n_sub), ``head_groups`` giving n_groups and
-``decode_sub_splits`` (partial kernel) or ``split_kv_sub_splits`` (paged
-and dense) n_sub, from shapes alone (never from cache_len, so that a CUDA
-graph captured at one shape stays valid).  With n_sub > 1 the
-op allocates f32 scratch for the partials on the current stream and one C
-call launches the split kernel and the merge kernel after it, counted as
-one launch.  The paged and dense kernels cut every row at the same fixed
-boundaries (``SPLIT_UNITS`` 64-row units a sub-split), so their result
-for a row never depends on the batch or the table's padded width.
+(KV * n_groups, B, n_sub), ``split_kv_head_groups`` (paged and dense) or
+``head_groups`` (partial) giving n_groups and ``split_kv_sub_splits``
+n_sub, from shapes alone (never from cache_len, so that a CUDA graph
+captured at one shape stays valid).  With n_sub > 1 the op allocates f32
+scratch for the partials on the current stream and one C call launches
+the split kernel and the merge kernel after it, counted as one launch.
+All three cut every row at fixed boundaries from its first row
+(``SPLIT_UNITS`` 64-row units a sub-split for the paged and dense
+kernels, ``LSE_SPLIT_UNITS`` for the partial one), so their result for a
+row never depends on the batch, the table's padded width or the card.
+Where a kv head serves ``MMA_MIN_REP`` or more query heads, the paged and
+dense kernels compute on the tensor cores and one block takes all of the
+kv head's query heads (up to ``MMA_MAX_HEADS``).
 """
 
 from __future__ import annotations
@@ -31,14 +35,20 @@ from .ref import (decode_attention_dense_reference,
                   decode_attention_paged_reference)
 
 __all__ = ["decode_attention_op", "decode_attention_paged_op",
-           "decode_attention_paged_lse_op", "decode_sub_splits",
-           "split_kv_sub_splits", "head_groups", "SPLIT_UNIT", "SPLIT_UNITS",
+           "decode_attention_paged_lse_op", "split_kv_sub_splits",
+           "split_kv_head_groups", "uses_tensor_cores", "head_groups",
+           "SPLIT_UNIT", "SPLIT_UNITS", "LSE_SPLIT_UNITS", "MMA_MIN_REP",
+           "MMA_MAX_HEADS",
            "DENSE_DECODE_KERNEL", "PAGED_DECODE_KERNEL", "PAGED_LSE_KERNEL"]
 
 _HEAD_DIMS = (64, 128, 192)
-H100_SMS = 132
 # a block's query heads * dh: 128 threads, 8 outputs each
 _MAX_OUTPUTS = 1024
+# the paged and dense kernels' tensor-core instance (csrc kMmaMinRep,
+# kMmaMaxHeads): from this many query heads a kv head, at most this many
+# heads a block
+MMA_MIN_REP = 8
+MMA_MAX_HEADS = 64
 # the LSE kernel's page: its slots over one warp, two each
 _LSE_MAX_PAGE = 64
 # the split-KV kernels cut a row's keys into sub-splits of whole units of
@@ -46,6 +56,10 @@ _LSE_MAX_PAGE = 64
 # (tools/decode_split_tune.py times the choices on the card)
 SPLIT_UNIT = 64
 SPLIT_UNITS = 4
+# the partial kernel's: one unit (its stripes are short: 256-row
+# sub-splits left qwen2-1.5b's tp-4 stripe 32 blocks, 3.4x slower than
+# one unit's 256 on an H100, tools/decode_split_tune.py)
+LSE_SPLIT_UNITS = 1
 
 
 def head_groups(rep: int, dh: int) -> tuple[int, int]:
@@ -57,31 +71,31 @@ def head_groups(rep: int, dh: int) -> tuple[int, int]:
     return n, -(-rep // n)
 
 
-def decode_sub_splits(b: int, kvh: int, rep: int, dh: int, n_pages: int,
-                      sms: int = H100_SMS) -> int:
-    """How many sub-splits the partial paged kernel cuts a call's
-    ``n_pages`` table columns into, so that its b * kvh * n_groups * n_sub
-    blocks (``head_groups``) reach the card's ``sms`` where the pages
-    allow: 1 when b * kvh * n_groups blocks already fill the card, else
-    ``ceil(n_pages / per)`` with per = ``n_pages // ceil(sms / blocks)``
-    pages each (at least one).  The kernel gives sub-split z the columns
-    [z * c, (z + 1) * c), c = ceil(n_pages / n_sub), which this count
-    leaves non-empty; only a short row leaves some with no live position.
-    Shapes only: the count never depends on a row's length.  (The paged
-    and dense kernels cut fixed ``SPLIT_UNITS`` units instead: see
-    ``split_kv_sub_splits``.)"""
-    blocks = b * kvh * head_groups(rep, dh)[0]
-    if n_pages <= 1 or blocks >= sms:
-        return 1
-    per = max(1, n_pages // -(-sms // blocks))
-    return -(-n_pages // per)
+def uses_tensor_cores(rep: int) -> bool:
+    """Whether the paged and dense kernels take a kv head's ``rep`` query
+    heads to the tensor cores (mma.sync scores and value sums): from
+    MMA_MIN_REP heads, where the f32 score dots pass the f32 cores'
+    ridge."""
+    return rep >= MMA_MIN_REP
+
+
+def split_kv_head_groups(rep: int, dh: int) -> tuple[int, int]:
+    """The paged and dense kernels' split of a kv head's ``rep`` query
+    heads into blocks, (n_groups, heads per group): on the tensor cores
+    the fewest equal groups of at most MMA_MAX_HEADS (one block a kv head
+    up to 64 heads), else ``head_groups``."""
+    if uses_tensor_cores(rep):
+        n = -(-rep // MMA_MAX_HEADS)
+        return n, -(-rep // n)
+    return head_groups(rep, dh)
 
 
 def split_kv_sub_splits(n_rows: int, units: int = SPLIT_UNITS) -> int:
-    """The paged and dense kernels' sub-splits of a row's ``n_rows`` (P *
-    page, or S_max): ``units`` 64-row units each from the row's first, so
-    the boundaries, and with them a row's result, never move with the
-    batch or the table's padded width."""
+    """Every decode kernel's sub-splits of a row's ``n_rows`` (P * page,
+    S_max, or a stripe's P * page): ``units`` 64-row units each from the
+    row's first, so the boundaries, and with them a row's result, never
+    move with the batch, the table's padded width or the card; a
+    sub-split past a row's live rows adds exact zeros in the merge."""
     return -(-n_rows // (units * SPLIT_UNIT))
 
 
@@ -113,7 +127,7 @@ def _check(q, k_pool, v_pool, block_tables, cache_len):
             raise ValueError(f"decode_attention_paged: {name} must be a "
                              f"contiguous {dtype} tensor on {dev}, got "
                              f"{t.dtype} on {t.device}")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if t.data_ptr() % 16:
             raise ValueError(f"decode_attention_paged: {name} must be "
                              "16-byte aligned (the kernels copy 16-byte "
@@ -141,7 +155,9 @@ def decode_attention_paged_op(q, k_pool, v_pool, block_tables, cache_len, *,
     never passes (see ``csrc/decode_attention.cu``).  The kernel splits
     the P * page rows into sub-splits of ``SPLIT_UNITS`` 64-row units
     (scratch allocated here, two launches counted as one call); a row's
-    result is the same for any table width and batch."""
+    result is the same for any table width and batch.  From MMA_MIN_REP
+    query heads a kv head it computes on the tensor cores (value sums
+    with p in two bf16 parts, as the flash kernel)."""
     block_tables = _pad_tables(block_tables)
     pb = block_tables.shape[1]
     dev = q.device
@@ -174,11 +190,12 @@ def decode_attention_paged_lse_op(q, k_pool, v_pool, block_tables,
 
     On CUDA everything but lse is bf16, dh is 64, 128 or 192 and the
     page at most 64 slots; query heads beyond 1024 / dh per kv head go to
-    further blocks (``head_groups``).  The kernel splits the table's
-    columns over ``decode_sub_splits`` sub-splits per (kv head, head
-    group, row), for the card's SM count; with more than one, it writes
-    f32 partials to scratch allocated here and a second, short kernel
-    merges them in the same call (two launches, counted as one call in
+    further blocks (``head_groups``).  The kernel cuts the stripe's P *
+    page rows into sub-splits of ``LSE_SPLIT_UNITS`` 64-row units
+    (``split_kv_sub_splits``), so a row's (out, lse) is bit-identical for
+    any batch and table width; with more than one, it writes f32 partials
+    to scratch allocated here and a second, short kernel merges them in
+    the same call (two launches, counted as one call in
     ``PAGED_LSE_KERNEL.launches``).  A row whose positions
     are all masked (cache_len 0, or every position before the window)
     gets out 0 from the kernel, where the plain version averages the
@@ -199,17 +216,15 @@ def decode_attention_paged_lse_op(q, k_pool, v_pool, block_tables,
         raise ValueError(f"decode_attention_paged_lse: page {page} (at most "
                          f"{_LSE_MAX_PAGE})")
     p = block_tables.shape[1]
-    n_sub = decode_sub_splits(
-        b, kvh, h // kvh, dh, p,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty_like(q)
     lse = torch.empty((b, h), dtype=torch.float32, device=dev)
-    part = _scratch(n_sub, b, h, dh, dev)
+    part = _scratch(split_kv_sub_splits(p * page, LSE_SPLIT_UNITS), b, h,
+                    dh, dev)
     PAGED_LSE_KERNEL(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                      block_tables.data_ptr(), cache_len.data_ptr(),
                      out.data_ptr(), lse.data_ptr(), part.data_ptr(), b, h,
-                     kvh, dh, page, p, n_sub, int(window), dh ** -0.5,
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     kvh, dh, page, p, LSE_SPLIT_UNITS, int(window),
+                     dh ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     PAGED_LSE_KERNEL.launches += 1
     return out, lse
 
@@ -235,7 +250,7 @@ def _check_dense(q, k_cache, v_cache, cache_len):
             raise ValueError(f"decode_attention: {name} must be a "
                              f"contiguous {dtype} tensor on {dev}, got "
                              f"{t.dtype} on {t.device}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be 16-byte "
                              "aligned (the kernel loads 16-byte vectors)")
@@ -248,9 +263,10 @@ def decode_attention_op(q, k_cache, v_cache, cache_len, *,
     dtype.
 
     On CUDA everything is bf16 (q, caches, output), dh is 64, 128 or 192
-    and any S_max and H / KV are taken (query heads beyond 1024 / dh per
-    kv head go to further blocks; the S_max rows are split into
-    sub-splits of ``SPLIT_UNITS`` 64-row units).  The result differs from
+    and any S_max and H / KV are taken (``split_kv_head_groups`` splits
+    the query heads into blocks, on the tensor cores from MMA_MIN_REP a kv
+    head; the S_max rows are split into sub-splits of ``SPLIT_UNITS``
+    64-row units).  The result differs from
     the plain version only for a row with cache_len == 0, which no caller
     passes (see ``csrc/decode_attention.cu``).  The ring rule (every slot valid
     once cache_len >= S_max) is the first min(cache_len, S_max) slots

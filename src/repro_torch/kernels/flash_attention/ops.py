@@ -1,17 +1,45 @@
 """Prefill attention with explicit positions: the hand-written CUDA
-kernel (``csrc/flash_attention.cu``) for CUDA tensors, the plain version
-in ``ref.py`` for CPU tensors."""
+kernels for CUDA tensors, the plain version in ``ref.py`` for CPU tensors.
+
+A few bidirectional queries (at most ``SPLIT_MAX_SQ``, no causal mask and
+no window: one decode step's cross-attention) split the keys across
+blocks through the split-KV decode template (``csrc/decode_attention.cu``
+``attention_short_queries``): the (query, head) pairs of a kv head become
+its rows of query heads, every key row is masked by its position alone,
+and the keys are cut at fixed ``SPLIT_UNITS`` 64-row units from key 0
+(``flash_key_ranges``: from Sq and Sk alone, so a row's result never
+follows the batch or the card); one C call launches the split and merge
+kernels, counted as one launch of ``FLASH_SPLIT_KERNEL``.  Every other
+call is one launch of the prefill kernel, ``FLASH_PREFILL_KERNEL``.
+"""
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import FLASH_PREFILL_KERNEL
+from ..decode_attention.ops import SPLIT_UNITS, split_kv_sub_splits
+from .kernel import FLASH_PREFILL_KERNEL, FLASH_SPLIT_KERNEL
 from .ref import attention_reference
 
-__all__ = ["flash_attention", "FLASH_PREFILL_KERNEL"]
+__all__ = ["flash_attention", "flash_key_ranges", "FLASH_PREFILL_KERNEL",
+           "FLASH_SPLIT_KERNEL", "SPLIT_MAX_SQ"]
 
-HEAD_DIMS = (64, 128, 192)    # the CUDA kernel's head dims
+HEAD_DIMS = (64, 128, 192)    # the CUDA kernels' head dims
+# the key split: at most this many queries (bidirectional, no window)
+SPLIT_MAX_SQ = 16
+
+
+def flash_key_ranges(sq: int, sk: int, *, causal: bool = False,
+                     window: int = 0) -> int:
+    """How many key ranges the flash op cuts a call's ``sk`` keys into: 0
+    (no split: the prefill kernel) for more than SPLIT_MAX_SQ queries, a
+    causal mask or a window; else the split-KV template's sub-splits of
+    ``SPLIT_UNITS`` 64-row units from key 0 (1: one range, no merge) -- a
+    function of Sq and Sk (and the mask's kind) alone, never of the batch,
+    the heads or the card."""
+    if sq > SPLIT_MAX_SQ or causal or window > 0:
+        return 0
+    return split_kv_sub_splits(sk)
 
 
 def _check(q, k, v, positions, kv_positions):
@@ -52,7 +80,10 @@ def flash_attention(q, k, v, positions, kv_positions, *, causal: bool = True,
     aligned.  The kernel's value product takes p as two bf16 parts (p to
     ~2^-16, where the plain version keeps f32 p); its result differs
     otherwise only for a query row that sees no key, which no caller
-    makes (see ``csrc/flash_attention.cu``)."""
+    makes (see ``csrc/flash_attention.cu``).  ``flash_key_ranges`` > 0
+    takes the key split through the split-KV decode template (f32
+    scratch allocated here; its rounding is the decode kernels'), where a
+    query that sees no key gets 0."""
     dev = q.device
     if dev.type == "cpu":
         return attention_reference(q, k, v, positions, kv_positions,
@@ -62,11 +93,29 @@ def flash_attention(q, k, v, positions, kv_positions, *, causal: bool = True,
     _check(q, k, v, positions, kv_positions)
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_ranges = flash_key_ranges(sq, sk, causal=causal, window=window)
+    if n_ranges:
+        # kv head g's rows of query heads: its (query, head) pairs, query
+        # major (a copy only for Sq > 1)
+        rep = h // kvh
+        qh = q.reshape(b, sq, kvh, rep, dh).transpose(1, 2).reshape(
+            b, kvh * sq * rep, dh).contiguous()
+        out = torch.empty_like(qh)
+        part = torch.empty((n_ranges * b * h * sq * (dh + 2)
+                            if n_ranges > 1 else 1,),
+                           dtype=torch.float32, device=dev)
+        FLASH_SPLIT_KERNEL(qh.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           kv_positions.data_ptr(), out.data_ptr(),
+                           part.data_ptr(), b, kvh * sq * rep, kvh, dh, sk,
+                           SPLIT_UNITS, dh ** -0.5, stream)
+        FLASH_SPLIT_KERNEL.launches += 1
+        return out.reshape(b, kvh, sq, rep, dh).transpose(1, 2).reshape(
+            b, sq, h, dh)
     out = torch.empty_like(q)
     FLASH_PREFILL_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          positions.data_ptr(), kv_positions.data_ptr(),
                          out.data_ptr(), b, sq, sk, h, kvh, dh, int(causal),
-                         int(window), dh ** -0.5,
-                         torch.cuda.current_stream(dev).cuda_stream)
+                         int(window), dh ** -0.5, stream)
     FLASH_PREFILL_KERNEL.launches += 1
     return out

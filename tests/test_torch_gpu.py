@@ -29,14 +29,16 @@ import repro_torch.serving as port_serving
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import (
     DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
-    SPLIT_UNIT, SPLIT_UNITS, decode_attention_op,
+    MMA_MIN_REP, SPLIT_UNIT, SPLIT_UNITS, decode_attention_op,
     decode_attention_paged_lse_op, split_kv_sub_splits,
-    decode_attention_paged_op, decode_sub_splits)
+    decode_attention_paged_op, split_kv_head_groups, uses_tensor_cores)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_dense_reference, decode_attention_paged_lse_reference,
     decode_attention_paged_reference)
 from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
-                                                     flash_attention)
+                                                     FLASH_SPLIT_KERNEL,
+                                                     flash_attention,
+                                                     flash_key_ranges)
 from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
                                              gittins_attained)
@@ -155,10 +157,13 @@ def test_cuda_flash_ragged_edges_vs_plain(cuda, sq, rep, dh, causal,
     kvh = 2
     q, k, v, pos, kv_pos = _flash_case(cuda, sq * rep + dh, 2, sq, 333,
                                        kvh * rep, kvh, dh, q_scale)
-    n0 = FLASH_PREFILL_KERNEL.launches
+    # one launch a call: the key split for one bidirectional query
+    kern = FLASH_SPLIT_KERNEL if flash_key_ranges(sq, 333, causal=causal) \
+        else FLASH_PREFILL_KERNEL
+    n0 = kern.launches
     got = flash_attention(q, k, v, pos, kv_pos, causal=causal)
     torch.cuda.synchronize()
-    assert FLASH_PREFILL_KERNEL.launches == n0 + 1
+    assert kern.launches == n0 + 1
     _attn_close(got, attention_reference(q, k, v, pos, kv_pos,
                                          causal=causal))
 
@@ -178,6 +183,74 @@ def test_cuda_flash_masked_prefix_and_window_vs_plain(cuda, dh, rep):
                                        2, dh, PEAKED_Q)
     _attn_close(flash_attention(q, k, v, pos, kv_pos, window=96),
                 attention_reference(q, k, v, pos, kv_pos, window=96))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [1, 2, 8, 16])
+@pytest.mark.parametrize("dh", [64, 128, 192])
+@pytest.mark.parametrize("rep", [1, 6, 12])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_key_split_vs_plain(cuda, sq, dh, rep, causal):
+    """Short queries: Sq 1, 2, 8 and 16 over 1500 keys (five 256-row
+    sub-splits and a ragged sixth) whose first 300 rows are masked (a
+    negative position, as the chunked prefill's prefix rows), so the first
+    sub-split is wholly masked and the second partly; GQA ratios 1, 6 and
+    12 (Sq x ratio query rows a kv head: the f32 and the tensor-core
+    instances), every head dim, a flat and a peaked draw.  Bidirectional
+    calls take the key split, causal ones (queries at the end of the keys)
+    the prefill kernel; one launch a call."""
+    kvh, sk = 2, 1500
+    split = flash_key_ranges(sq, sk, causal=causal)
+    assert split == (0 if causal else 6)
+    for q_scale in (1.0, PEAKED_Q):
+        q, k, v, pos, kv_pos = _flash_case(cuda, 7 * sq + dh + rep, 2, sq, sk,
+                                           kvh * rep, kvh, dh, q_scale)
+        kv_pos = torch.where(torch.arange(sk, device=cuda) < 300,
+                             torch.full_like(kv_pos, -10 ** 9), kv_pos)
+        n0, p0 = FLASH_SPLIT_KERNEL.launches, FLASH_PREFILL_KERNEL.launches
+        got = flash_attention(q, k, v, pos, kv_pos, causal=causal)
+        torch.cuda.synchronize()
+        assert FLASH_SPLIT_KERNEL.launches == n0 + bool(split)
+        assert FLASH_PREFILL_KERNEL.launches == p0 + (not split)
+        _attn_close(got, attention_reference(q, k, v, pos, kv_pos,
+                                             causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128, 192])
+def test_cuda_flash_key_split_same_for_any_batch(cuda, dh):
+    """A row's key-split result is bit-identical whether it is called
+    alone (B 1) or among 8 rows: the ranges come from Sk alone (seamless's
+    decode-step cross-attention, one query over 4096 frames)."""
+    q, k, v, pos, kv_pos = _flash_case(cuda, 5 * dh, 8, 1, 4096, 16, 16, dh,
+                                       1.0)
+    assert flash_key_ranges(1, 4096) == 16
+    whole = flash_attention(q, k, v, pos, kv_pos, causal=False)
+    for r in (0, 5):
+        one = flash_attention(q[r:r + 1].contiguous(), k[r:r + 1].contiguous(),
+                              v[r:r + 1].contiguous(), pos, kv_pos,
+                              causal=False)
+        assert torch.equal(one, whole[r:r + 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", [(65, 333), (200, 200), (130, 1000),
+                                   (300, 77), (1000, 1000)])
+@pytest.mark.parametrize("dh", [64, 128, 192])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_ragged_queries_and_keys_vs_plain(cuda, sq, sk, dh,
+                                                     causal):
+    """The prefill kernel at query and key counts that are not multiples
+    of 128: a half-used second query tile, a last key tile of a few rows,
+    fewer keys than queries (causal: queries at the end see every key);
+    GQA 4, a peaked draw; one launch a call."""
+    q, k, v, pos, kv_pos = _flash_case(cuda, sq + sk + dh, 2, sq,
+                                       max(sk, sq) if causal else sk, 8, 2,
+                                       dh, PEAKED_Q)
+    n0 = FLASH_PREFILL_KERNEL.launches
+    _attn_close(flash_attention(q, k, v, pos, kv_pos, causal=causal),
+                attention_reference(q, k, v, pos, kv_pos, causal=causal))
+    assert FLASH_PREFILL_KERNEL.launches == n0 + 1
 
 
 @pytest.mark.gpu
@@ -322,7 +395,7 @@ def test_cuda_split_decode_one_launch_a_call(cuda):
     merge) or not, and nothing to the other decode kernels' counts."""
     kernels = (PAGED_DECODE_KERNEL, DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL)
     for h, kvh, dh in [(32, 8, 64), (48, 1, 128), (96, 8, 192),
-                       (32, 32, 64)]:
+                       (32, 32, 64), (16, 2, 64)]:
         q, kp, vp, tables, cl = _paged_case(cuda, h * dh, h, kvh, dh, b=16,
                                             n_pages=600)
         b = q.shape[0]
@@ -553,10 +626,16 @@ def test_cuda_flash_noncausal_at_seamless_shapes(cuda, b, sq, q_scale):
     v = torch.randn(b, sk, kvh, dh, generator=g, device=cuda).bfloat16()
     pos = torch.arange(sq, device=cuda, dtype=torch.int32)
     kv_pos = torch.arange(sk, device=cuda, dtype=torch.int32)
-    n0 = FLASH_PREFILL_KERNEL.launches
+    # one launch a call, of the key split for the decode step (Sq 1)
+    kern = FLASH_SPLIT_KERNEL if flash_key_ranges(sq, sk) \
+        else FLASH_PREFILL_KERNEL
+    assert (kern is FLASH_SPLIT_KERNEL) == (sq == 1)
+    n0 = (FLASH_PREFILL_KERNEL.launches, FLASH_SPLIT_KERNEL.launches)
     got = flash_attention(q, k, v, pos, kv_pos, causal=False)
     torch.cuda.synchronize()
-    assert FLASH_PREFILL_KERNEL.launches == n0 + 1
+    assert FLASH_PREFILL_KERNEL.launches + FLASH_SPLIT_KERNEL.launches \
+        == sum(n0) + 1
+    assert kern.launches == n0[kern is FLASH_SPLIT_KERNEL] + 1
     want = attention_reference(q, k, v, pos, kv_pos, causal=False)
     _attn_close(got, want)
 
@@ -577,13 +656,15 @@ def test_cuda_encdec_decode_matches_forward(cuda):
                                      generator=g, device=cuda),
              "frames": (torch.randn(b, 1024, cfg.d_model, generator=g,
                                     device=cuda) * 0.02).bfloat16()}
-    n_dense, n_flash = DENSE_DECODE_KERNEL.launches, \
-        FLASH_PREFILL_KERNEL.launches
+    n_dense, n_flash, n_split = DENSE_DECODE_KERNEL.launches, \
+        FLASH_PREFILL_KERNEL.launches, FLASH_SPLIT_KERNEL.launches
     run = greedy_generate(model, params, batch, 128, steps)
     assert run["finite"]
     assert DENSE_DECODE_KERNEL.launches - n_dense == steps * 2
-    # encoder 2, decoder self 2, prefill cross 2, one cross per step-layer
-    assert FLASH_PREFILL_KERNEL.launches - n_flash == 6 + steps * 2
+    # encoder 2, decoder self 2, prefill cross 2; one cross per step-layer
+    # (one query over 1024 frames: the key split)
+    assert FLASH_PREFILL_KERNEL.launches - n_flash == 6
+    assert FLASH_SPLIT_KERNEL.launches - n_split == steps * 2
     stats = teacher_forced_check(model, params, batch, run, "encdec")
     assert stats["positions"] == b * (steps + 1)
 
@@ -730,30 +811,112 @@ def test_cuda_paged_split_merged_equals_unsplit(cuda, n_splits):
                                       (48, 1, 128)])
 @pytest.mark.parametrize("window", [0, 150])
 def test_cuda_paged_lse_sub_splits_agree(cuda, h, kvh, dh, window):
-    """The split across blocks: the op's sub-split count (more than one
-    at these shapes) and every other count the kernel takes (one block
-    per (kv head, row), three, one page each), through the binding, give
-    the same out and lse up to the merge's rounding.  The 8 rows of 1 to
-    512 tokens over 32 pages leave sub-splits partly masked, fully
-    masked, or cut by the window."""
+    """The split across blocks: the op's sub-split size (SPLIT_UNITS
+    64-row units: two sub-splits of the 32-page tables) and every other
+    size the kernel takes (the whole table in one, one and three units),
+    through the binding, give the same out and lse up to the merge's
+    rounding.  The 8 rows of 1 to 512 tokens over 32 pages leave
+    sub-splits partly masked, fully masked, or cut by the window."""
     q, kp, vp, tables, cl = _lse_case(cuda, h, kvh, dh, 3 * h + window)
     b, p = tables.shape
-    assert decode_sub_splits(b, kvh, h // kvh, dh, p) > 1
+    assert split_kv_sub_splits(p * 16) > 1
     want_o, want_l = decode_attention_paged_lse_op(q, kp, vp, tables, cl,
                                                    window=window)
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    for n_sub in (1, 3, p):
+    for units in (p * 16 // SPLIT_UNIT, 3, 1):
+        n_sub = split_kv_sub_splits(p * 16, units)
         out = torch.empty_like(q)
         lse = torch.empty(b, h, device=cuda)
         part = torch.empty(n_sub * b * h * (dh + 2), device=cuda)
         PAGED_LSE_KERNEL(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                          tables.data_ptr(), cl.data_ptr(), out.data_ptr(),
                          lse.data_ptr(), part.data_ptr(), b, h, kvh, dh, 16,
-                         p, n_sub, window, dh ** -0.5, stream)
+                         p, units, window, dh ** -0.5, stream)
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), want_o.float(), rtol=2e-2,
                                    atol=1e-2)
         torch.testing.assert_close(lse, want_l, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,dh", [(12, 2, 128), (32, 8, 64),
+                                      (48, 1, 128), (96, 8, 192)])
+@pytest.mark.parametrize("page", [16, 24])
+def test_cuda_paged_lse_same_for_any_table_width_and_batch(cuda, h, kvh, dh,
+                                                          page):
+    """A row's partial (out, lse) is bit-identical whatever the stripe
+    table's padded width (the fused step pads tables to a pow2 of the
+    pages in use, the orchestrated step passes them whole) and whichever
+    other rows share the call: the kernel cuts fixed 64-row units from
+    the row's first, never a count from the batch, the width or the
+    card.  A page of 24 rows straddles the 256-row boundaries; the rows
+    of the other sub-split are masked there."""
+    g = torch.Generator(device=cuda).manual_seed(11 * h + dh + page)
+    b, p, n_pages = 8, 24, 300
+    q = torch.randn(b, h, dh, generator=g, device=cuda).bfloat16()
+    kp = torch.randn(n_pages, page, kvh, dh, generator=g,
+                     device=cuda).bfloat16()
+    vp = torch.randn(n_pages, page, kvh, dh, generator=g,
+                     device=cuda).bfloat16()
+    tables = (torch.randperm(n_pages - 1, generator=g, device=cuda)[:b * p]
+              + 1).reshape(b, p).to(torch.int32)
+    cl = torch.tensor([0, 1, 100, 255, 256, 257, 300, p * page],
+                      dtype=torch.int32, device=cuda)
+    want_o, want_l = decode_attention_paged_lse_op(q, kp, vp, tables, cl)
+    for extra in (8, 40, 104):       # scratch page 0 past every cache_len
+        wide = torch.nn.functional.pad(tables, (0, extra))
+        got_o, got_l = decode_attention_paged_lse_op(q, kp, vp, wide, cl)
+        assert torch.equal(got_o, want_o) and torch.equal(got_l, want_l)
+    got_o, got_l = decode_attention_paged_lse_op(
+        q[3:6].contiguous(), kp, vp, tables[3:6].contiguous(),
+        cl[3:6].contiguous())
+    assert torch.equal(got_o, want_o[3:6]) and torch.equal(got_l, want_l[3:6])
+    ref_o, ref_l = decode_attention_paged_lse_reference(q, kp, vp, tables, cl)
+    live = cl > 0
+    _attn_close(want_o[live], ref_o[live])
+    torch.testing.assert_close(want_l[live], ref_l[live], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rep,kvh", [(8, 2), (12, 8), (48, 1)])
+@pytest.mark.parametrize("dh", [64, 128, 192])
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+@pytest.mark.parametrize("q_scale", [1.0, PEAKED_Q])
+def test_cuda_decode_tensor_cores_vs_plain(cuda, rep, kvh, dh, kind,
+                                           q_scale):
+    """The split-KV decode at H / KV >= 8 (the tensor-core instance, one
+    block a kv head): 8, 12 and 48 query heads a kv head at every head
+    dim, paged (rows of 1 .. 512 over 32-page tables, a window of 100) and
+    dense (300 slots, row 0 wrapping the ring), a flat and a peaked draw,
+    against the plain version; one launch a call."""
+    h = rep * kvh
+    assert uses_tensor_cores(rep) and split_kv_head_groups(rep, dh) == (1, rep)
+    q, kp, vp, tables, cl = _paged_case(cuda, 13 * h + dh + int(q_scale), h,
+                                        kvh, dh)
+    q = (q.float() * q_scale).bfloat16()
+    if kind == "paged":
+        kern = PAGED_DECODE_KERNEL
+        n0 = kern.launches
+        for window in (0, 100):
+            got = decode_attention_paged_op(q, kp, vp, tables, cl,
+                                            window=window)
+            _attn_close(got, decode_attention_paged_reference(
+                q, kp, vp, tables, cl, window=window))
+        want_calls = 2
+    else:
+        b = q.shape[0]
+        kd, vd = (x.reshape(-1, kvh, dh)[:b * 300].reshape(b, 300, kvh, dh)
+                  for x in (kp, vp))
+        cl = torch.clamp(cl, max=350)
+        kern = DENSE_DECODE_KERNEL
+        n0 = kern.launches
+        got = decode_attention_op(q, kd, vd, cl)
+        _attn_close(got, decode_attention_dense_reference(q, kd, vd, cl,
+                                                          window=1))
+        want_calls = 1
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + want_calls
 
 
 def _tp_engine_run(cuda, cfg, params, tp=None, parallel="exact",

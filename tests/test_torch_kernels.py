@@ -31,15 +31,20 @@ from repro.models.attention import decode_attention_paged \
 from repro.models.attention import encoder_attention as jax_encoder_attn
 from repro.models.attention import gqa_attention as jax_gqa
 from repro_torch.kernels.decode_attention.ops import (
-    DENSE_DECODE_KERNEL, H100_SMS, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
-    SPLIT_UNIT, SPLIT_UNITS, _check, _check_dense, decode_attention_op,
-    decode_attention_paged_lse_op, decode_attention_paged_op,
-    decode_sub_splits, head_groups, split_kv_sub_splits)
+    DENSE_DECODE_KERNEL, LSE_SPLIT_UNITS, MMA_MAX_HEADS, MMA_MIN_REP,
+    PAGED_DECODE_KERNEL,
+    PAGED_LSE_KERNEL, SPLIT_UNIT, SPLIT_UNITS, _check, _check_dense,
+    decode_attention_op, decode_attention_paged_lse_op,
+    decode_attention_paged_op, head_groups, split_kv_head_groups,
+    split_kv_sub_splits, uses_tensor_cores)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_dense_reference, decode_attention_paged_lse_reference,
     decode_attention_reference)
 from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
-                                                     flash_attention)
+                                                     FLASH_SPLIT_KERNEL,
+                                                     SPLIT_MAX_SQ,
+                                                     flash_attention,
+                                                     flash_key_ranges)
 from repro_torch.kernels.flash_attention.ops import _check as _check_flash
 from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
                                              gittins_attained)
@@ -296,54 +301,85 @@ def test_paged_decode_split_runs_each_stripe_on_its_pools():
         decode_attention_paged(*args, n_splits=4, stripe_pools=pools[:2])
 
 
-def _sub_ranges(n_pages: int, n_sub: int) -> list[tuple[int, int]]:
-    """The [begin, end) table columns of each sub-split, as the partial
-    kernel takes them (csrc/decode_attention.cu): ceil(n_pages / n_sub)
-    columns each, the last cut at n_pages.  The split-KV kernels cut
-    their SPLIT_UNIT-row units the same way."""
-    per = -(-n_pages // n_sub)
-    return [(z * per, min(n_pages, (z + 1) * per)) for z in range(n_sub)]
+def _lse_sub_split_rows(length: int, window: int, page: int, n_pages: int,
+                        units: int = LSE_SPLIT_UNITS):
+    """The rows and pages each sub-split of the partial kernel takes for
+    one row (csrc/decode_attention.cu paged_lse_split_kernel): sub-split
+    z the live rows [max(lo, z per), min(len, P page, (z + 1) per)), per
+    = units 64-row units, over the pages those rows touch.  Returns
+    (n_sub, [(rows, pages)] per sub-split)."""
+    per = units * SPLIT_UNIT
+    n_sub = split_kv_sub_splits(n_pages * page, units)
+    lo = max(0, length - window) if window > 0 else 0
+    out = []
+    for z in range(n_sub):
+        r0 = max(lo, z * per)
+        r1 = min(length, n_pages * page, (z + 1) * per)
+        rows = list(range(r0, r1))
+        pages = list(range(r0 // page, -(-r1 // page))) if r1 > r0 else []
+        out.append((rows, pages))
+    return n_sub, out
 
 
-@pytest.mark.parametrize("b,kvh", [(1, 1), (3, 2), (8, 2), (8, 8), (64, 4),
-                                   (200, 1)])
+@pytest.mark.parametrize("page", [8, 16, 24, 48, 64])
 @pytest.mark.parametrize("n_pages", [1, 2, 7, 8, 32, 33, 128])
-def test_lse_sub_splits_partition_the_pages(b, kvh, n_pages):
-    """The partial kernel's sub-splits: every page of the call in exactly
-    one of them, none empty, and b * kvh * n_sub blocks reach the H100's
-    132 SMs wherever the pages allow it (one page a sub-split at most)."""
-    n_sub = decode_sub_splits(b, kvh, 1, 64, n_pages)
-    ranges = _sub_ranges(n_pages, n_sub)
-    assert 1 <= n_sub <= n_pages and len(ranges) == n_sub
-    covered = [p for lo, hi in ranges for p in range(lo, hi)]
-    assert covered == list(range(n_pages))
-    assert all(hi > lo for lo, hi in ranges)
-    blocks = b * kvh
-    if blocks * n_pages >= H100_SMS:
-        assert blocks * n_sub >= H100_SMS
-    else:
-        assert n_sub == n_pages          # every page its own block
-    if blocks >= H100_SMS:
-        assert n_sub == 1                # the rows alone fill the card
+@pytest.mark.parametrize("window", [0, 100])
+def test_lse_sub_splits_cut_fixed_units(page, n_pages, window):
+    """The partial kernel's sub-splits cut every row at fixed 64-row unit
+    boundaries from its first row: each live row of a row in exactly one
+    sub-split, every page a sub-split visits holding one of its rows (so
+    its running max is a real score after the first page), and the same
+    sub-split for a row at any padded table width (the fused step's pow2
+    tables, the orchestrated step's whole ones); a page of 24 or 48 rows
+    straddles a boundary and is visited by both sub-splits (at the op's
+    64-row units, and at 3 and 4 units)."""
+    for units in (LSE_SPLIT_UNITS, 3, 4):
+        per = units * SPLIT_UNIT
+        for length in sorted({0, 1, page - 1, page, 63, 64, 65, 255, 256,
+                              257, n_pages * page // 2, n_pages * page}):
+            length = min(length, n_pages * page)
+            lo = max(0, length - window) if window > 0 else 0
+            where = {}
+            for width in (n_pages, 2 * n_pages, 4 * n_pages + 3):
+                n_sub, subs = _lse_sub_split_rows(length, window, page,
+                                                  width, units)
+                assert n_sub == -(-width * page // per)
+                rows = [r for rs, _ in subs for r in rs]
+                assert rows == list(range(lo, length))
+                for z, (rs, pages) in enumerate(subs):
+                    assert all(z * per <= r < (z + 1) * per for r in rs)
+                    for pg in pages:
+                        assert any(pg * page <= r < (pg + 1) * page
+                                   for r in rs)
+                    for r in rs:
+                        assert where.setdefault(r, z) == z
+                    if not rs:
+                        assert not pages   # adds exact zeros in the merge
 
 
-def test_lse_sub_splits_is_deterministic_and_follows_sms():
-    """A pure function of its arguments: the same call gives the same
-    count, and a card with more SMs gets at least as many sub-splits."""
-    for args in [(8, 2, 6, 128, 32), (8, 8, 4, 64, 32), (1, 1, 1, 64, 128),
-                 (4, 3, 2, 64, 17), (8, 1, 48, 128, 32)]:
-        assert decode_sub_splits(*args) == decode_sub_splits(*args)
-        assert decode_sub_splits(*args, sms=264) >= decode_sub_splits(*args)
-    assert decode_sub_splits(8, 2, 6, 128, 32) == 11   # qwen2-1.5b at tp 4
-    assert _sub_ranges(32, 11)[-1] == (30, 32)
-    # the split-KV ops cut fixed units: llama3.2-1b's paged shape
-    # (2048-token tables) and 8192-slot ring, seamless's 512-slot cache;
-    # the batch and the heads change nothing
-    assert SPLIT_UNITS == 4
+def test_lse_sub_splits_follow_the_rows_alone():
+    """The partial op's sub-split count is a function of the stripe's
+    rows alone: ``split_kv_sub_splits`` of P * page in LSE_SPLIT_UNITS
+    64-row units (no batch, kv-head count, query-head ratio, head dim or
+    SM count enters it); at qwen2-1.5b's tp-4 stripe (32 pages of 16)
+    that is 8 sub-splits of 64 rows.  The split-KV ops cut SPLIT_UNITS
+    units: llama3.2-1b's paged shape (2048-token tables) and 8192-slot
+    ring, seamless's 512-slot cache."""
+    import inspect
+    from repro_torch.kernels.decode_attention import ops
+    src = inspect.getsource(ops.decode_attention_paged_lse_op)
+    assert "split_kv_sub_splits(p * page, LSE_SPLIT_UNITS)" in src
+    assert "multi_processor_count" not in inspect.getsource(ops)
+    assert not hasattr(ops, "decode_sub_splits")
+    assert (SPLIT_UNITS, LSE_SPLIT_UNITS) == (4, 1)
+    assert split_kv_sub_splits(32 * 16, LSE_SPLIT_UNITS) == 8
+    assert split_kv_sub_splits(32 * 16) == 2
     assert split_kv_sub_splits(2048) == 8
     assert split_kv_sub_splits(8192) == 32
     assert split_kv_sub_splits(512) == 2
     assert split_kv_sub_splits(300) == split_kv_sub_splits(257) == 2
+    n_sub, subs = _lse_sub_split_rows(300, 0, 16, 32)
+    assert n_sub == 8 and [len(r) for r, _ in subs] == [64] * 4 + [44] + [0] * 3
 
 
 @pytest.mark.parametrize("rep,dh,want", [
@@ -365,31 +401,34 @@ def test_head_groups_split_the_query_heads(rep, dh, want):
     assert n == -(-rep // (1024 // dh))
 
 
-@pytest.mark.parametrize("b,kvh,rep,dh,n_units,want", [
-    (8, 8, 4, 64, 1, 1),          # one unit (one page, or <= 64 rows)
-    (8, 8, 4, 64, 2, 2),          # two units, every unit its own block
-    (17, 8, 4, 64, 32, 1),        # 136 blocks: the rows alone fill 132
-    (8, 8, 12, 192, 32, 1),       # nemotron: 3 head groups, 192 blocks
-    (8, 1, 48, 128, 32, 4),       # granite: 6 head groups, 48 blocks
-    (8, 8, 4, 64, 32, 4),         # llama's paged shape: 2048 rows
-    (8, 8, 4, 64, 128, 4),        # llama's 8192-slot ring
-    (8, 16, 1, 64, 8, 2),         # seamless-m4t-medium's 512-slot cache
-    (8, 1, 48, 128, 16, 4),       # the MQA check: 1024 slots
+@pytest.mark.parametrize("rep,dh,want", [
+    (1, 64, (False, (1, 1))),     # zamba2, seamless: MHA
+    (4, 64, (False, (1, 4))),     # llama3.2-1b
+    (6, 128, (False, (1, 6))),    # qwen2-1.5b
+    (7, 192, (False, (2, 4))),    # below the threshold: f32 head groups
+    (8, 64, (True, (1, 8))),      # from 8 heads a kv head: tensor cores
+    (8, 192, (True, (1, 8))),
+    (12, 192, (True, (1, 12))),   # nemotron-4-340b: one block a kv head
+    (16, 128, (True, (1, 16))),
+    (48, 128, (True, (1, 48))),   # granite-34b's MQA: one block, not six
+    (64, 192, (True, (1, 64))),
+    (65, 64, (True, (2, 33))),    # past 64 heads: two equal groups
+    (96, 128, (True, (2, 48))),
 ])
-def test_decode_sub_splits_edge_cases(b, kvh, rep, dh, n_units, want):
-    """The split count every decode kernel takes: one unit never splits,
-    a grid that already fills the card never splits, a head-grouped grid
-    counts its groups' blocks; elsewhere blocks reach the SMs, every unit
-    lies in exactly one sub-split and none is empty."""
-    n_sub = decode_sub_splits(b, kvh, rep, dh, n_units)
-    assert n_sub == want
-    blocks = b * kvh * head_groups(rep, dh)[0]
-    ranges = _sub_ranges(n_units, n_sub)
-    assert [u for lo, hi in ranges for u in range(lo, hi)] \
-        == list(range(n_units))
-    assert all(hi > lo for lo, hi in ranges)
-    if blocks < H100_SMS and n_units > 1:
-        assert blocks * n_sub >= min(H100_SMS, blocks * n_units)
+def test_decode_dispatch_ratio_threshold_and_head_grouping(rep, dh, want):
+    """The paged and dense kernels take the tensor-core instance from
+    MMA_MIN_REP = 8 query heads a kv head, one block for all of a kv
+    head's heads up to MMA_MAX_HEADS = 64 (so a K/V tile is read once per
+    (kv head, row, sub-split)); below 8, the f32 instance with its 1024 /
+    dh head groups.  Every head lies in exactly one group."""
+    mma, (n, hpb) = want
+    assert uses_tensor_cores(rep) is mma
+    assert split_kv_head_groups(rep, dh) == (n, hpb)
+    assert n * hpb >= rep > (n - 1) * hpb
+    if mma:
+        assert rep >= MMA_MIN_REP and hpb <= MMA_MAX_HEADS
+    else:
+        assert split_kv_head_groups(rep, dh) == head_groups(rep, dh)
 
 
 @pytest.mark.parametrize("s_rows", [1, 63, 64, 300, 2048, 8192, 8392])
@@ -682,7 +721,7 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
 
 def test_cpu_calls_launch_nothing():
     kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL,
-               DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL)
+               FLASH_SPLIT_KERNEL, DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL)
     before = [k.launches for k in kernels]
     rng = np.random.default_rng(0)
     q, kp, vp, tables, cl = _paged_case(rng, 2, 4, 2, 64, 8, 8, 2)
@@ -699,4 +738,32 @@ def test_cpu_calls_launch_nothing():
     decode_attention_op(*(torch.from_numpy(x) for x in (q, k, v, cl)),
                         window=8)
     encoder_attention(x, x[:, :, :2], x[:, :, :2])
+    kv = torch.zeros(1, 1024, 2, 64)     # one query over 1024 keys
+    flash_attention(x[:, :1], kv, kv, pos[:1],
+                    torch.arange(1024, dtype=torch.int32), causal=False)
     assert before == [k.launches for k in kernels]
+
+
+@pytest.mark.parametrize("sq", [1, 2, 8, 16, 17, 64])
+@pytest.mark.parametrize("sk", [1, 64, 255, 256, 257, 1500, 4096])
+def test_flash_key_split_sizing(sq, sk):
+    """The flash op's key split: only for at most SPLIT_MAX_SQ = 16
+    bidirectional queries without a window; then fixed ranges of
+    SPLIT_UNITS 64-row units from key 0 (the split-KV decode template's)
+    that cover the keys exactly, each a whole number of 64-row units but
+    the last, and a key's range the same for any longer key count.  The
+    count takes Sq, Sk and the mask's kind alone: no batch, head count or
+    card enters it (its signature has none)."""
+    assert SPLIT_MAX_SQ == 16
+    per = SPLIT_UNITS * SPLIT_UNIT
+    n = flash_key_ranges(sq, sk)
+    assert flash_key_ranges(sq, sk, causal=True) == 0
+    assert flash_key_ranges(sq, sk, window=64) == 0
+    if sq > SPLIT_MAX_SQ:
+        assert n == 0
+        return
+    assert n == -(-sk // per) >= 1
+    ranges = [(z * per, min(sk, (z + 1) * per)) for z in range(n)]
+    assert [j for lo, hi in ranges for j in range(lo, hi)] == list(range(sk))
+    assert all((hi - lo) % SPLIT_UNIT == 0 for lo, hi in ranges[:-1])
+    assert flash_key_ranges(sq, 2 * sk + 7) >= n

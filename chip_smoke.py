@@ -32,7 +32,10 @@ Phases:
      hold the SSD scan kernel against its two plain versions (chunked and
      sequential) at the mamba2-2.7b and zamba2-1.2b prefill shapes, with
      short- and long-memory decays, check that end padding leaves its
-     result bit-unchanged, and time it; hold the partial (out, lse) paged
+     result bit-unchanged, and time it at both shapes beside the kernel it
+     replaced (``tools/ssd_variants/scalar.cu``, built beside the
+     package), its plain version and its byte and operation bounds; hold
+     the partial (out, lse) paged
      kernel (fixed 64-row sub-splits) against its plain version stripe by
      stripe at qwen2-1.5b's tp = 4 shape (H12/KV2, dh 128) and
      llama3.2-1b's (H32/KV8, dh 64),
@@ -115,6 +118,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -237,6 +241,37 @@ GENERATE_DRIVES = (
     ("nemotron-4-340b", dict(n_layers=2), dict(b=8, prompt=512,
                                                max_len=1024, steps=64,
                                                logit_ulps=3)))
+
+
+# the SSD kernel this one replaced (tools/ssd_variants/scalar.cu), built
+# beside the package and timed in phase 3; empty where the checkout has
+# no tools/ssd_variants.py
+PARENT_SSD: dict = {}
+
+
+def build_parent_ssd() -> None:
+    try:
+        from tools import ssd_variants
+    except ImportError:
+        return
+    scan, log = ssd_variants.build(["scalar"])["scalar"]
+    PARENT_SSD.update(scan=scan, log=log)
+
+
+def print_ptxas(log: str) -> None:
+    """Each kernel's name (and template arguments), registers and spills
+    from an nvcc build's ptxas -v report."""
+    for line in log.splitlines():
+        entry = "Compiling entry" in line and re.search(
+            r"\d+([a-z_]+kernel)(I(\w*?)EEv)?", line)
+        if entry:   # a kernel's template arguments, e.g. <192, 1, 4>
+            args = re.findall(r"L[ib](\d+)E", (entry.group(3) or "") + "E")
+            name = entry.group(1)
+            if args:
+                name += f"<{', '.join(args)}>"
+            print(f"  ptxas: {name}")
+        elif "Used" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -676,28 +711,49 @@ def phase_ssd(dev, gen) -> dict:
               f"{'bit-identical' if same else 'DIFFERENT'}")
         if not same:
             raise SystemExit("FAIL ssd scan: end padding changed the result")
-    cfg = get_config("mamba2-2.7b")
-    x, dt, a, bm, cm, _ = ssd_case(cfg, dev, gen, 1024)
-    ms = device_ms(lambda: ssd_scan(x, dt, a, bm, cm))
-    plain_ms = cuda_ms(lambda: ssd_chunked_reference(x, dt, a, bm, cm),
-                       iters=5)
-    b, s, h, p = x.shape
-    n, q = bm.shape[-1], cfg.ssm_chunk
-    n_bytes = (2 * x.numel() * 2 + (dt.numel() + a.numel()) * 4
-               + (bm.numel() + cm.numel()) * 2 + b * h * p * n * 4)
-    # causal pairs per chunk; C.B^T once per chunk (one group), then per
-    # head the weighted sum over pairs, the state read-out and update
-    pairs = (s // q) * q * (q + 1) / 2
-    flops = b * (pairs * 2 * n + h * (pairs * 2 * p + 2 * s * 2 * p * n))
-    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
-    print(f"  ssd scan (mamba2-2.7b, S=1024): kernel {ms:.4f} ms, plain "
-          f"chunked {plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
-          f"{n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    # times at both prefill shapes: the kernel, the parent's kernel (the
+    # scalar one it replaced, tools/ssd_variants/scalar.cu) in the same
+    # call, the plain chunked version, and the bound
+    parent = PARENT_SSD.get("scan")
+    instances = {}
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        cfg = get_config(arch)
+        x, dt, a, bm, cm, _ = ssd_case(cfg, dev, gen, 1024)
+        ms = device_ms(lambda: ssd_scan(x, dt, a, bm, cm))
+        parent_ms = (device_ms(lambda: parent(x, dt, a, bm, cm))
+                     if parent else None)
+        plain_ms = cuda_ms(lambda: ssd_chunked_reference(x, dt, a, bm, cm),
+                           iters=5)
+        b, s, h, p = x.shape
+        n, q = bm.shape[-1], cfg.ssm_chunk
+        n_bytes = (2 * x.numel() * 2 + (dt.numel() + a.numel()) * 4
+                   + (bm.numel() + cm.numel()) * 2 + b * h * p * n * 4)
+        # causal pairs per chunk; C.B^T once per chunk (one group), then
+        # per head the weighted sum over pairs, the state read-out and
+        # update (the kernel's extra products for the f32 factors' bf16 parts
+        # are not the function's work)
+        pairs = (s // q) * q * (q + 1) / 2
+        flops = b * (pairs * 2 * n + h * (pairs * 2 * p + 2 * s * 2 * p * n))
+        bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+        t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+        print(f"  ssd scan ({arch}, S={s}, H {h}, P {p}, N {n}): kernel "
+              f"{ms:.4f} ms, parent's kernel "
+              f"{'not built' if parent_ms is None else f'{parent_ms:.4f} ms'}"
+              f", plain chunked {plain_ms:.4f} ms, bound {bnd:.5f} ms ({by}; "
+              f"bytes {t_bytes:.5f} ms for {n_bytes / 1e6:.1f} MB, "
+              f"operations {t_ops:.5f} ms for {flops / 1e9:.2f} GFLOP)")
+        instances[f"{arch} S={s}"] = {
+            "ms": ms, "parent_ms": parent_ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by}
+    main_shape = instances["mamba2-2.7b S=1024"]
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:64",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            "max_abs_err": err, "ms": main_shape["ms"],
+            "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"], "library_ms": None,
+            "instances": instances}
 
 
 def phase_flash_dh128(dev, gen) -> float:
@@ -1562,19 +1618,18 @@ def main() -> int:
     print(smi.splitlines()[0])
 
     t0 = time.perf_counter()
+    parent_build = threading.Thread(target=build_parent_ssd)
+    parent_build.start()   # its nvcc beside the package's
     built = build_all()
     print(f"phase 2: built {sorted(built)} in {time.perf_counter() - t0:.2f} "
           f"s wall (nvcc per source: "
           f"{ {k: round(v[0], 2) for k, v in built.items()} })")
     for _, log in built.values():
-        for line in log.splitlines():
-            entry = "Compiling entry" in line and re.search(
-                r"\d+([a-z_]+kernel)I(\w*?)EEv", line)
-            if entry:   # a kernel's template arguments, e.g. <192, 1, 4>
-                args = re.findall(r"L[ib](\d+)E", entry.group(2) + "E")
-                print(f"  ptxas: {entry.group(1)}<{', '.join(args)}>")
-            elif "Used" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        print_ptxas(log)
+    parent_build.join()
+    if "log" in PARENT_SSD:
+        print("  the parent's SSD kernel (tools/ssd_variants/scalar.cu):")
+        print_ptxas(PARENT_SSD["log"])
 
     if trace:
         for arch in SERVED:

@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // shared-memory addresses, mbarriers, cp.async with zero fill, proxy
-// fences, the warp-level matrix multiply (mma.sync, ldmatrix) and
+// fences, the warp-level matrix multiply (mma.sync, ldmatrix, the bf16
+// hi/lo split of an f32 factor) and
 // the warpgroup matrix multiply (wgmma) with its shared-memory
 // descriptors.  Inline PTX only; no library.
 #pragma once
 
 #include <cstdint>
+
+#include <cuda_bf16.h>
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -117,6 +120,37 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
       : "=r"(r[0]), "=r"(r[1])
       : "r"(addr)
       : "memory");
+}
+
+// Four 8x8 b16 matrices, transposed (lanes 8i .. 8i + 7 give the row
+// addresses of matrix i): r[i] is this lane's pair of matrix i's column
+// lane / 4, rows 2 (lane % 4) and + 1.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// An f32 pair as kParts packed bf16 pairs, each the bf16 of what the
+// earlier ones leave (the first value in the low half, as an mma fragment
+// holds a row's lower column there): two parts carry an f32 value to
+// about 2^-16 of its size, three to about 2^-24, as f32 does.  A
+// tensor-core product of an f32 factor then takes kParts bf16 products.
+template <int kParts>
+__device__ __forceinline__ void split_bf16x2_parts(float v0, float v1,
+                                                   uint32_t (&part)[kParts]) {
+#pragma unroll
+  for (int k = 0; k < kParts; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    const float2 hf = __bfloat1622float2(h);
+    part[k] = *reinterpret_cast<const uint32_t*>(&h);
+    v0 -= hf.x;
+    v1 -= hf.y;
+  }
 }
 
 // D (m16n8 f32) += A (m16k16 bf16, row-major fragment) * B (k16n8 bf16,

@@ -11,8 +11,8 @@ __all__ = ["SSD_SCAN_KERNEL"]
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
 
-# ssd_scan(x, dt, a, bm, cm, init_state, y, final_state, B, S, H, P, N, q,
-#          stream)
+# ssd_scan(x, dt, a, bm, cm, init_state, y, final_state, cd, cb, ds, sin,
+#          B, S, H, P, N, q, stream): four launches (C.B^T, chunk states,
+#          state pass, chunk scan), counted as one call
 SSD_SCAN_KERNEL = CudaKernel(
-    "ssd_scan", "ssd_scan",
-    [_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p])
+    "ssd_scan", "ssd_scan", [_p] * 12 + [_i] * 6 + [_p])

@@ -5,7 +5,9 @@
 As ``repro/models/ssm.py::ssd_chunked`` does, the sequence is padded to a
 whole number of chunks (chunk ``q = min(chunk, S)``) with a = 1, dt = 0
 and x, B, C = 0, which carries the state through unchanged, and y is cut
-back to S rows.
+back to S rows.  The kernel runs in four launches (C.B^T once per chunk,
+each chunk's own state, the state from chunk to chunk, y); their scratch
+is allocated here, and the call counts as one launch.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ __all__ = ["ssd_scan", "SSD_SCAN_KERNEL"]
 # and the reduced configs of both
 SHAPES = ((64, 128), (64, 64), (32, 16))
 MAX_CHUNK = 256
+# the kernel's tile rows (kT: a chunk is cut into 64-row tiles) and the
+# bf16 parts of the carried state in its scratch (kPS)
+TILE = 64
+STATE_PARTS = 2
 
 
 def _check(x, dt, a_decay, bmat, cmat, init_state, q):
@@ -83,10 +89,26 @@ def ssd_scan(x, dt, a_decay, bmat, cmat, init_state=None, *,
     n = bmat.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    scratch = _scratch(b, (s + pad) // q, h, p, n, q, dev)
     SSD_SCAN_KERNEL(x.data_ptr(), dt.data_ptr(), a_decay.data_ptr(),
                     bmat.data_ptr(), cmat.data_ptr(),
                     None if init_state is None else init_state.data_ptr(),
-                    y.data_ptr(), state.data_ptr(), b, s + pad, h, p, n, q,
+                    y.data_ptr(), state.data_ptr(),
+                    *(t.data_ptr() for t in scratch), b, s + pad, h, p, n, q,
                     torch.cuda.current_stream(dev).cuda_stream)
     SSD_SCAN_KERNEL.launches += 1
     return y[:, :s], state
+
+
+def _scratch(b, nc, h, p, n, q, dev):
+    """The kernel's scratch, qp = q rounded up to TILE: cum and dt of each
+    (chunk, head) (B, nc, H, 2, qp) f32; C.B^T of each chunk (B, nc, qp,
+    qp) f32; each chunk's own state (B, nc, H, P, N) f32; the state carried
+    into each chunk in bf16 parts (B, nc, H, STATE_PARTS, P, N)."""
+    qp = -(-q // TILE) * TILE
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((b, nc, h, 2, qp), **f32),
+            torch.empty((b, nc, qp, qp), **f32),
+            torch.empty((b, nc, h, p, n), **f32),
+            torch.empty((b, nc, h, STATE_PARTS, p, n), dtype=torch.bfloat16,
+                        device=dev))

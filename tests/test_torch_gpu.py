@@ -45,6 +45,7 @@ from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
 from repro_torch.kernels.gittins.ref import gittins_attained_reference
 from repro_torch.kernels.ssd_scan.ops import SSD_SCAN_KERNEL, ssd_scan
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_reference,
+                                              ssd_passes_reference,
                                               ssd_sequential_reference)
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build_model
@@ -478,6 +479,93 @@ def test_cuda_ssd_scan_long_memory_vs_plain(cuda, arch):
                     ssd_sequential_reference(x, dt, a, bm, cm, st)):
         torch.testing.assert_close(y.float(), ry.float(), **BF16_TOL)
         torch.testing.assert_close(fin, rst, rtol=1e-3, atol=1e-3)
+
+
+def _ssd_case(dev, seed, b, s, h, p, n, init=False, a_range=(0.5, 0.999)):
+    """One scan's inputs in the model path's types (x, B, C bf16; dt, a
+    and the state f32)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = a_range
+    x = torch.randn(b, s, h, p, generator=g, device=dev).bfloat16()
+    dt = torch.rand(b, s, h, generator=g, device=dev) * 0.99 + 0.01
+    a = torch.rand(b, s, h, generator=g, device=dev) * (hi - lo) + lo
+    bm = (torch.randn(b, s, n, generator=g, device=dev) * 0.5).bfloat16()
+    cm = (torch.randn(b, s, n, generator=g, device=dev) * 0.5).bfloat16()
+    st = torch.randn(b, h, p, n, generator=g, device=dev) if init else None
+    return x, dt, a, bm, cm, st
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,p,n,chunk,init,a_range", [
+    (1024, 80, 64, 128, 256, True, (0.99, 1.0)),   # mamba2-2.7b
+    (777, 64, 64, 64, 256, False, (0.5, 0.999)),   # zamba2-1.2b, ragged
+    (45, 16, 32, 16, 16, True, (0.5, 0.999)),      # the reduced configs
+])
+def test_cuda_ssd_scan_vs_passes(cuda, s, h, p, n, chunk, init, a_range):
+    """The kernel against the plain version of its own decomposition
+    (``ssd_passes_reference``: the same passes, tiles and bf16 hi/lo
+    factors) at each of its three instances."""
+    x, dt, a, bm, cm, st = _ssd_case(cuda, s + n, 1, s, h, p, n, init,
+                                     a_range)
+    y, fin = ssd_scan(x, dt, a, bm, cm, st, chunk=chunk)
+    ry, rst = ssd_passes_reference(x, dt, a, bm, cm, st, chunk=chunk)
+    torch.testing.assert_close(y.float(), ry.float(), **BF16_TOL)
+    torch.testing.assert_close(fin, rst, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_cuda_ssd_scan_row_independent_of_batch(cuda, arch):
+    """A row's y and final state are bit-identical alone and inside a
+    batch of 4 (ragged S, an initial state, long memory)."""
+    cfg = get_config(arch)
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x, dt, a, bm, cm, st = _ssd_case(cuda, 4, 4, 700, h, p, n, True,
+                                     (0.99, 1.0))
+    y, fin = ssd_scan(x, dt, a, bm, cm, st)
+    for r in range(4):
+        rows = slice(r, r + 1)
+        y1, fin1 = ssd_scan(x[rows].contiguous(), dt[rows].contiguous(),
+                            a[rows].contiguous(), bm[rows].contiguous(),
+                            cm[rows].contiguous(), st[rows].contiguous())
+        assert torch.equal(y[rows], y1) and torch.equal(fin[rows], fin1)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_bit_identical_across_calls(cuda):
+    cfg = get_config("mamba2-2.7b")
+    x, dt, a, bm, cm, st = _ssd_case(cuda, 9, 1, 1024, cfg.ssm_heads,
+                                     cfg.ssm_head_dim, cfg.ssm_state, True)
+    y0, fin0 = ssd_scan(x, dt, a, bm, cm, st)
+    y1, fin1 = ssd_scan(x, dt, a, bm, cm, st)
+    assert torch.equal(y0, y1) and torch.equal(fin0, fin1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_cuda_ssd_scan_pads_bit_unchanged(cuda, arch):
+    """S = 777 against the same rows padded to 1024 as the model pads
+    (dt = 0, a = 1, real x, B and C): y and the final state bit-equal."""
+    cfg = get_config(arch)
+    x, dt, a, bm, cm, st = _ssd_case(cuda, 777, 1, 1024, cfg.ssm_heads,
+                                     cfg.ssm_head_dim, cfg.ssm_state, True)
+    dt[:, 777:], a[:, 777:] = 0.0, 1.0
+    y0, s0 = ssd_scan(x[:, :777].contiguous(), dt[:, :777].contiguous(),
+                      a[:, :777].contiguous(), bm[:, :777].contiguous(),
+                      cm[:, :777].contiguous(), st)
+    y1, s1 = ssd_scan(x, dt, a, bm, cm, st)
+    assert torch.equal(y0, y1[:, :777]) and torch.equal(s0, s1)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_counts_one_launch_per_call(cuda):
+    """The kernel's four launches count as one call, padded or not."""
+    x, dt, a, bm, cm, st = _ssd_case(cuda, 3, 2, 300, 16, 32, 16, True)
+    n0 = SSD_SCAN_KERNEL.launches
+    ssd_scan(x, dt, a, bm, cm, st, chunk=16)        # whole chunks (q 16)
+    ssd_scan(x, dt, a, bm, cm, chunk=256)           # one padded chunk
+    torch.cuda.synchronize()
+    assert SSD_SCAN_KERNEL.launches == n0 + 2
 
 
 @pytest.mark.gpu

@@ -5,8 +5,9 @@
                                      # each served model under
                                      # torch.profiler: device busy share and
                                      # the largest device-time entries
-    python3 chip_smoke.py --kernels  # phases 1-3 only: every kernel check
-                                     # and time, no drive and no result line
+    python3 chip_smoke.py --kernels  # phases 1-3 and 6 only: every kernel
+                                     # check and time, no drive and no
+                                     # result line
 
 Phases:
   1. require CUDA; print the card's name and power limit;
@@ -101,9 +102,20 @@ Phases:
      recurrent families at full depth), and the dense-decode, flash and
      SSD kernels must have launched exactly as often as the path calls
      them;
-  6. hold the Gittins kernel against its plain version at the largest
-     refresh shape the runs gave it, and time it beside the numpy float64
-     oracle at n = 4096, k = 64;
+  6. hold the Gittins kernel (and the kernel it replaced,
+     ``tools/gittins_variants/warp_row.cu``, built beside the package)
+     against its plain version at the largest refresh shape the serve
+     drives gave it (padded to the pow2 ladder), at GITTINS_SHAPES and at
+     (1000, 256) and (100, 12); hold a row alone bit-identical to the same
+     row in its batch, and the staged refresh (``CudaPriorityBackend``)
+     bit-identical to the kernel on the same padded inputs; time the
+     kernel and the replaced one on the device in turns at each shape
+     (the largest also cycling over input copies beyond the L2) beside
+     the byte bound; time the op, numpy in to numpy out, on the host
+     clock at (8, 8) and (1024, 32), staged refresh against the parent's
+     op path (``ParentOpBackend``), count the staged refresh's copies
+     under torch.profiler, and time ``Scheduler.refresh()`` over a
+     1024-deep backlog under the numpy, staged and parent backends;
   7. print one JSON line of per-kernel results (launches summed over
      every serve and generate drive; the flash row counts both of the
      flash op's entry points and names them), then the result line.
@@ -113,6 +125,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import re
@@ -130,7 +143,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (CudaPriorityBackend, Scheduler,  # noqa: E402
-                              gittins_index_batch, make_policy)
+                              make_policy)
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
@@ -145,8 +158,9 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     FLASH_PREFILL_KERNEL, HEAD_DIMS, flash_attention)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_reference)
+from repro_torch.kernels.bucketing import pow2_bucket  # noqa: E402
 from repro_torch.kernels.gittins.ops import (  # noqa: E402
-    GITTINS_KERNEL, gittins_attained)
+    GITTINS_KERNEL, gittins_attained, gittins_attained_op, padded_rows)
 from repro_torch.kernels.gittins.ref import (  # noqa: E402
     gittins_attained_reference)
 from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
@@ -243,6 +257,25 @@ GENERATE_DRIVES = (
                                                logit_ulps=3)))
 
 
+class BuildThread(threading.Thread):
+    """A build beside the package's: ``join()`` re-raises what the build
+    raised (a failed nvcc's SystemExit too), so it is not lost with the
+    thread."""
+
+    error: BaseException | None = None
+
+    def run(self) -> None:
+        try:
+            super().run()
+        except BaseException as e:  # noqa: BLE001 - re-raised in join()
+            self.error = e
+
+    def join(self, timeout=None) -> None:
+        super().join(timeout)
+        if self.error is not None:
+            raise self.error
+
+
 # the SSD kernel this one replaced (tools/ssd_variants/scalar.cu), built
 # beside the package and timed in phase 3; empty where the checkout has
 # no tools/ssd_variants.py
@@ -256,6 +289,27 @@ def build_parent_ssd() -> None:
         return
     scan, log = ssd_variants.build(["scalar"])["scalar"]
     PARENT_SSD.update(scan=scan, log=log)
+
+
+# the Gittins kernel this one replaced (tools/gittins_variants/warp_row.cu),
+# built beside the package and timed in phase 6; empty where the checkout
+# has no tools/gittins_variants.py
+PARENT_GITTINS: dict = {}
+# phase 6: the refresh shapes timed beside the main path's: the paper's
+# 1000-deep queue with the predictor's 20 buckets, (4096, 64), and a
+# cluster-wide live set at max_k (33.7 MB: also timed cycling over
+# GITTINS_COLD copies of its inputs, beyond the 50 MB L2)
+GITTINS_SHAPES = ((1024, 32), (4096, 64), (16384, 256))
+GITTINS_COLD = 4
+
+
+def build_parent_gittins() -> None:
+    try:
+        from tools import gittins_variants
+    except ImportError:
+        return
+    run, log = gittins_variants.build(["warp_row"])["warp_row"]
+    PARENT_GITTINS.update(run=run, log=log)
 
 
 def print_ptxas(log: str) -> None:
@@ -1521,6 +1575,17 @@ def phase_generate(cfg, dev, *, b: int, prompt: int, max_len: int,
 
 # --------------------------------------------------------------- phase 6
 
+class ParentOpBackend(CudaPriorityBackend):
+    """The Gittins backend path the staged refresh replaced:
+    ``gittins_attained_op`` (the rows padded into new numpy arrays, three
+    pageable copies) and a blocking ``.cpu()`` on the current stream."""
+
+    def gittins(self, support, probs, attained):
+        out = gittins_attained_op(support, probs, attained,
+                                  device=self.device)
+        return out.cpu().numpy().astype(np.float64)
+
+
 def gittins_case(n: int, k: int, seed: int):
     rng = np.random.default_rng(seed)
     sup = np.sort(rng.uniform(1, 1e5, (n, k)), axis=1)
@@ -1529,10 +1594,71 @@ def gittins_case(n: int, k: int, seed: int):
     return sup, probs, att
 
 
+def gittins_bound(n: int, k: int):
+    """(bound ms, by) of one (n, k) refresh: support, probs and attained
+    read once, the index written once; ~15 f32 operations a column."""
+    return bound_ms((2 * n * k + 2 * n) * 4, 15.0 * n * k, F32_FLOPS)
+
+
+def host_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Host-clock ms of one call of ``fn`` (which returns to the host)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def refresh_backlog_ms(backend, depth: int = 1024, reps: int = 20,
+                       seed: int = 0) -> tuple[float, tuple]:
+    """Host-clock ms of ``Scheduler.refresh()`` (sagesched) over a
+    ``depth``-deep backlog made from ``seed``, every row dirty: 200
+    completed requests give the predictor a history, then ``depth``
+    arrivals; before each refresh every live request crosses its next
+    bucket boundary.  Returns (ms, (rows, k))."""
+    rng = np.random.default_rng(seed)
+    topics = ("summarize the quarterly report", "write a short story about",
+              "explain this python code", "translate the phrase into french",
+              "list the steps to bake bread")
+    sched = Scheduler(policy="sagesched", priority_backend=backend,
+                      bucket_size=50)
+    for i in range(200):
+        sched.admit(f"h{i}", f"{topics[i % 5]} {i % 7}",
+                    int(rng.integers(16, 2048)), arrival=0.0)
+        sched.on_complete(f"h{i}", int(rng.integers(16, 1024)))
+    ids = [f"r{i}" for i in range(depth)]
+    sched.admit_batch(ids, [f"{topics[i % 5]} {i % 7}" for i in range(depth)],
+                      [int(x) for x in rng.integers(16, 2048, depth)],
+                      arrivals=[0.0] * depth)
+    shape = (sched._state.n, sched._state.k)
+    generated = np.zeros(depth, np.int64)
+    total = 0.0
+    for _ in range(reps):
+        generated += 50
+        sched.on_progress_many(ids, generated.tolist())
+        t0 = time.perf_counter()
+        rows = sched.refresh()
+        total += time.perf_counter() - t0
+        if rows != depth:
+            raise SystemExit(f"FAIL refresh: {rows} of {depth} rows dirty")
+    return total / reps * 1e3, shape
+
+
 def phase_gittins(dev, shape) -> dict:
+    """The kernel against its plain version at every refresh shape (a row
+    alone bit-identical to the same row in its batch), the staged refresh
+    against the kernel on the same padded inputs, device times of the
+    kernel and of the parent's (tools/gittins_variants/warp_row.cu) in
+    turns, host times of the staged refresh and of the parent's op path,
+    its copies under torch.profiler, and Scheduler.refresh() over a
+    1024-deep backlog under the numpy, staged and parent backends."""
     err = 0.0
-    n_main, k_main = shape
-    for n, k in ((max(8, n_main), max(1, k_main)), (4096, 64), (1000, 256)):
+    n_main, k_main = pow2_bucket(shape[0], 8), pow2_bucket(shape[1], 8)
+    parent = PARENT_GITTINS.get("run")
+    shapes = ((n_main, k_main),) + tuple(
+        s for s in GITTINS_SHAPES if s != (n_main, k_main))
+    for n, k in shapes + ((1000, 256), (100, 12)):
         sup, probs, att = gittins_case(n, k, seed=n + k)
         s, p, a = (torch.from_numpy(np.asarray(x, np.float32)).to(dev)
                    for x in (sup, probs, att))
@@ -1542,32 +1668,132 @@ def phase_gittins(dev, shape) -> dict:
         c = check(f"gittins (n={n}, k={k})", got, want, GITTINS_RTOL,
                   rel=True)
         err = max(err, c)
-    n, k = max(8, n_main), max(1, k_main)
-    sup, probs, att = gittins_case(n, k, seed=1)
+        if parent:
+            check(f"gittins (n={n}, k={k}), the parent's kernel",
+                  parent(s, p, a), want, GITTINS_RTOL, rel=True)
+        rows = sorted({0, 1, n // 2, n - 1})
+        alone = torch.cat([gittins_attained(s[r:r + 1], p[r:r + 1],
+                                            a[r:r + 1]) for r in rows])
+        if not torch.equal(alone, got[rows]):
+            raise SystemExit(f"FAIL gittins (n={n}, k={k}): a row alone "
+                             f"differs from the same row in its batch")
+        staged = CudaPriorityBackend(dev).gittins(sup, probs, att)
+        direct = gittins_attained(*(torch.from_numpy(x).to(dev) for x in
+                                    padded_rows(sup, probs, att)))[:n]
+        if not np.array_equal(staged, direct.cpu().numpy().astype(np.float64)):
+            raise SystemExit(f"FAIL gittins (n={n}, k={k}): the staged "
+                             f"refresh differs from the kernel on the same "
+                             f"padded inputs")
+    print("  gittins: a row alone == the row in its batch, staged refresh "
+          "== kernel on the same padded inputs, bit for bit, at every shape")
+
+    instances = {}
+    for n, k in shapes:
+        copies = GITTINS_COLD if (n, k) == GITTINS_SHAPES[-1] else 1
+        sets = [[torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+                 for x in gittins_case(n, k, seed=i)] for i in range(copies)]
+        bnd, by = gittins_bound(n, k)
+        fns = {"kernel": gittins_attained}
+        if parent:
+            fns["parent"] = parent
+        for label, used in (("warm", sets[:1]), ("cold", sets)):
+            if label == "cold" and copies == 1:
+                continue
+            times = {name: [] for name in fns}
+            for name in list(fns) + list(reversed(fns)):
+                cyc, fn = itertools.cycle(used), fns[name]
+                times[name].append(device_ms(lambda: fn(*next(cyc)),
+                                             iters=40))
+            ms = min(times["kernel"])
+            parent_ms = min(times["parent"]) if parent else None
+            print(f"  gittins kernel (n={n}, k={k}, {label} L2"
+                  f"{'' if len(used) == 1 else f', {len(used)} input copies'}"
+                  f"): "
+                  f"{' / '.join(f'{t:.5f}' for t in times['kernel'])} ms, "
+                  f"parent's kernel "
+                  + (' / '.join(f'{t:.5f}' for t in times['parent'])
+                     + ' ms' if parent else 'not built')
+                  + f", bound {bnd:.4e} ms ({by}), {bnd / ms:.1%} of it")
+            instances[f"n={n} k={k} {label}"] = {
+                "ms": ms, "parent_ms": parent_ms, "bound_ms": bnd,
+                "bound_by": by}
+    cold = instances.get(f"n={GITTINS_SHAPES[-1][0]} "
+                         f"k={GITTINS_SHAPES[-1][1]} cold")
+    if cold and cold["ms"] > 2 * cold["bound_ms"]:
+        print(f"  gittins: NOT MET: under half the byte bound at "
+              f"{GITTINS_SHAPES[-1]} ({cold['ms']:.5f} > "
+              f"{2 * cold['bound_ms']:.5f} ms)")
     s, p, a = (torch.from_numpy(np.asarray(x, np.float32)).to(dev)
-               for x in (sup, probs, att))
-    ms = device_ms(lambda: gittins_attained(s, p, a), iters=100)
+               for x in gittins_case(n_main, k_main, seed=1))
     plain_ms = cuda_ms(lambda: gittins_attained_reference(s, p, a), iters=20)
-    n_bytes = (2 * n * k + 2 * n) * 4
-    flops = 12.0 * n * k
-    bnd, by = bound_ms(n_bytes, flops, F32_FLOPS)
-    sup4, probs4, att4 = gittins_case(4096, 64, seed=2)
-    s4, p4, a4 = (torch.from_numpy(np.asarray(x, np.float32)).to(dev)
-                  for x in (sup4, probs4, att4))
-    ms4 = device_ms(lambda: gittins_attained(s4, p4, a4), iters=100)
-    t0 = time.perf_counter()
-    for _ in range(5):
-        gittins_index_batch(sup4, probs4, att4)
-    np_ms = (time.perf_counter() - t0) / 5 * 1e3
-    print(f"  gittins (n={n}, k={k}, main path): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bnd:.6f} ms ({by}); at n=4096, k=64: "
-          f"kernel {ms4:.4f} ms, numpy float64 oracle on the host "
-          f"{np_ms:.3f} ms")
+
+    # the op, numpy in to numpy out, on the host clock: the staged
+    # refresh and the parent's path, in turns
+    staged, parent_op = CudaPriorityBackend(dev), ParentOpBackend(dev)
+    op_ms = {}
+    for n, k in ((8, 8), (1024, 32)):
+        case = gittins_case(n, k, seed=3)
+        t = {"staged": [], "parent": []}
+        for name in ("staged", "parent", "parent", "staged"):
+            b = staged if name == "staged" else parent_op
+            t[name].append(host_ms(lambda: b.gittins(*case)))
+        op_ms[f"n={n} k={k}"] = {name: min(v) for name, v in t.items()}
+        staged_s, parent_s = (" / ".join(f"{x:.4f}" for x in t[name])
+                              for name in ("staged", "parent"))
+        print(f"  gittins op (n={n}, k={k}), numpy in to numpy out, host "
+              f"clock: staged refresh {staged_s} ms, parent's op path "
+              f"{parent_s} ms")
+    # the staged refresh's copies as the profiler sees them: 10 calls
+    # traced after 10 in a warm-up cycle (the trace's first activity can
+    # go unrecorded when tracing starts cold); a trace that records no
+    # copy at all is taken once more, then fails
+    from torch.profiler import ProfilerActivity, profile, schedule
+    case = gittins_case(1024, 32, seed=4)
+    for attempt in range(2):
+        copies = {"HtoD": 0, "DtoH": 0}
+
+        def count_copies(prof):
+            for ev in prof.key_averages():
+                for d in copies:
+                    if d in ev.key:
+                        copies[d] += ev.count
+                        print(f"    traced: {ev.count} x {ev.key}")
+
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=count_copies) as prof:
+            for _ in range(2):
+                n0 = GITTINS_KERNEL.launches
+                for _ in range(10):
+                    staged.gittins(*case)
+                torch.cuda.synchronize()
+                prof.step()
+        print(f"  gittins staged refresh x10 under torch.profiler: {copies} "
+              f"memcpy events, {GITTINS_KERNEL.launches - n0} counted "
+              f"launches")
+        if GITTINS_KERNEL.launches - n0 != 10:
+            raise SystemExit("FAIL gittins: the staged refresh did not "
+                             "count one launch a call")
+        if any(copies.values()):
+            break
+    if copies != {"HtoD": 10, "DtoH": 10}:
+        raise SystemExit(f"FAIL gittins: 10 staged refreshes traced {copies} "
+                         f"memcpy events, not one copy each way a call")
+    refresh = {}
+    for name, b in (("numpy", "numpy"), ("staged", staged),
+                    ("parent", parent_op)):
+        refresh[name], bshape = refresh_backlog_ms(b)
+    print(f"  Scheduler(sagesched).refresh() over a 1024-deep backlog "
+          f"(BatchState {bshape}), every row dirty, host clock: "
+          + ", ".join(f"{k} backend {v:.4f} ms" for k, v in refresh.items()))
+    main = instances[f"n={n_main} k={k_main} warm"]
     return {"name": "gittins_attained", "route": "cuda",
             "source": "src/repro_torch/csrc/gittins.cu",
             "replaces": "src/repro/kernels/gittins/kernel.py:39",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            "max_abs_err": err, "ms": main["ms"], "plain_ms": plain_ms,
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "instances": instances, "op_ms": op_ms,
+            "refresh_ms": refresh, "staged_copies": copies}
 
 
 def phase_trace(cfg, dev) -> None:
@@ -1618,18 +1844,25 @@ def main() -> int:
     print(smi.splitlines()[0])
 
     t0 = time.perf_counter()
-    parent_build = threading.Thread(target=build_parent_ssd)
-    parent_build.start()   # its nvcc beside the package's
+    parent_builds = [BuildThread(target=f) for f in
+                     (build_parent_ssd, build_parent_gittins)]
+    for t in parent_builds:
+        t.start()          # their nvcc beside the package's
     built = build_all()
     print(f"phase 2: built {sorted(built)} in {time.perf_counter() - t0:.2f} "
           f"s wall (nvcc per source: "
           f"{ {k: round(v[0], 2) for k, v in built.items()} })")
     for _, log in built.values():
         print_ptxas(log)
-    parent_build.join()
+    for t in parent_builds:
+        t.join()
     if "log" in PARENT_SSD:
         print("  the parent's SSD kernel (tools/ssd_variants/scalar.cu):")
         print_ptxas(PARENT_SSD["log"])
+    if "log" in PARENT_GITTINS:
+        print("  the parent's Gittins kernel "
+              "(tools/gittins_variants/warp_row.cu):")
+        print_ptxas(PARENT_GITTINS["log"])
 
     if trace:
         for arch in SERVED:
@@ -1651,6 +1884,9 @@ def main() -> int:
     rows.append(phase_lse(dev, gen))
     phase_wide_heads(dev, gen, {r["name"]: r for r in rows}, kernels_only)
     if kernels_only:
+        print("phase 6: gittins kernel (no serve drive: main-path shape "
+              "taken as (8, 8))")
+        phase_gittins(dev, (8, 8))
         return 0
 
     launches, shape = {}, (0, 0)
@@ -1727,7 +1963,8 @@ def main() -> int:
                          f"{idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "split_launches", "instances")
+            "split_launches", "instances", "op_ms", "refresh_ms",
+            "staged_copies")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {

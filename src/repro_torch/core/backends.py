@@ -9,10 +9,11 @@ plus one of these backends, which own the actual batched index math:
     ``CostDistribution.shift``), which is what makes object-path vs
     batch-path simulations reproduce identical schedules.
   * ``CudaPriorityBackend``   — the hand-written CUDA Gittins kernel
-    from ``repro_torch.kernels.gittins.ops`` (its plain torch version
-    when the backend's device is the CPU), with the same power-of-two
-    batch padding as the JAX package's Pallas backend.  float32:
-    priorities agree with the oracle to ~1e-5 relative, not bitwise.
+    through ``repro_torch.kernels.gittins.ops``'s staged refresh (one
+    copy each way through pinned buffers; the plain torch version when
+    the backend's device is the CPU), with the same power-of-two batch
+    padding as the JAX package's Pallas backend.  float32: priorities
+    agree with the oracle to ~1e-5 relative, not bitwise.
 
 ``make_priority_backend`` resolves "numpy" / "cuda" (and "object",
 which the Scheduler intercepts before ever reaching a backend).
@@ -80,14 +81,16 @@ class CudaPriorityBackend(PriorityBackend):
     name = "cuda"
 
     def __init__(self, device: str = "cuda"):
-        # imported lazily so repro_torch.core stays importable without torch
-        from ..kernels.gittins.ops import gittins_attained_op
-        self._op = gittins_attained_op
         self.device = device
+        self._refresh = None        # the device's, at the first refresh
 
     def gittins(self, support, probs, attained) -> np.ndarray:
-        out = self._op(support, probs, attained, device=self.device)
-        return out.cpu().numpy().astype(np.float64)
+        if self._refresh is None:
+            # imported lazily so repro_torch.core stays importable without
+            # torch
+            from ..kernels.gittins.ops import shared_refresh
+            self._refresh = shared_refresh(self.device)
+        return self._refresh(support, probs, attained)
 
     def mean(self, support, probs, attained) -> np.ndarray:
         return mean_index_batch(support, probs, attained)

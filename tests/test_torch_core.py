@@ -6,7 +6,10 @@ same seeded workload through both Schedulers gives the same ``order()``,
 the same eviction order, the same priorities and the same ``stats``.  The
 port's ``"cuda"`` backend (on the CPU: the plain torch version of the
 Gittins kernel) is held to the numpy float64 oracle at rtol 1e-4, and the
-plain Gittins version to the Pallas kernel in interpret mode at 1e-5.
+plain Gittins version to the Pallas kernel in interpret mode at 1e-5, both
+through ``gittins_attained_op`` and through the staged refresh
+(``GittinsRefresh``, the backend's path: its padding and buffer reuse run
+on the CPU too).
 """
 
 import numpy as np
@@ -16,7 +19,7 @@ import torch
 import repro.core as ref_core
 import repro_torch.core as port_core
 from repro.kernels.gittins.ops import gittins_attained_op as jax_gittins_op
-from repro_torch.kernels.gittins.ops import (PAD_SUPPORT,
+from repro_torch.kernels.gittins.ops import (PAD_SUPPORT, GittinsRefresh,
                                              gittins_attained_op)
 
 # one intra-op thread: the suite runs files in parallel workers, and
@@ -124,6 +127,63 @@ def test_plain_gittins_vs_pallas(n, k_real, k, pad):
     got = gittins_attained_op(sup, probs, att, device="cpu").numpy()
     assert got.shape == (n,) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def _dead_rows(seed, n, k):
+    """_rows at k real columns, with row 0 all dead and conditioned (an
+    exhausted row: its tail, 1) and row 1 all dead and unconditioned (no
+    live column: inf in every version)."""
+    sup, probs, att = _rows(seed, n, k, k, PAD_SUPPORT)
+    probs[:2] = 0.0
+    att[0], att[1] = 5.0, 0.0
+    return sup, probs, att
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 12, 33, 256])
+@pytest.mark.parametrize("n", [13, 100])
+def test_staged_refresh_vs_pallas(n, k):
+    """The backend's staged refresh on the CPU (pad columns to
+    max(8, pow2(k)), rows to the pow2 ladder, through one staging buffer)
+    vs the Pallas kernel in interpret mode, with exhausted and all-dead
+    rows."""
+    sup, probs, att = _dead_rows(n * k, n, k)
+    want = np.asarray(jax_gittins_op(sup, probs, att, force_pallas=True))
+    got = GittinsRefresh("cpu")(sup, probs, att)
+    assert got.dtype == np.float64 and got.shape == (n,)
+    assert got[0] == 1.0 and got[1] == np.inf
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    no_att = GittinsRefresh("cpu")(sup, probs, None)
+    np.testing.assert_allclose(
+        no_att, np.asarray(jax_gittins_op(sup, probs, None,
+                                          force_pallas=True)), rtol=1e-5)
+
+
+def test_staged_refresh_buffer_reuse_matches_fresh_calls():
+    """One staging buffer through (n, k) = (5, 12) -> (40, 64) -> (5, 12)
+    -> (7, 16): the wider, deeper call leaves stale rows and columns
+    behind, which each later call must rewrite, so every result has the
+    bits of a fresh call (and agrees with the Pallas kernel)."""
+    reused = GittinsRefresh("cpu")
+    for i, (n, k) in enumerate([(5, 12), (40, 64), (5, 12), (7, 16)]):
+        sup, probs, att = _dead_rows(i, n, k)
+        got = reused(sup, probs, att)
+        assert np.array_equal(got, GittinsRefresh("cpu")(sup, probs, att))
+        np.testing.assert_allclose(
+            got, np.asarray(jax_gittins_op(sup, probs, att,
+                                           force_pallas=True)), rtol=1e-5)
+
+
+def test_staged_refresh_rejects_mismatched_shapes():
+    """np.copyto would broadcast a (1, k) probs or a scalar attained into
+    the staging buffer; the refresh raises instead."""
+    sup, probs, att = _dead_rows(0, 6, 12)
+    refresh = GittinsRefresh("cpu")
+    for args in ((sup, probs[:1], att), (sup, probs, att[:1]),
+                 (sup, probs[:, :8], att)):
+        with pytest.raises(ValueError):
+            refresh(*args)
+    with pytest.raises(ValueError, match="k <= 256"):
+        refresh(np.ones((2, 257)), np.full((2, 257), 1 / 257), None)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

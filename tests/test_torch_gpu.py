@@ -11,7 +11,12 @@ kernel is held at ragged query and key counts, GQA ratios 1 to 6, head
 dims 64, 128 and 192, causal and not, masked prefix tiles and a
 straddling window; the paged, partial and dense decode kernels at
 granite-34b's 48 query heads a kv head and nemotron-4-340b's head dim
-192, and across their sub-split counts.
+192, and across their sub-split counts.  The Gittins kernel is held at
+every column instance (k2 = 8 ... 256) with n on block boundaries and past
+the grid's resident rows, a row alone bit-identical to the row in its
+batch; the scheduler's staged refresh bit-identical to the kernel on the
+same padded inputs, with one counted launch a refresh and a staging
+buffer reused across shapes.
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -40,8 +45,8 @@ from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
                                                      flash_attention,
                                                      flash_key_ranges)
 from repro_torch.kernels.flash_attention.ref import attention_reference
-from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
-                                             gittins_attained)
+from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL, GittinsRefresh,
+                                             gittins_attained, padded_rows)
 from repro_torch.kernels.gittins.ref import gittins_attained_reference
 from repro_torch.kernels.ssd_scan.ops import SSD_SCAN_KERNEL, ssd_scan
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_reference,
@@ -433,6 +438,91 @@ def test_cuda_gittins_vs_plain(cuda, n, k):
     want = gittins_attained_reference(*args)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+
+
+def _gittins_rows(n, k, seed):
+    """Sorted supports, Dirichlet probs with ragged rows, some rows
+    exhausted, one all-dead conditioned row (tail 1) and one all-dead
+    unconditioned row (inf)."""
+    rng = np.random.default_rng(seed)
+    sup = np.sort(rng.uniform(1, 1e5, (n, k)), axis=1)
+    probs = rng.dirichlet(np.ones(k), n)
+    probs[:, k // 2:] *= rng.random(n)[:, None] > 0.5
+    att = rng.uniform(0, 2e5, n) * (rng.random(n) > 0.3)
+    probs[n // 3] = 0.0
+    att[n // 3] = 5.0
+    if n > 1:
+        probs[n - 1], att[n - 1] = 0.0, 0.0
+    return sup, probs, att
+
+
+def _gittins_rows_per_block(k2):
+    """Rows one 256-thread block of the kernel carries: 8 warps of
+    128 / min(k2, 128) rows (four columns a lane)."""
+    return 8 * 128 // min(k2, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k2", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("where", ["one", "block-1", "block", "block+1",
+                                   "waves"])
+def test_cuda_gittins_every_k2_vs_plain(cuda, k2, where):
+    """Every kernel instance at n on block boundaries, and at n past the
+    rows the card's resident blocks carry (several waves of blocks)."""
+    per = _gittins_rows_per_block(k2)
+    n = {"one": 1, "block-1": per - 1, "block": per, "block+1": per + 1,
+         "waves": 132 * 8 * per + 77}[where]
+    args = [torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+            for x in _gittins_rows(n, k2, n + k2)]
+    got = gittins_attained(*args)
+    want = gittins_attained_reference(*args)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k2", [8, 16, 32, 64, 128, 256])
+def test_cuda_gittins_row_alone_bit_identical_to_batch(cuda, k2):
+    """A row's arithmetic depends on k2 alone: alone, it gives the bits it
+    gives inside a batch of the same k2, wherever it sits in its warp."""
+    n = 1000
+    args = [torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+            for x in _gittins_rows(n, k2, k2)]
+    batch = gittins_attained(*args)
+    for r in (0, 1, 5, 17, n // 3, 517, n - 1):
+        alone = gittins_attained(*(a[r:r + 1] for a in args))
+        assert torch.equal(alone, batch[r:r + 1]), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(1, 1), (8, 8), (13, 12), (1000, 20),
+                                 (1024, 32), (77, 256)])
+def test_cuda_staged_refresh_bit_identical_to_kernel(cuda, n, k):
+    """The backend's staged refresh (one copy each way, a side stream)
+    gives the bits of gittins_attained on the same padded inputs, as
+    float64, with one counted launch a refresh."""
+    sup, probs, att = _gittins_rows(n, k, n * k)
+    backend = port_core.CudaPriorityBackend(device="cuda")
+    n0 = GITTINS_KERNEL.launches
+    got = backend.gittins(sup, probs, att)
+    assert GITTINS_KERNEL.launches == n0 + 1
+    assert got.dtype == np.float64 and got.shape == (n,)
+    want = gittins_attained(*(torch.from_numpy(x).to(cuda)
+                              for x in padded_rows(sup, probs, att)))[:n]
+    assert np.array_equal(got, want.cpu().numpy().astype(np.float64))
+
+
+@pytest.mark.gpu
+def test_cuda_staged_refresh_buffer_reuse(cuda):
+    """One staging pair on the card through (5, 12) -> (40, 64) -> (5, 12)
+    -> (7, 16): every result has the bits of a fresh refresh's."""
+    reused = GittinsRefresh(cuda)
+    for i, (n, k) in enumerate([(5, 12), (40, 64), (5, 12), (7, 16)]):
+        sup, probs, att = _gittins_rows(n, k, i)
+        got = reused(sup, probs, att)
+        assert np.array_equal(got, GittinsRefresh(cuda)(sup, probs, att))
+        assert np.isfinite(got[:-1]).all()
 
 
 @pytest.mark.gpu

@@ -1,10 +1,11 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one H100; exits non-zero on any failure
-    python3 chip_smoke.py --trace    # phases 1-2, then one fused drive of
-                                     # each served model under
-                                     # torch.profiler: device busy share and
-                                     # the largest device-time entries
+    python3 chip_smoke.py --trace    # phases 1-2, then a graphed and an
+                                     # eager fused drive of each served
+                                     # model under torch.profiler: device
+                                     # busy share and the largest
+                                     # device-time entries
     python3 chip_smoke.py --kernels  # phases 1-3 and 6 only: every kernel
                                      # check and time, no drive and no
                                      # result line
@@ -60,9 +61,17 @@ Phases:
      mamba2-2.7b (SSM) and zamba2-1.2b (hybrid): SageSched with the
      CUDA Gittins backend, 8 slots x 2048 tokens, 16 greedy requests in
      two waves so that the scheduler preempts and swaps; each once
-     fused, once orchestrated.  Every request must finish, the scheduler
-     must preempt and swap, the streams must agree under the tolerance
-     contract, and every kernel of the model's path must have launched;
+     fused, once orchestrated, both decode steps as CUDA graphs (every
+     drive of phases 4 and 4b prints its fused keys against
+     ``max_fused_compiles()``, fails above it, and prints the graphs
+     captured and a steady decode call's host ms).  Every request must
+     finish, the scheduler must preempt and swap, the streams must agree
+     under the tolerance contract, and every kernel of the model's path
+     must have launched; llama3.2-1b and mamba2-2.7b are served fused
+     once more without graphs (graphs=False), and llama3.2-1b at
+     temperature 0.8 with and without graphs, each eager drive held
+     token-identical, launch for launch, to its graphed twin (these
+     drives' launches are not summed into phase 7's);
      then nemotron-4-340b and granite-34b at full width cut to 2 layers
      (head dim 192 and three head groups; MQA and six head groups), fused
      only, the same mix: every request must finish, the scheduler must
@@ -75,7 +84,9 @@ Phases:
      MLP and vocab sharded), fused and orchestrated; (d)
      parallel="efficient", tp 4 (kv heads 2 do not divide: the LSE
      split, one stripe per shard), fused and orchestrated; the fused and
-     orchestrated streams of (c) held token-identical, (d)'s printed with
+     orchestrated streams of (c) held token-identical, and (c) in both
+     step modes run again without graphs and held token-identical,
+     launch for launch, to the graphed drives; (d)'s printed with
      a check of what parts them (the split's stripes follow the table's
      width; each stripe's partial kernel does not).  Each drive must finish every request, preempt and
      swap, report its plan's branch and launch each kernel of its path
@@ -206,6 +217,13 @@ SERVED = ("llama3.2-1b", "mamba2-2.7b", "zamba2-1.2b")
 # granite-34b's MQA (48 query heads of 128 over one kv head)
 WIDE = (("nemotron-4-340b", dict(n_layers=2)),
         ("granite-34b", dict(n_layers=2)))
+# phase 4: the served models whose fused drive is run again eagerly
+# (graphs=False) and held token-identical, launch for launch, to the
+# graphed one; and those with a sampled pair (temperature SAMPLED_T,
+# graphed and eager) held the same way
+EAGER_HELD = ("llama3.2-1b", "mamba2-2.7b")
+SAMPLED_HELD = ("llama3.2-1b",)
+SAMPLED_T = 0.8
 # phase 4b: (label, tp, parallel, step modes); tp None = no mesh
 TP_ARCH = "qwen2-1.5b"
 TP_DRIVES = (("a", None, "exact", ("fused",)),
@@ -220,6 +238,9 @@ TP_DRIVES = (("a", None, "exact", ("fused",)),
 # orchestrated one), so one row's keys are merged across other stripes
 # in the two steps (ROADMAP Queue C; lse_stripe_check shows it)
 TP_SAME_STREAMS = ("c",)
+# phase 4b: the drives run again eagerly (graphs=False) in each of their
+# step modes, held token-identical, launch for launch, to the graphed run
+TP_EAGER_HELD = ("c",)
 # phase 4b: one decode step of an efficient plan vs the same step without
 # a mesh, max |logit| difference in bf16 steps at the largest |logit|: its
 # drift on an H100 (2.00 for tp 2, 1.81 for tp 4; the step is
@@ -1135,9 +1156,10 @@ class ShapeRecordingBackend(CudaPriorityBackend):
         return super().gittins(support, probs, attained)
 
 
-def make_requests(cfg, seed: int):
-    """Two waves of 8 greedy requests: long prompts (512-1024 tokens,
-    128-256 new) first, then short ones (32-256 tokens, 32-128 new)."""
+def make_requests(cfg, seed: int, temperature: float = 0.0):
+    """Two waves of 8 requests (greedy unless ``temperature`` > 0): long
+    prompts (512-1024 tokens, 128-256 new) first, then short ones
+    (32-256 tokens, 32-128 new)."""
     rng = np.random.default_rng(seed)
     waves = []
     for w, (lo, hi, nlo, nhi) in enumerate(((512, 1024, 128, 256),
@@ -1149,15 +1171,17 @@ def make_requests(cfg, seed: int):
             wave.append(ServeRequest(
                 f"w{w}r{i}", f"wave {w} request {i} topic {i % 3}", toks,
                 max_new_tokens=int(rng.integers(nlo, nhi + 1)),
-                temperature=0.0, eos_token=-1))
+                temperature=temperature, eos_token=-1))
         waves.append(wave)
     return waves
 
 
 def serve(cfg, params, dev, step_mode: str, *, n_slots=8, max_seq_len=2048,
           capacity_tokens=8192, prefill_chunk=512, first_wave_steps=24,
-          seed=0, mesh=None, parallel="exact"):
-    """Serve the two waves; returns (engine, requests, seconds, backend)."""
+          seed=0, mesh=None, parallel="exact", graphs=True,
+          temperature=0.0):
+    """Serve the two waves; returns (engine, requests, seconds, backend).
+    Fails if the fused step's keys exceed ``max_fused_compiles()``."""
     backend = ShapeRecordingBackend(dev)
     engine = ServingEngine(
         model=build_model(cfg),
@@ -1166,8 +1190,8 @@ def serve(cfg, params, dev, step_mode: str, *, n_slots=8, max_seq_len=2048,
         n_slots=n_slots, max_seq_len=max_seq_len,
         capacity_tokens=capacity_tokens, prefill_chunk=prefill_chunk,
         params=params, step_mode=step_mode, seed=seed, device=dev,
-        mesh=mesh, parallel=parallel)
-    waves = make_requests(cfg, seed)
+        mesh=mesh, parallel=parallel, graphs=graphs)
+    waves = make_requests(cfg, seed, temperature)
     t0 = time.perf_counter()
     engine.submit_batch(waves[0])
     for _ in range(first_wave_steps):
@@ -1182,7 +1206,44 @@ def serve(cfg, params, dev, step_mode: str, *, n_slots=8, max_seq_len=2048,
                   if r.state != RequestState.FINISHED]
     if unfinished:
         raise SystemExit(f"FAIL serve[{step_mode}]: unfinished {unfinished}")
+    if engine.fused_compile_count > engine.max_fused_compiles():
+        raise SystemExit(f"FAIL serve[{step_mode}]: fused keys "
+                         f"{engine.fused_compile_count} exceed the bound "
+                         f"{engine.max_fused_compiles()}")
     return engine, reqs, seconds, backend
+
+
+def graph_report(engine) -> str:
+    """The fused keys against their bound, the graphs captured (and the
+    host seconds of the keys' first calls: the eager step and its
+    capture), and the host ms of a steady-state decode call (staging,
+    replay or the eager step, copy back, wait; calls after each key's
+    first)."""
+    runners = list(engine._fused_runners.values())
+    if engine._orchestrated_runner is not None:
+        runners.append(engine._orchestrated_runner)
+    calls = sum(r.calls - 1 for r in runners)
+    ms = sum(r.steady_s for r in runners) * 1e3 / max(calls, 1)
+    return (f"{'graphs' if engine.graphs else 'eager'}: fused keys "
+            f"{engine.fused_compile_count} / max_fused_compiles() "
+            f"{engine.max_fused_compiles()}, graphs captured "
+            f"{engine.graphs_captured} (first calls and captures "
+            f"{engine._step_graphs.first_s:.3f} s), {calls} steady calls "
+            f"at {ms:.3f} host ms")
+
+
+def hold_eager(label: str, got, launches, want, want_launches) -> None:
+    """An eager drive against its graphed twin: token-identical streams
+    and launch for launch the same kernel counts."""
+    same = sum(a == b for a, b in zip(got, want))
+    print(f"    {label} graphs vs eager: {same}/{len(got)} streams "
+          f"identical (held), launches "
+          f"{'equal' if launches == want_launches else 'DIFFERENT'} "
+          f"(held)")
+    if got != want or launches != want_launches:
+        raise SystemExit(f"FAIL {label}: the eager drive parts from the "
+                         f"graphed one (launches {launches} against "
+                         f"{want_launches})")
 
 
 def path_kernels(cfg) -> tuple:
@@ -1200,22 +1261,33 @@ def swap_bytes(engine) -> int:
 
 
 def phase_serve(cfg, dev) -> tuple[dict, tuple]:
+    """The graphed fused and orchestrated drives (their launches are the
+    phase's), then, per EAGER_HELD and SAMPLED_HELD, the eager and
+    sampled drives held to their graphed twins."""
     gen = torch.Generator(device=dev).manual_seed(0)
     params = build_model(cfg).init(gen)
     kernels = path_kernels(cfg)
+    drives = [("fused", True, 0.0), ("orchestrated", True, 0.0)]
+    if cfg.name in EAGER_HELD:
+        drives.append(("fused", False, 0.0))
+    if cfg.name in SAMPLED_HELD:
+        drives += [("fused", True, SAMPLED_T), ("fused", False, SAMPLED_T)]
     streams, launches, max_shape = {}, {}, (0, 0)
-    for mode in ("fused", "orchestrated"):
+    for mode, graphs, temp in drives:
+        label = f"{mode}, {'graphs' if graphs else 'eager'}" + (
+            f", T {temp}" if temp else "")
         for kern in kernels:
             kern.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        engine, reqs, secs, backend = serve(cfg, params, dev, mode)
-        launches[mode] = {k.symbol: k.launches for k in kernels}
-        streams[mode] = [r.output_tokens for r in reqs]
+        engine, reqs, secs, backend = serve(cfg, params, dev, mode,
+                                            graphs=graphs, temperature=temp)
+        launches[label] = {k.symbol: k.launches for k in kernels}
+        streams[label] = [r.output_tokens for r in reqs]
         m = engine.metrics.summary(reqs)
         gen_tokens = sum(r.generated for r in reqs)
         ttft = np.array([r.ttft for r in reqs])
         ttlt = np.array([r.ttlt for r in reqs])
-        print(f"  serve[{mode}] {torch.cuda.get_device_name(0)}: "
+        print(f"  serve[{label}] {torch.cuda.get_device_name(0)}: "
               f"{len(reqs)}/{len(reqs)} finished, {gen_tokens} tokens in "
               f"{secs:.3f} s = {gen_tokens / secs:.1f} tok/s, TTFT p50 "
               f"{np.median(ttft):.4f} s, TTLT p50 {np.median(ttlt):.4f} s, "
@@ -1223,7 +1295,8 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
               f"swap ins {m['swap_ins']}, prefill chunks "
               f"{m['prefill_chunks']}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
-              f"launches {launches[mode]}")
+              f"launches {launches[label]}")
+        print(f"    {graph_report(engine)}")
         if engine._slot_state:
             per = swap_bytes(engine)
             print(f"    recurrent state per swap payload {per / 1e6:.1f} MB; "
@@ -1231,27 +1304,40 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
                   f"moved by {m['swap_outs']} swap outs + {m['swap_ins']} "
                   f"swap ins")
         if m["preemptions"] == 0 or m["swap_outs"] == 0:
-            raise SystemExit(f"FAIL serve[{mode}]: the scheduler did not "
+            raise SystemExit(f"FAIL serve[{label}]: the scheduler did not "
                              f"preempt and swap ({m['preemptions']} "
                              f"preemptions, {m['swap_outs']} swap outs)")
         for shape in backend.shapes:
             if shape[0] * shape[1] > max_shape[0] * max_shape[1]:
                 max_shape = shape
-        missing = [s for s, n in launches[mode].items() if n == 0]
+        missing = [s for s, n in launches[label].items() if n == 0]
         if missing:
-            raise SystemExit(f"FAIL serve[{mode}]: kernels never launched "
+            raise SystemExit(f"FAIL serve[{label}]: kernels never launched "
                              f"on the main path: {missing}")
+        if not graphs:
+            twin = label.replace("eager", "graphs")
+            hold_eager(f"serve[{label}]", streams[label], launches[label],
+                       streams[twin], launches[twin])
         del engine
         torch.cuda.empty_cache()
-    assert_tokens_close(streams["fused"], streams["orchestrated"])
-    same = sum(a == b for a, b in zip(streams["fused"],
-                                      streams["orchestrated"]))
+    fused, orch = streams["fused, graphs"], streams["orchestrated, graphs"]
+    assert_tokens_close(fused, orch)
+    same = sum(a == b for a, b in zip(fused, orch))
     print(f"  fused vs orchestrated: assert_tokens_close OK, {same}/"
-          f"{len(streams['fused'])} streams identical")
+          f"{len(fused)} streams identical")
+    sampled = streams.get(f"fused, graphs, T {SAMPLED_T}")
+    if sampled is not None:
+        differ = sum(a != b for a, b in zip(sampled, fused))
+        print(f"  sampled vs greedy (graphs): {differ}/{len(fused)} streams "
+              f"differ (the noise is drawn)")
+        if differ == 0:
+            raise SystemExit("FAIL serve: the sampled streams equal the "
+                             "greedy ones")
     del params
     torch.cuda.empty_cache()
-    total = {s: launches["fused"][s] + launches["orchestrated"][s]
-             for s in launches["fused"]}
+    total = {s: launches["fused, graphs"][s]
+             + launches["orchestrated, graphs"][s]
+             for s in launches["fused, graphs"]}
     return total, max_shape
 
 
@@ -1281,6 +1367,7 @@ def phase_serve_wide(cfg, params, dev) -> dict:
           f"{m['decode_iterations']}, prefill chunks {m['prefill_chunks']}, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
           f"launches {launches}")
+    print(f"    {graph_report(engine)}")
     if m["preemptions"] == 0 or m["swap_outs"] == 0:
         raise SystemExit(f"FAIL serve {cfg.name}: the scheduler did not "
                          "preempt and swap")
@@ -1411,14 +1498,18 @@ def phase_serve_tp(dev) -> dict:
     total = {k.symbol: 0 for k in kernels}
     streams = {}
     for label, tp, parallel, modes in TP_DRIVES:
+        graph_launches = {}
         mesh = None if tp is None else make_local_mesh(
             tp=tp, devices=[dev] * tp)
-        for mode in modes:
+        runs = [(mode, graphs) for mode in modes
+                for graphs in ((True, False) if label in TP_EAGER_HELD
+                               else (True,))]
+        for mode, graphs in runs:
             for kern in kernels:
                 kern.launches = 0
             torch.cuda.reset_peak_memory_stats()
             engine, reqs, secs, _ = serve(cfg, params, dev, mode, mesh=mesh,
-                                          parallel=parallel)
+                                          parallel=parallel, graphs=graphs)
             launches = {k.symbol: k.launches for k in kernels}
             m = engine.metrics.summary(reqs)
             gen_tokens = sum(r.generated for r in reqs)
@@ -1429,7 +1520,8 @@ def phase_serve_tp(dev) -> dict:
                 f"tp {tp} {parallel}: attention {report['attention']}, "
                 f"attn_splits {report['attn_splits']}, vocab "
                 f"{report['vocab']}, mlp {report['mlp']}")
-            print(f"  ({label}) serve[{mode}] {TP_ARCH} {branch} "
+            how = "" if graphs else ", eager"
+            print(f"  ({label}) serve[{mode}{how}] {TP_ARCH} {branch} "
                   f"{torch.cuda.get_device_name(0)}: {len(reqs)}/{len(reqs)} "
                   f"finished, {gen_tokens} tokens in {secs:.3f} s = "
                   f"{gen_tokens / secs:.1f} tok/s, TTFT p50 "
@@ -1439,6 +1531,7 @@ def phase_serve_tp(dev) -> dict:
                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
                   f"decode calls {m['decode_iterations']}, launches "
                   f"{launches}")
+            print(f"    {graph_report(engine)}")
             if m["preemptions"] == 0 or m["swap_outs"] == 0:
                 raise SystemExit(f"FAIL tp ({label}): the scheduler did not "
                                  "preempt and swap")
@@ -1455,7 +1548,14 @@ def phase_serve_tp(dev) -> dict:
                             report["vocab"], report["mlp"])) != expect:
                 raise SystemExit(f"FAIL tp ({label}): plan {report}")
             got = [r.output_tokens for r in reqs]
+            if not graphs:
+                hold_eager(f"({label}) serve[{mode}]", got, launches,
+                           streams[label, mode], graph_launches[mode])
+                del engine
+                torch.cuda.empty_cache()
+                continue
             streams[label, mode] = got
+            graph_launches[mode] = launches
             if label == "b" and got != streams["a", "fused"]:
                 raise SystemExit("FAIL tp (b): exact tp=2 is not "
                                  "token-identical to no mesh")
@@ -1797,29 +1897,35 @@ def phase_gittins(dev, shape) -> dict:
 
 
 def phase_trace(cfg, dev) -> None:
-    """Device busy share of one fused serve drive, from a torch.profiler
-    trace of the card's activity, and the largest device-time entries."""
+    """Device busy share of a graphed and an eager fused serve drive, each
+    from a torch.profiler trace of the card's activity, and the largest
+    device-time entries of each."""
     from torch.profiler import ProfilerActivity, profile
-
-    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        engine, reqs, secs, _ = serve(cfg, params, dev, "fused")
-    del engine, params
-    torch.cuda.empty_cache()
 
     def device_us(e) -> float:
         return float(getattr(e, "self_device_time_total", 0.0)
                      or getattr(e, "self_cuda_time_total", 0.0))
 
-    events = sorted(prof.key_averages(), key=device_us, reverse=True)
-    busy_s = sum(device_us(e) for e in events) / 1e6
-    print(f"  traced fused drive of {cfg.name}: wall {secs:.3f} s (profiler "
-          f"on), device "
-          f"busy {busy_s:.3f} s = {100 * busy_s / secs:.1f}% of wall, "
-          f"{sum(r.generated for r in reqs)} tokens")
-    for e in events[:12]:
-        print(f"    {device_us(e) / 1e3:10.3f} ms  {e.count:7d} x  "
-              f"{e.key[:90]}")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    for graphs in (True, False):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine, reqs, secs, _ = serve(cfg, params, dev, "fused",
+                                          graphs=graphs)
+        report = graph_report(engine)
+        del engine
+        torch.cuda.empty_cache()
+        events = sorted(prof.key_averages(), key=device_us, reverse=True)
+        busy_s = sum(device_us(e) for e in events) / 1e6
+        print(f"  traced fused drive of {cfg.name} "
+              f"({'graphs' if graphs else 'eager'}): wall {secs:.3f} s "
+              f"(profiler on), device busy {busy_s:.3f} s = "
+              f"{100 * busy_s / secs:.1f}% of wall, "
+              f"{sum(r.generated for r in reqs)} tokens; {report}")
+        for e in events[:12]:
+            print(f"    {device_us(e) / 1e3:10.3f} ms  {e.count:7d} x  "
+                  f"{e.key[:90]}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1866,8 +1972,8 @@ def main() -> int:
 
     if trace:
         for arch in SERVED:
-            print(f"trace: one fused serve drive of {arch} under "
-                  f"torch.profiler")
+            print(f"trace: a graphed and an eager fused serve drive of "
+                  f"{arch} under torch.profiler")
             phase_trace(get_config(arch), dev)
         return 0
     cfg = get_config("llama3.2-1b")

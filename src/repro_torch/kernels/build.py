@@ -11,10 +11,15 @@ Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``CudaKernel.__call__`` raises if that is not 0.
 Nothing here is imported or compiled at module import time beyond plain
 path arithmetic, so the CPU tests can import every module.
+
+``launches_withheld`` takes back the launches counted while a CUDA graph
+is captured (a capture launches nothing), so that whoever replays the
+graph can add them at each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +29,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "CudaKernel", "build_all", "build"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "CudaKernel", "build_all", "build",
+           "launches_withheld"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -33,6 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas=-v")
 
 _lock = threading.Lock()
+# every kernel entry point, in the order the kernel modules made them
+_KERNELS: list["CudaKernel"] = []
 
 
 def _nvcc() -> str:
@@ -108,6 +116,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._lib = None           # keeps the library loaded
+        _KERNELS.append(self)
 
     def _load(self):
         build([self.source])
@@ -129,3 +138,22 @@ class CudaKernel:
             msg = self._lib.repro_cuda_error_string(code).decode()
             raise RuntimeError(f"{self.symbol}: launch failed with CUDA "
                                f"error {code} ({msg})")
+
+
+@contextlib.contextmanager
+def launches_withheld():
+    """Count nothing in the block: on exit every kernel's ``launches`` is
+    back to its value before the block, and the yielded dict maps each
+    kernel whose wrappers counted in the block to how many launches they
+    counted.  For a CUDA-graph capture, which launches nothing: each
+    replay of the graph then adds the dict's counts."""
+    before = {k: k.launches for k in _KERNELS}
+    counted: dict[CudaKernel, int] = {}
+    try:
+        yield counted
+    finally:
+        for k in _KERNELS:
+            n0 = before.get(k, 0)
+            if k.launches != n0:
+                counted[k] = k.launches - n0
+            k.launches = n0

@@ -10,7 +10,9 @@ paged engine does not take it, and it runs through ``Model.prefill`` and
 reference's N devices), ``--parallel exact|efficient`` picks the plan,
 and ``--device-memory-gb`` refuses a configuration that does not fit one
 device before anything is allocated.  With ``--device cpu`` the N shards
-sit on the CPU.
+sit on the CPU.  Over N cards the engine's decode steps run eagerly
+(``graphs=False``: one CUDA graph cannot span cards, ROADMAP Queue A 15);
+on one card they run as CUDA graphs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --full --n-slots 8 --max-seq-len 2048
@@ -25,6 +27,7 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from ..configs import ARCH_IDS, get_config
 from ..core import Scheduler, make_policy
@@ -87,13 +90,19 @@ def main(argv=None):
         raise SystemExit("the CLI serving demo drives decoder-only archs; "
                          "see tests/test_models_smoke.py for enc-dec paths")
     tok = ByteTokenizer()
+    # tp shards over tp cards: one CUDA graph cannot span them
+    graphs = not (args.tp > 1 and torch.device(args.device).type == "cuda")
+    if not graphs:
+        print(f"tp {args.tp} over {args.tp} cards: decode steps run eagerly "
+              "(graphs=False; multi-card graphs are ROADMAP Queue A 15)")
     engine = ServingEngine(
         model=build_model(cfg),
         scheduler=Scheduler(policy=make_policy(args.policy)),
         n_slots=args.n_slots, max_seq_len=args.max_seq_len, seed=0,
         step_mode=args.step_mode, decode_steps=args.decode_steps,
         tp=args.tp, parallel=args.parallel,
-        device_memory_gb=args.device_memory_gb, device=args.device)
+        device_memory_gb=args.device_memory_gb, device=args.device,
+        graphs=graphs)
     if engine.plan is not None:
         report = {k: v for k, v in engine.sharding_report().items()
                   if k != "tensors"}

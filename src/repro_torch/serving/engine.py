@@ -21,12 +21,23 @@ device sees.
         5. decode every ready slot through the paged pool;
         6. sample and feed completions back to the scheduler.
 
-``step_mode="fused"`` (default) runs stages 5-6 as a Python loop of
-device ops over ``decode_steps`` tokens: argmax (or Gumbel-max) sampling
-and the per-lane length / EOS bookkeeping stay on the device, and the host
-gets one (tokens, emitted, finished) transfer per call.
+``step_mode="fused"`` (default) runs stages 5-6 as one device step over
+``decode_steps`` tokens: argmax (or Gumbel-max) sampling and the per-lane
+length / EOS bookkeeping stay on the device, and the host gets one
+(tokens, emitted, finished) transfer per call.
 ``step_mode="orchestrated"`` ships logits to the host every token and
 samples with numpy, as the reference's parity oracle does.
+
+On the card both decode steps run as CUDA graphs (``serving.step_graphs``),
+as the reference runs them as jitted XLA programs: one graph per shape key,
+(lane bucket, table bucket, ``decode_steps``, all-greedy) for the fused
+step and (``n_slots``, pages a slot) for the orchestrated one, each
+captured after its key's first, eager call.  ``fused_compile_count`` counts
+the fused keys and ``max_fused_compiles()`` bounds them, as the
+reference's jit cache.  ``graphs=False`` runs the same steps eagerly, the
+counterpart of the reference under ``jax.disable_jit()``; on a CPU device
+there are no graphs.  Prefill, swaps, ``Model.decode_step`` and the
+scheduler's Gittins refresh stay outside the graphs.
 
 KV memory is a paged pool: (L, n_pages, page, KV, dh) bf16 tensors shared
 by the batch (G group layers for the hybrid), a per-slot block table
@@ -49,7 +60,8 @@ dense family runs sharded; a 1x1 mesh serves every family.
 whose per-device weights, pool and workspace exceed it.
 
 Not ported yet, and refused rather than ignored: tp > 1 for the SSM and
-hybrid families (ROADMAP Queue A 16) and prefix sharing (Queue A 5).
+hybrid families (ROADMAP Queue A 16), prefix sharing (Queue A 5) and CUDA
+graphs over a plan whose shards sit on more than one card (Queue A 15).
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ import numpy as np
 import torch
 
 from ..core.scheduler import Scheduler
+from ..kernels.bucketing import ladder_size as _ladder_size
 from ..kernels.bucketing import pow2_bucket as _pow2_bucket
 from ..models import Model
 from ..simulator.service_model import ServiceModel
@@ -72,6 +85,7 @@ from .kv_cache import SCRATCH_BLOCK, KVCacheManager
 from .metrics import EngineMetrics
 from .request import RequestState, ServeRequest
 from .sharded import ShardingPlan, estimate_device_bytes
+from .step_graphs import StepGraphs, StepRunner
 
 __all__ = ["ServingEngine", "EngineStallError"]
 
@@ -151,6 +165,7 @@ class ServingEngine:
     parallel: str = "exact"
     device_memory_gb: float | None = None
     device: str | torch.device = "cuda"
+    graphs: bool = True                    # decode steps as CUDA graphs
 
     _requests: dict[str, ServeRequest] = field(default_factory=dict)
     _running: list[str] = field(default_factory=list)
@@ -192,6 +207,12 @@ class ServingEngine:
                     f"{self.plan.tp}")
             self.tp = self.plan.tp
             self.device = self.plan.primary
+            if self.graphs and len(set(self.plan.devices)) > 1:
+                raise NotImplementedError(
+                    "CUDA graphs over a plan whose shards sit on "
+                    f"{len(set(self.plan.devices))} devices: one graph "
+                    "cannot span cards, and multi-card serving is ROADMAP "
+                    "Queue A 15; pass graphs=False")
             if self.tp > 1 and not self.plan.shards_model:
                 raise NotImplementedError(
                     f"tensor-parallel serving of the {self.model.cfg.family} "
@@ -235,6 +256,10 @@ class ServingEngine:
         self._last_token = np.zeros(self.n_slots, np.int64)
         self._slot_rid: dict[int, str] = {}
         self._needs_grow: set[str] = set()
+        # one runner per shape key; their graphs share one memory pool
+        self._step_graphs = StepGraphs(self.device, self.graphs)
+        self._fused_runners: dict[tuple, StepRunner] = {}
+        self._orchestrated_runner: StepRunner | None = None
 
     def _preflight_memory(self) -> None:
         """Refuse to build an engine that cannot fit one shard on one
@@ -744,7 +769,7 @@ class ServingEngine:
         return len(self._running)
 
     def _decode_orchestrated(self, ready: list[tuple[int, str]]) -> None:
-        """One full-width device forward, logits shipped to the host,
+        """One full-width device step, logits shipped to the host,
         sampling and per-slot bookkeeping in numpy.  Slots that are
         mid-prefill (or free) point their table rows at the scratch page
         for this call."""
@@ -753,15 +778,15 @@ class ServingEngine:
         if not_ready.any():
             tables_np = tables_np.copy()
             tables_np[not_ready] = SCRATCH_BLOCK
-        with self._ctx():
-            logits, self._cache = self.model.decode_step_paged(
-                self.params, self._to_dev(self._last_token[:, None]),
-                self._cache,
-                self._to_dev(np.maximum(self._cache_len, 0).astype(np.int32)),
-                self._to_dev(tables_np), page_size=self.block_size)
-        if isinstance(logits, list):       # vocab-sharded: gather the row
-            logits = self.plan.all_gather(logits, -1)
-        logits_np = logits.float().cpu().numpy()
+        if self._orchestrated_runner is None:
+            n = self.n_slots
+            self._orchestrated_runner = StepRunner(self._step_graphs, {
+                "tokens": ((n,), torch.int64),
+                "cache_len": ((n,), torch.int32),
+                "tables": ((n, self._max_pages), torch.int32)})
+        logits_np = self._orchestrated_runner(
+            self._orchestrated_body, tokens=self._last_token,
+            cache_len=np.maximum(self._cache_len, 0), tables=tables_np)
         self.metrics.decode_iterations += 1
 
         slots = [s for s, _ in ready]
@@ -797,6 +822,18 @@ class ServingEngine:
                 self._needs_grow.add(rid)
         self.scheduler.on_progress_many(progressing, progressed)
 
+    def _orchestrated_body(self, x: dict) -> torch.Tensor:
+        """The orchestrated step on its runner's static inputs: (n_slots,
+        V) f32 logits.  The pool and the recurrent state are written in
+        place."""
+        with self._ctx():
+            logits, _ = self.model.decode_step_paged(
+                self.params, x["tokens"][:, None], self._cache,
+                x["cache_len"], x["tables"], page_size=self.block_size)
+        if isinstance(logits, list):       # vocab-sharded: gather the row
+            logits = self.plan.all_gather(logits, -1)
+        return logits.float()
+
     def _fused_steps(self, lanes: np.ndarray, tables: np.ndarray,
                      temps: np.ndarray, *, n_steps: int,
                      all_greedy: bool) -> np.ndarray:
@@ -804,15 +841,31 @@ class ServingEngine:
 
         lanes: (7, nb) int64 host rows last token / cache_len / budget /
         cap / eos / request seed / tokens generated; tables: (nb, P)
-        int32; temps: (nb,) f32.  Each moves to the device in one copy.
-        Returns the host (nb, n_steps + 2) array [tokens..., emitted,
-        finished], the one device->host transfer of the call."""
-        dev = self.device
-        last, cl, budgets, caps, eos, seeds, counters = self._to_dev(lanes)
+        int32; temps: (nb,) f32.  They reach the device in one copy, and
+        the step runs on the runner of its key (nb, P, n_steps,
+        all_greedy).  Returns the host (nb, n_steps + 2) array [tokens...,
+        emitted, finished], the one device->host transfer of the call."""
+        nb, pb = tables.shape
+        key = (nb, pb, n_steps, all_greedy)
+        runner = self._fused_runners.get(key)
+        if runner is None:
+            runner = self._fused_runners[key] = StepRunner(
+                self._step_graphs, {"lanes": ((7, nb), torch.int64),
+                                    "tables": ((nb, pb), torch.int32),
+                                    "temps": ((nb,), torch.float32)})
+        return runner(lambda x: self._fused_body(
+            x, n_steps=n_steps, all_greedy=all_greedy),
+            lanes=lanes, tables=tables, temps=temps)
+
+    def _fused_body(self, x: dict, *, n_steps: int,
+                    all_greedy: bool) -> torch.Tensor:
+        """The fused step on its runner's static inputs (which it only
+        reads): the (nb, n_steps + 2) device result."""
+        last, cl, budgets, caps, eos, seeds, counters = x["lanes"]
+        tables, temps = x["tables"], x["temps"]
         nb = last.shape[0]
-        tables = self._to_dev(tables)
+        dev = last.device
         scratch = torch.full_like(tables, SCRATCH_BLOCK)
-        temps = self._to_dev(temps)
         greedy = temps <= 0.0
         safe_t = torch.where(greedy, torch.ones_like(temps), temps)
         emitted = torch.zeros(nb, dtype=torch.int64, device=dev)
@@ -825,7 +878,7 @@ class ServingEngine:
             # state has no scratch page, so the step freezes their rows
             bt = torch.where(act[:, None], tables, scratch)
             with self._ctx():
-                logits, self._cache = self.model.decode_step_paged(
+                logits, _ = self.model.decode_step_paged(
                     self.params, last[:, None], self._cache, cl, bt,
                     page_size=self.block_size,
                     active=act if self._slot_state else None)
@@ -847,8 +900,7 @@ class ServingEngine:
             last = torch.where(act, tok, last)
             cl = cl + act.long()
             buf[:, i] = torch.where(act, tok, torch.full_like(tok, -1))
-        return torch.cat([buf, emitted[:, None], fin[:, None].long()],
-                         dim=1).cpu().numpy()
+        return torch.cat([buf, emitted[:, None], fin[:, None].long()], dim=1)
 
     def _sample_sharded(self, parts, greedy, safe_t, seeds, positions,
                         all_greedy: bool) -> torch.Tensor:
@@ -956,6 +1008,31 @@ class ServingEngine:
                 self.metrics.grow_failures += 1
                 self._needs_grow.add(rid)
         self.scheduler.on_progress_many(progressing, progressed)
+
+    # ------------------------------------------------------ compile bound
+
+    @property
+    def fused_compile_count(self) -> int:
+        """Distinct shape keys the fused step has run: on the card with
+        graphs on, the graphs captured for it (one per key); elsewhere the
+        keys seen.  The counterpart of the reference's jit cache size; the
+        port owns this counter, so it is never -1."""
+        return len(self._fused_runners)
+
+    def max_fused_compiles(self, n_steps_variants: int = 1) -> int:
+        """Upper bound on ``fused_compile_count``: the bucket-ladder
+        product.  Batch churn (admit / evict / finish) only moves shapes
+        along the pow2 ladders; the final factor 2 is the all-greedy /
+        mixed-sampling specialization."""
+        b_ladder = 1 if self._slot_state \
+            else _ladder_size(self.n_slots, floor=8)
+        return b_ladder * _ladder_size(self._max_pages, floor=4) \
+            * n_steps_variants * 2
+
+    @property
+    def graphs_captured(self) -> int:
+        """CUDA graphs this engine has captured (both decode steps)."""
+        return self._step_graphs.captured
 
     # ------------------------------------------------------------ reports
 

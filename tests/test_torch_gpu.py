@@ -1153,3 +1153,188 @@ def test_cuda_engine_lse_split_launches(cuda):
     assert PAGED_LSE_KERNEL.launches - n0 \
         == cfg.n_layers * 4 * eng.metrics.decode_iterations
     assert PAGED_DECODE_KERNEL.launches == p0
+
+
+# ------------------------------------------- decode steps as CUDA graphs
+
+ENGINE_KERNELS = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
+                  FLASH_PREFILL_KERNEL, SSD_SCAN_KERNEL)
+
+
+def _graph_drive(cuda, cfg, params, *, graphs, step_mode, temperature,
+                 decode_steps=1, tp=None, parallel="exact"):
+    """The reduced engine drive of ``_tp_engine_run`` (sampled at
+    ``temperature``), with the launches of every engine kernel."""
+    before = [k.launches for k in ENGINE_KERNELS]
+    dense = cfg.family == "dense"
+    eng = port_serving.ServingEngine(
+        model=build_model(cfg),
+        scheduler=port_core.Scheduler(policy="sagesched",
+                                      priority_backend="cuda",
+                                      bucket_size=8),
+        n_slots=2, max_seq_len=96, capacity_tokens=48, block_size=8,
+        prefill_chunk=8 if dense else None,
+        max_tokens_per_step=12 if dense else None, step_mode=step_mode,
+        decode_steps=decode_steps, params=params, device=cuda,
+        parallel=parallel, graphs=graphs,
+        mesh=None if tp is None else make_local_mesh(
+            tp=tp, devices=[cuda] * tp))
+    rng = np.random.default_rng(7)
+    reqs = [port_serving.ServeRequest(
+        f"r{i}", f"p{i}", [int(t) for t in rng.integers(3, 500, 12)],
+        max_new_tokens=6 + 3 * i, temperature=temperature, eos_token=1)
+        for i in range(4)]
+    eng.submit_batch(reqs)
+    eng.run_until_done(max_steps=4000)
+    torch.cuda.synchronize()
+    assert all(r.state == port_serving.RequestState.FINISHED for r in reqs)
+    launches = {k.symbol: k.launches - n
+                for k, n in zip(ENGINE_KERNELS, before)}
+    return eng, [r.output_tokens for r in reqs], launches
+
+
+def _hold_graphed_to_eager(cuda, cfg, params, **kw):
+    """Graphed and eager drives of the same mix: token-identical streams,
+    the same launches of every kernel (replays add what their captures
+    counted), one graph a key, each replayed, within the compile bound."""
+    eager, want, want_launches = _graph_drive(cuda, cfg, params,
+                                              graphs=False, **kw)
+    eng, got, launches = _graph_drive(cuda, cfg, params, graphs=True, **kw)
+    assert got == want
+    assert launches == want_launches
+    assert eager.graphs_captured == 0
+    runners = list(eng._fused_runners.values())
+    if eng._orchestrated_runner is not None:
+        runners.append(eng._orchestrated_runner)
+    assert all(r.captured for r in runners)
+    assert eng.graphs_captured == len(runners) > 0
+    assert sum(r.calls for r in runners) > len(runners)     # replays ran
+    assert eng.fused_compile_count == eager.fused_compile_count \
+        <= eng.max_fused_compiles()
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",
+                                  "zamba2-1.2b"])
+@pytest.mark.parametrize("step_mode,decode_steps", [
+    ("fused", 1), ("fused", 4), ("orchestrated", 1)])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_cuda_graphed_decode_equals_eager(cuda, arch, step_mode,
+                                          decode_steps, temperature):
+    """Reduced dense, SSM and hybrid engines: the decode steps replayed
+    from CUDA graphs give the eager (graphs=False) streams token for
+    token, greedy and sampled, with the eager launch counts."""
+    cfg = get_config(arch, reduced=True)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    _hold_graphed_to_eager(cuda, cfg, params, step_mode=step_mode,
+                           decode_steps=decode_steps,
+                           temperature=temperature)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tp,parallel", [(2, "exact"), (2, "efficient"),
+                                         (4, "efficient")])
+@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_cuda_graphed_decode_equals_eager_under_plans(cuda, tp, parallel,
+                                                      step_mode,
+                                                      temperature):
+    """A reduced qwen2-1.5b with every shard on the card: each plan's
+    per-shard loops, psums and vocab-sharded sampling captured whole
+    (tp 4 efficient over 6 kv heads: the LSE split) give the eager
+    streams and launch counts."""
+    cfg = get_config("qwen2-1.5b", reduced=True)
+    if tp == 4:
+        cfg = cfg.with_overrides(n_heads=6, n_kv_heads=6)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    eng = _hold_graphed_to_eager(cuda, cfg, params, step_mode=step_mode,
+                                 temperature=temperature, tp=tp,
+                                 parallel=parallel)
+    assert eng.sharding_report()["attention"] == (
+        "lse-split" if tp == 4 else "sharded")
+
+
+@pytest.mark.gpu
+def test_cuda_compile_bound_under_churn(cuda):
+    """tests/test_torch_graphs.py's wide churn workload on the card: one
+    graph a fused key, within ``max_fused_compiles()``, and a second wave
+    of the same shapes captures nothing."""
+    cfg = get_config(ARCH, reduced=True)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    o = port_core.OraclePredictor()
+    eng = port_serving.ServingEngine(
+        model=build_model(cfg),
+        scheduler=port_core.Scheduler(policy="sagesched", predictor=o,
+                                      priority_backend="cuda"),
+        n_slots=12, max_seq_len=96, capacity_tokens=480, block_size=8,
+        seed=0, params=params, device=cuda)
+    counts = []
+    for tag in ("a", "b"):
+        rng = np.random.default_rng(11)
+        reqs = []
+        for i in range(12):
+            new = 3 + (i * 5 % 30)
+            o.register(f"{tag}{i}", port_core.LengthDistribution(
+                np.array([new]), np.array([1.0])))
+            reqs.append(port_serving.ServeRequest(
+                f"{tag}{i}", f"{tag}{i}", [int(t) for t in rng.integers(
+                    3, cfg.vocab_size, int(rng.integers(4, 60)))],
+                max_new_tokens=new, temperature=0.8 if i % 3 == 0 else 0.0,
+                eos_token=-1, arrival=float(i) * 1e-3))
+        eng.submit_batch(reqs)
+        eng.run_until_done(max_steps=8000)
+        counts.append((eng.fused_compile_count, eng.graphs_captured))
+    assert counts[0] == counts[1]
+    assert 1 < counts[0][0] == counts[0][1] <= eng.max_fused_compiles()
+
+
+@pytest.mark.gpu
+def test_cuda_graphed_engines_leave_no_memory_behind(cuda):
+    """Engines that captured graphs free everything when dropped: their
+    graph pools, static buffers and runners (the first calls and captures
+    of every engine share one side stream a card, so cuBLAS keeps one
+    workspace for it, not one per engine)."""
+    import gc
+    cfg = get_config(ARCH, reduced=True)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+
+    def drive():
+        eng, _, _ = _graph_drive(cuda, cfg, params, graphs=True,
+                                 step_mode="fused", temperature=0.8)
+        assert eng.graphs_captured > 0
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+
+    drive()
+    base = torch.cuda.memory_allocated(cuda)
+    for _ in range(3):
+        drive()
+    assert torch.cuda.memory_allocated(cuda) - base < 1 << 20
+
+
+@pytest.mark.gpu
+def test_cuda_capture_failure_raises(cuda):
+    """A step that fails in its capture raises from the call; nothing
+    falls back to the eager step, and the launches counted in the failed
+    capture are withheld."""
+    from repro_torch.serving.step_graphs import StepGraphs, StepRunner
+    runner = StepRunner(StepGraphs(cuda, True), {"a": ((4,), torch.int64)})
+    n0 = PAGED_DECODE_KERNEL.launches
+
+    def step(x):
+        PAGED_DECODE_KERNEL.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("this step cannot be captured")
+        return x["a"] * 2
+
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        runner(step, a=np.arange(4))
+    assert not runner.captured
+    # the eager first call counted its launch; the capture's is withheld
+    assert PAGED_DECODE_KERNEL.launches == n0 + 1

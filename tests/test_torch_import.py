@@ -73,10 +73,13 @@ def test_tensor_parallel_modules_stand_alone():
 def test_module_names_mirror_the_reference():
     """``repro_torch.X`` is the counterpart of ``repro.X``: every ported
     module has a twin of the same name (kernels.build, models.bridge and
-    the CUDA bindings are the port's own additions, and so is
-    testing.generate, the dense-cache generate drive and its check)."""
+    the CUDA bindings are the port's own additions, and so are
+    testing.generate, the dense-cache generate drive and its check, and
+    serving.step_graphs, the engine's CUDA-graph step runners, which the
+    reference's jit needs no module for)."""
     own = {"repro_torch.kernels.build", "repro_torch.models.bridge",
-           "repro_torch.launch", "repro_torch.testing.generate"}
+           "repro_torch.launch", "repro_torch.testing.generate",
+           "repro_torch.serving.step_graphs"}
     ref = {p.relative_to(ROOT / "src").with_suffix("").as_posix()
            .replace("/", ".").removesuffix(".__init__")
            for p in (ROOT / "src" / "repro").rglob("*.py")}

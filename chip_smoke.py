@@ -95,6 +95,27 @@ Phases:
      and inputs (logits within TP_STEP_ULPS bf16 steps, argmax identical
      but where the unsharded maximum is within 2 steps), and print their
      streams' match rate against (a);
+  4c. the front door: llama3.2-1b at full width (seed 0) behind the
+     Gateway with prefix sharing (SageSched with the CUDA Gittins
+     backend, FRONT_ENGINE: 8 slots x 2048 tokens, a 6144-token budget,
+     prefill chunks of 256 on pages of 16, decode steps as CUDA graphs):
+     (i) session traffic, 4 tenants with a 512-token system prompt, 4
+     sessions a tenant, 3 greedy turns (turn t + 1 extends turn t's
+     prompt and output), each turn wave offered with ``offer_batch`` and
+     drained, with sharing ON and OFF, fused and orchestrated: ON held
+     token-identical to OFF in each step mode, fused to orchestrated,
+     prefill work skipped ON, a preemption and a swap out of a request
+     holding adopted blocks in each ON drive, the Gateway's invariants
+     and ``assert_engine_quiesced`` after every wave, the fused keys
+     within their bound and every kernel launched exactly as the path
+     calls it; prefill tokens computed and reused, tok/s, TTFT and TTLT
+     p50 printed for ON against OFF (host clock); (ii) overload, 48
+     requests from 4 tenants offered at once (max_inflight 8, 4 queued a
+     tenant, 16 in all, cost shedding, 2 retries) with a TTLT deadline on
+     a virtual clock that advances 0.05 s a Gateway step: every request
+     terminal with a reason, at least one SHED and one deadline abort of
+     a streaming request, the invariants held, and dispositions and
+     streams identical graphed and with graphs=False;
   5. generate at full width through Model.prefill -> Model.decode_step
      over the dense cache, from random weights of a seed:
      seamless-m4t-medium (all 12 + 12 layers; 8 x 4096 frames, 128-token
@@ -127,9 +148,20 @@ Phases:
      op path (``ParentOpBackend``), count the staged refresh's copies
      under torch.profiler, and time ``Scheduler.refresh()`` over a
      1024-deep backlog under the numpy, staged and parent backends;
+  6b. the simulator's central scheduler on the card:
+     ``measure_scheduler_overhead`` at 8, 32 and 128 nodes (queue depth
+     up to 1000, a 10,000-entry history) under the numpy and the cuda
+     backends, predict and schedule ms side by side (host clock), and
+     ``simulate_cluster`` over ``generate_workload`` of the sharegpt,
+     alpaca and write profiles (4 nodes, 2000 requests at 40 rps,
+     SageSched) under both: every request must finish under both and the
+     Gittins kernel must launch; mean and p99 TTFT and TTLT of each and
+     the requests whose metrics differ printed (the f32 kernel is not
+     held bit-identical to numpy's float64);
   7. print one JSON line of per-kernel results (launches summed over
-     every serve and generate drive; the flash row counts both of the
-     flash op's entry points and names them), then the result line.
+     every serve and generate drive, the front door's and the
+     simulator's; the flash row counts both of the flash op's entry
+     points and names them), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -183,9 +215,13 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     decode_attention_paged)
 from repro_torch.models.encdec import encode  # noqa: E402
-from repro_torch.serving import (RequestState, ServeRequest,  # noqa: E402
-                                 ServingEngine)
-from repro_torch.testing import assert_tokens_close  # noqa: E402
+from repro_torch.serving import (Gateway, GatewayConfig,  # noqa: E402
+                                 RequestState, ServeRequest, ServingEngine)
+from repro_torch.simulator import (generate_workload,  # noqa: E402
+                                   make_profile, measure_scheduler_overhead,
+                                   simulate_cluster)
+from repro_torch.testing import (VirtualClock,  # noqa: E402
+                                 assert_engine_quiesced, assert_tokens_close)
 from repro_torch.testing.generate import (  # noqa: E402
     bf16_ulp, greedy_generate, teacher_forced_check)
 
@@ -247,6 +283,26 @@ TP_EAGER_HELD = ("c",)
 # deterministic), rounded up to a whole step, plus one so that the bar
 # does not sit on the measured value
 TP_STEP_ULPS = 3
+# phase 4c: the front door -- llama3.2-1b at full width behind the
+# Gateway with prefix sharing; the engine's shape (a 6144-token budget,
+# prefill chunks of 256 on pages of 16: a sharing grid of 256); (tenants,
+# sessions a tenant, turns) of the session traffic and each tenant's
+# system prompt in tokens; (requests, TTLT deadline in virtual seconds)
+# of the overload drive
+FRONT_ARCH = "llama3.2-1b"
+FRONT_ENGINE = dict(n_slots=8, max_seq_len=2048, capacity_tokens=6144,
+                    block_size=16, prefill_chunk=256)
+SESSIONS = (4, 4, 3)
+FRONT_SYSTEM = 512
+# the traffic's seed: turns whose admissions, counted against the blocks
+# they would adopt, overrun the budget later, so SageSched preempts (and
+# swaps out) requests that hold adopted blocks
+SESSION_SEED = 23
+OVERLOAD = (48, 3.0)
+# phase 6b: the cluster sizes of measure_scheduler_overhead, and
+# simulate_cluster's (nodes, requests, rps)
+OVERHEAD_NODES = (8, 32, 128)
+SIM_CLUSTER = (4, 2000, 40.0)
 # phase 5: (arch, depth cut, drive) through Model.prefill ->
 # Model.decode_step.  ``logit_ulps`` is the drive's teacher-forced logit
 # bar in bf16 steps (``teacher_forced_check``): its drift on an H100,
@@ -1587,6 +1643,284 @@ def phase_serve_tp(dev) -> dict:
     return total
 
 
+# -------------------------------------------------------------- phase 4c
+
+class FrontEngine(ServingEngine):
+    """The engine, counting the preemptions and swap outs of requests
+    that hold adopted blocks as they happen (``adopted``)."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.adopted = {"preempts": 0, "swaps": 0}
+
+    def _preempt(self, r):
+        held = self.kv.holds(r.request_id) \
+            and self.kv.adopted_blocks_of(r.request_id) > 0
+        before = self.metrics.swap_outs
+        super()._preempt(r)
+        if held:
+            self.adopted["preempts"] += 1
+            self.adopted["swaps"] += self.metrics.swap_outs - before
+
+
+def front_engine(cfg, params, dev, *, sharing, step_mode, graphs=True,
+                 clock=None):
+    """The front door's engine: SageSched with the CUDA Gittins backend,
+    FRONT_ENGINE's shape, decode steps as CUDA graphs unless ``graphs``
+    is false."""
+    kw = {} if clock is None else {"clock": clock}
+    return FrontEngine(
+        model=build_model(cfg),
+        scheduler=Scheduler(policy=make_policy("sagesched"),
+                            priority_backend=CudaPriorityBackend(dev),
+                            bucket_size=50),
+        params=params, step_mode=step_mode, seed=0, device=dev,
+        graphs=graphs, prefix_sharing=sharing, **FRONT_ENGINE, **kw)
+
+
+def hold_front_launches(label, cfg, engine, launches) -> None:
+    """A single-card drive's launches: one paged decode a layer per decode
+    call, one flash a layer per prefill chunk, and the Gittins kernel."""
+    m = engine.metrics
+    want = tp_launches(cfg, engine, {"decode_iterations":
+                                     m.decode_iterations,
+                                     "prefill_chunks": m.prefill_chunks})
+    if {k: launches[k] for k in want} != want \
+            or launches[GITTINS_KERNEL.symbol] == 0:
+        raise SystemExit(f"FAIL {label}: launches {launches}, the path "
+                         f"calls {want} and Gittins")
+
+
+def session_drive(cfg, params, dev, *, sharing, step_mode):
+    """SESSIONS through the Gateway: per tenant a system prompt of
+    FRONT_SYSTEM tokens, SESSIONS[1] sessions of SESSIONS[2] turns, each
+    turn wave offered with ``offer_batch`` and drained; turn 1 is the
+    system prompt and 64-192 user tokens, turn t + 1 turn t's prompt,
+    its output and 32-128 new user tokens; 48-96 new tokens a turn,
+    greedy.  Returns (engine, requests, host seconds)."""
+    engine = front_engine(cfg, params, dev, sharing=sharing,
+                          step_mode=step_mode)
+    gw = Gateway(engine, GatewayConfig())
+    tenants, sessions, turns = SESSIONS
+    rng = np.random.default_rng(SESSION_SEED)
+    systems = [[int(t) for t in rng.integers(3, cfg.vocab_size,
+                                             FRONT_SYSTEM)]
+               for _ in range(tenants)]
+    prompts = {(t, s): systems[t] + [int(x) for x in rng.integers(
+        3, cfg.vocab_size, int(rng.integers(64, 193)))]
+        for t in range(tenants) for s in range(sessions)}
+    reqs = []
+    t0 = time.perf_counter()
+    for turn in range(turns):
+        wave = {key: ServeRequest(
+            f"t{key[0]}s{key[1]}u{turn}",
+            f"tenant {key[0]} assistant turn {turn}", list(p),
+            max_new_tokens=int(rng.integers(48, 97)), temperature=0.0,
+            eos_token=-1, tenant=f"tenant{key[0]}",
+            session_id=f"t{key[0]}s{key[1]}") for key, p in prompts.items()}
+        verdicts = gw.offer_batch(list(wave.values()))
+        if any(v.value != "accept" for v in verdicts):
+            raise SystemExit(f"FAIL sessions: verdicts {verdicts}")
+        gw.run_until_drained()
+        gw.assert_all_terminal()
+        gw.check_invariants()
+        assert_engine_quiesced(engine)
+        for key, r in wave.items():
+            if r.state != RequestState.FINISHED:
+                raise SystemExit(f"FAIL sessions: {r.request_id} "
+                                 f"{r.state.name} ({r.finish_reason})")
+            prompts[key] = r.prompt_tokens + r.output_tokens + [
+                int(x) for x in rng.integers(3, cfg.vocab_size,
+                                             int(rng.integers(32, 129)))]
+        reqs += list(wave.values())
+    torch.cuda.synchronize()
+    return engine, reqs, time.perf_counter() - t0
+
+
+def phase_front_sessions(cfg, params, dev) -> dict:
+    """(i): session traffic with prefix sharing ON and OFF, fused and
+    orchestrated.  Holds ON == OFF token for token in each step mode,
+    fused == orchestrated, reuse > 0 with fewer prefill tokens computed
+    ON, a preemption and a swap out of a request holding adopted blocks
+    in each ON drive, the Gateway's and the engine's invariants after
+    every wave, the fused keys within their bound, and every kernel's
+    launches exactly as the path calls them.  Returns the launches."""
+    kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
+               FLASH_PREFILL_KERNEL)
+    total = {k.symbol: 0 for k in kernels}
+    streams, metrics = {}, {}
+    for step_mode in ("fused", "orchestrated"):
+        for sharing in (True, False):
+            label = f"{step_mode}, sharing {'ON' if sharing else 'OFF'}"
+            for kern in kernels:
+                kern.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            engine, reqs, secs = session_drive(
+                cfg, params, dev, sharing=sharing, step_mode=step_mode)
+            counts = engine.adopted
+            launches = {k.symbol: k.launches for k in kernels}
+            m = engine.metrics
+            gen_tokens = sum(r.generated for r in reqs)
+            ttft = np.array([r.ttft for r in reqs])
+            ttlt = np.array([r.ttlt for r in reqs])
+            print(f"  sessions[{label}] {torch.cuda.get_device_name(0)}: "
+                  f"{len(reqs)}/{len(reqs)} finished, {gen_tokens} tokens "
+                  f"in {secs:.3f} s = {gen_tokens / secs:.1f} tok/s, TTFT "
+                  f"p50 {np.median(ttft):.4f} s, TTLT p50 "
+                  f"{np.median(ttlt):.4f} s, prefill tokens computed "
+                  f"{m.prefill_tokens} reused {m.prefill_tokens_reused}, "
+                  f"prefill chunks {m.prefill_chunks}, preemptions "
+                  f"{m.preemptions} ({counts['preempts']} holding "
+                  f"adopted blocks), swap outs {m.swap_outs} "
+                  f"({counts['swaps']} holding adopted blocks), "
+                  f"swap ins {m.swap_ins}, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+                  f"launches {launches}")
+            print(f"    {graph_report(engine)}")
+            if engine.fused_compile_count > engine.max_fused_compiles():
+                raise SystemExit(f"FAIL sessions[{label}]: fused keys "
+                                 f"{engine.fused_compile_count} exceed "
+                                 f"{engine.max_fused_compiles()}")
+            hold_front_launches(f"sessions[{label}]", cfg, engine, launches)
+            if sharing and (m.preemptions == 0 or counts["swaps"] == 0):
+                raise SystemExit(f"FAIL sessions[{label}]: no preemption or "
+                                 "no swap out of a request holding adopted "
+                                 f"blocks ({m.preemptions}, {counts})")
+            streams[label] = [r.output_tokens for r in reqs]
+            metrics[label] = m
+            for k, n in launches.items():
+                total[k] += n
+            del engine
+            torch.cuda.empty_cache()
+        on, off = (f"{step_mode}, sharing ON", f"{step_mode}, sharing OFF")
+        same = sum(a == b for a, b in zip(streams[on], streams[off]))
+        print(f"    {step_mode}: sharing ON vs OFF {same}/{len(streams[on])} "
+              f"streams identical (held); prefill tokens computed "
+              f"{metrics[on].prefill_tokens} against "
+              f"{metrics[off].prefill_tokens}, reused "
+              f"{metrics[on].prefill_tokens_reused}")
+        if streams[on] != streams[off]:
+            raise SystemExit(f"FAIL sessions[{step_mode}]: sharing ON parts "
+                             "from OFF")
+        if not (metrics[on].prefill_tokens_reused > 0
+                and metrics[on].prefill_tokens < metrics[off].prefill_tokens):
+            raise SystemExit(f"FAIL sessions[{step_mode}]: sharing skipped "
+                             "no prefill work")
+    fused, orch = streams["fused, sharing ON"], \
+        streams["orchestrated, sharing ON"]
+    same = sum(a == b for a, b in zip(fused, orch))
+    print(f"    fused vs orchestrated: {same}/{len(fused)} streams identical "
+          "(held)")
+    if fused != orch:
+        raise SystemExit("FAIL sessions: fused and orchestrated part")
+    return total
+
+
+def overload_drive(cfg, params, dev, *, graphs):
+    """OVERLOAD[0] requests from 4 tenants offered at once to a Gateway
+    of max_inflight 8, max_queue_per_tenant 4, max_total_queue 16,
+    cost shedding, 2 retries, and a TTLT deadline of OVERLOAD[1] s on a
+    virtual clock that advances 0.05 s a Gateway step; the prompts share
+    a 256-token system prompt per tenant.  Returns (engine, gateway,
+    requests)."""
+    clock = VirtualClock()
+    engine = front_engine(cfg, params, dev, sharing=True,
+                          step_mode="fused", graphs=graphs, clock=clock)
+    gw = Gateway(engine, GatewayConfig(
+        max_inflight=8, max_queue_per_tenant=4, max_total_queue=16,
+        shed_policy="cost", max_retries=2, ttlt_deadline_s=OVERLOAD[1]))
+    rng = np.random.default_rng(33)
+    systems = [[int(t) for t in rng.integers(3, cfg.vocab_size, 256)]
+               for _ in range(4)]
+    reqs = []
+    for i in range(OVERLOAD[0]):
+        t = i % 4
+        reqs.append(ServeRequest(
+            f"o{i}", f"tenant {t} request {i % 7}",
+            systems[t] + [int(x) for x in rng.integers(
+                3, cfg.vocab_size, int(rng.integers(32, 257)))],
+            max_new_tokens=int(rng.integers(32, 97)), temperature=0.0,
+            eos_token=-1, tenant=f"tenant{t}"))
+    gw.offer_batch(reqs)
+    gw.run_until_drained(step_dt=0.05)
+    torch.cuda.synchronize()
+    return engine, gw, reqs
+
+
+def phase_front_overload(cfg, params, dev) -> dict:
+    """(ii): the overload drive graphed and with graphs=False.  Holds
+    every request terminal with a reason, at least one SHED and one TTLT
+    abort of a request that was streaming, the Gateway's and the engine's
+    invariants, the graphed drive's launches as its path calls them, and
+    dispositions and streams identical between the two drives.  Returns
+    the graphed drive's launches."""
+    kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
+               FLASH_PREFILL_KERNEL)
+    out = {}
+    for graphs in (True, False):
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        engine, gw, reqs = overload_drive(cfg, params, dev, graphs=graphs)
+        secs = time.perf_counter() - t0
+        launches = {k.symbol: k.launches for k in kernels}
+        label = f"overload[{'graphs' if graphs else 'eager'}]"
+        gw.assert_all_terminal()
+        gw.check_invariants()
+        assert_engine_quiesced(engine)
+        reasons = {}
+        for kind, reason in gw.dispositions.values():
+            if not reason:
+                raise SystemExit(f"FAIL {label}: a disposition without a "
+                                 "reason")
+            reasons[f"{kind}:{reason}"] = reasons.get(f"{kind}:{reason}",
+                                                      0) + 1
+        aborted_running = [r for r in reqs
+                           if r.state == RequestState.ABORTED
+                           and r.finish_reason == "ttlt_deadline"
+                           and r.generated > 0]
+        print(f"  {label} {torch.cuda.get_device_name(0)}: {len(reqs)} "
+              f"offered, dispositions {dict(sorted(reasons.items()))}, "
+              f"{len(aborted_running)} aborted while streaming, retries "
+              f"{engine.metrics.retries}, virtual clock "
+              f"{engine.clock():.2f} s, {secs:.3f} host s, launches "
+              f"{launches}")
+        print(f"    {graph_report(engine)}")
+        if not any(k.startswith("SHED") for k in reasons) \
+                or not aborted_running:
+            raise SystemExit(f"FAIL {label}: no SHED or no deadline abort "
+                             "of a running request")
+        if graphs:
+            hold_front_launches(label, cfg, engine, launches)
+            total = launches
+        out[graphs] = (dict(gw.dispositions),
+                       [r.output_tokens for r in reqs])
+        del engine, gw
+        torch.cuda.empty_cache()
+    same = out[True] == out[False]
+    print(f"    graphs vs eager: dispositions and streams "
+          f"{'identical' if same else 'DIFFERENT'} (held)")
+    if not same:
+        raise SystemExit("FAIL overload: the graphed drive parts from the "
+                         "eager one")
+    return total
+
+
+def phase_front_door(dev) -> dict:
+    """Phase 4c: llama3.2-1b at full width (seed 0) behind the Gateway
+    with prefix sharing.  Returns the summed launches of (i) and of
+    (ii)'s graphed drive."""
+    cfg = get_config(FRONT_ARCH)
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    total = phase_front_sessions(cfg, params, dev)
+    for k, n in phase_front_overload(cfg, params, dev).items():
+        total[k] += n
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
 # --------------------------------------------------------------- phase 5
 
 def generate_launches(cfg, steps: int) -> dict:
@@ -1896,6 +2230,61 @@ def phase_gittins(dev, shape) -> dict:
             "refresh_ms": refresh, "staged_copies": copies}
 
 
+# -------------------------------------------------------------- phase 6b
+
+def phase_simulator(dev) -> dict:
+    """The simulator's central scheduler with the Gittins kernel:
+    ``measure_scheduler_overhead`` at OVERHEAD_NODES under the numpy and
+    the cuda backends (predict and schedule ms side by side, host clock),
+    then ``simulate_cluster`` over SIM_CLUSTER's workload under both.
+    Holds every request finished under both backends and the kernel
+    launched; prints each backend's mean and p99 TTFT and TTLT and how
+    many requests' metrics differ (the f32 kernel is not bit-identical
+    to numpy's float64).  Returns the Gittins launches."""
+    GITTINS_KERNEL.launches = 0
+    for n in OVERHEAD_NODES:
+        o = {b: measure_scheduler_overhead(n, queue_depth=1000,
+                                           history_size=10_000, backend=b)
+             for b in ("numpy", "cuda")}
+        print(f"  overhead {n} nodes (queue depth "
+              f"{o['numpy']['queue_depth']}, {o['numpy']['aggregate_rps']} "
+              f"rps, {o['numpy']['refresh_rows_per_arrival']} refresh rows "
+              f"an arrival): predict ms numpy {o['numpy']['predict_ms']:.4f}"
+              f" / cuda {o['cuda']['predict_ms']:.4f}, schedule ms numpy "
+              f"{o['numpy']['schedule_ms']:.4f} / cuda "
+              f"{o['cuda']['schedule_ms']:.4f}")
+    n_nodes, n_reqs, rps = SIM_CLUSTER
+    profiles = [make_profile(p) for p in ("sharegpt", "alpaca", "write")]
+    reqs = generate_workload(profiles, n_reqs, rps=rps, seed=0)
+    runs = {}
+    for b in ("numpy", "cuda"):
+        t0 = time.perf_counter()
+        res = simulate_cluster(
+            reqs, lambda: Scheduler(policy=make_policy("sagesched"),
+                                    priority_backend=b), n_nodes)
+        secs = time.perf_counter() - t0
+        done = {m.request_id for m in res.metrics}
+        if len(res.metrics) != n_reqs or len(done) != n_reqs:
+            raise SystemExit(f"FAIL simulate_cluster[{b}]: "
+                             f"{len(done)}/{n_reqs} requests finished")
+        ttft = np.array([m.ttft for m in res.metrics])
+        ttlt = np.array([m.ttlt for m in res.metrics])
+        print(f"  simulate_cluster[{b}] {n_nodes} nodes, {n_reqs} requests "
+              f"at {rps} rps: {len(done)}/{n_reqs} finished in {secs:.3f} "
+              f"host s; simulated TTFT mean {ttft.mean():.4f} s p99 "
+              f"{np.percentile(ttft, 99):.4f} s, TTLT mean "
+              f"{ttlt.mean():.4f} s p99 {np.percentile(ttlt, 99):.4f} s, "
+              f"requests a node {res.requests_per_node}")
+        runs[b] = {m.request_id: (m.node_id, m.ttft, m.ttlt,
+                                  m.n_preemptions) for m in res.metrics}
+    differ = sum(runs["numpy"][r] != runs["cuda"][r] for r in runs["numpy"])
+    print(f"    cuda vs numpy: {differ}/{n_reqs} requests' metrics differ "
+          f"(printed); Gittins launches {GITTINS_KERNEL.launches}")
+    if GITTINS_KERNEL.launches == 0:
+        raise SystemExit("FAIL simulator: the Gittins kernel never launched")
+    return {GITTINS_KERNEL.symbol: GITTINS_KERNEL.launches}
+
+
 def phase_trace(cfg, dev) -> None:
     """Device busy share of a graphed and an eager fused serve drive, each
     from a torch.profiler trace of the card's activity, and the largest
@@ -2028,6 +2417,13 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     for sym, n in phase_serve_tp(dev).items():
         launches[sym] = launches.get(sym, 0) + n
+    cfg = get_config(FRONT_ARCH)
+    print(f"phase 4c: the front door, {cfg.name} at full width "
+          f"({cfg.n_layers} layers) behind the Gateway with prefix sharing")
+    t4c = time.perf_counter()
+    for sym, n in phase_front_door(dev).items():
+        launches[sym] = launches.get(sym, 0) + n
+    print(f"  phase 4c took {time.perf_counter() - t4c:.1f} s")
     for arch, cut, kw in GENERATE_DRIVES:
         cfg = get_config(arch).with_overrides(**cut)
         layers = (f"{cfg.n_encoder_layers} + {cfg.n_layers}"
@@ -2042,6 +2438,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"phase 6: gittins kernel (largest main-path refresh {shape})")
     rows.insert(0, phase_gittins(dev, shape))
+    print("phase 6b: the simulator's central scheduler on the card")
+    t6b = time.perf_counter()
+    for sym, n in phase_simulator(dev).items():
+        launches[sym] = launches.get(sym, 0) + n
+    print(f"  phase 6b took {time.perf_counter() - t6b:.1f} s")
     symbols = {"gittins_attained": GITTINS_KERNEL.symbol,
                "decode_attention_paged": PAGED_DECODE_KERNEL.symbol,
                "flash_attention_prefill": FLASH_PREFILL_KERNEL.symbol,

@@ -2,7 +2,7 @@
 
 Wires the three techniques together for use by both the real serving
 engine (repro_torch.serving.engine) and the discrete-event simulator
-(repro.simulator, not yet ported):
+(repro_torch.simulator):
 
     arrival  -> predictor.predict()  -> length distribution
              -> cost_model.distribution() -> cost distribution
@@ -385,7 +385,7 @@ class Scheduler:
         ``admit_batch`` (batch is the primitive; scalar is sugar).
 
         ``node_id`` tags the request with its serving node (cluster mode,
-        see repro.simulator.cluster, not yet ported); ``order(node_id=...)`` then ranks
+        see repro_torch.simulator.cluster); ``order(node_id=...)`` then ranks
         one node's queue as a masked lexsort over the shared state.
         ``length_dist`` short-circuits the predictor with an already-
         computed prediction (e.g. the cost-aware router's route-time

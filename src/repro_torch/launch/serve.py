@@ -12,7 +12,9 @@ and ``--device-memory-gb`` refuses a configuration that does not fit one
 device before anything is allocated.  With ``--device cpu`` the N shards
 sit on the CPU.  Over N cards the engine's decode steps run eagerly
 (``graphs=False``: one CUDA graph cannot span cards, ROADMAP Queue A 15);
-on one card they run as CUDA graphs.
+on one card they run as CUDA graphs.  ``--gateway`` serves through the
+bounded-admission ``Gateway`` (per-tenant queues, cost-ranked shedding,
+deadlines, retries) and prints its verdict counts.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --full --n-slots 8 --max-seq-len 2048
@@ -34,7 +36,7 @@ from ..core import Scheduler, make_policy
 from ..core.policies import POLICY_NAMES
 from ..data import ByteTokenizer
 from ..models import build_model
-from ..serving import ServeRequest, ServingEngine
+from ..serving import Gateway, GatewayConfig, ServeRequest, ServingEngine
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,14 +68,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true",
                     help="full (non-reduced) config")
     ap.add_argument("--gateway", action="store_true",
-                    help="serve through the bounded-admission gateway (not "
-                         "ported yet: ROADMAP Queue A 8)")
-    ap.add_argument("--max-inflight", type=int, default=None)
-    ap.add_argument("--max-queue", type=int, default=64)
-    ap.add_argument("--shed-policy", default="cost", choices=("cost", "tail"))
-    ap.add_argument("--ttft-deadline", type=float, default=None)
-    ap.add_argument("--ttlt-deadline", type=float, default=None)
-    ap.add_argument("--max-retries", type=int, default=2)
+                    help="serve through the bounded-admission gateway")
+    ap.add_argument("--max-inflight", type=int, default=None,
+                    help="gateway in-flight cap (default 4 * n_slots)")
+    ap.add_argument("--max-queue", type=int, default=64,
+                    help="gateway per-tenant queue bound")
+    ap.add_argument("--shed-policy", default="cost",
+                    choices=("cost", "tail"),
+                    help="cost = shed worst predicted-cost quantile; "
+                         "tail = FCFS tail-drop")
+    ap.add_argument("--ttft-deadline", type=float, default=None,
+                    help="abort if first token misses this many seconds")
+    ap.add_argument("--ttlt-deadline", type=float, default=None,
+                    help="abort if last token misses this many seconds")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="retry budget for shed requests")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; finding "
                          "no card is an error)")
@@ -82,9 +91,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.gateway:
-        raise NotImplementedError(
-            "--gateway: the gateway is not ported yet (ROADMAP Queue A 8)")
     cfg = get_config(args.arch, reduced=not args.full)
     if cfg.family == "encdec":
         raise SystemExit("the CLI serving demo drives decoder-only archs; "
@@ -122,9 +128,21 @@ def main(argv=None):
             eos_token=tok.eos_id, arrival=t0 + i * 0.01,
             ttft_deadline_s=args.ttft_deadline,
             ttlt_deadline_s=args.ttlt_deadline))
-    for r in reqs:
-        engine.submit(r)
-    engine.run_until_done()
+    if args.gateway:
+        gw = Gateway(engine, GatewayConfig(
+            max_inflight=args.max_inflight,
+            max_queue_per_tenant=args.max_queue,
+            max_total_queue=4 * args.max_queue,
+            shed_policy=args.shed_policy,
+            max_retries=args.max_retries))
+        verdicts = gw.offer_batch(reqs)
+        gw.run_until_drained()
+        counts = {v.value: verdicts.count(v) for v in set(verdicts)}
+        print(f"gateway verdicts: {counts}")
+    else:
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_done()
     print(f"arch={cfg.name} policy={args.policy} device={engine.device} "
           f"{engine.metrics.summary(reqs)}")
     return engine, reqs

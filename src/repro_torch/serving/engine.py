@@ -59,14 +59,23 @@ dense family runs sharded; a 1x1 mesh serves every family.
 ``device_memory_gb`` refuses, before anything is allocated, an engine
 whose per-device weights, pool and workspace exceed it.
 
+Copy-on-write prefix sharing (``prefix_sharing=True``): admission adopts
+the longest indexed block-chain prefix of a prompt by refcount, capped to
+the lcm(``prefill_chunk``, ``block_size``) grid, and chunked prefill
+resumes at that point, so the resumed chunks have the shapes a
+from-scratch prefill gives them and every token is the sharing-off one.
+Live only with a KV pool, chunked prefill and ``prefill_chunk`` set; inert
+for the recurrent families.
+
 Not ported yet, and refused rather than ignored: tp > 1 for the SSM and
-hybrid families (ROADMAP Queue A 16), prefix sharing (Queue A 5) and CUDA
-graphs over a plan whose shards sit on more than one card (Queue A 15).
+hybrid families (ROADMAP Queue A 16) and CUDA graphs over a plan whose
+shards sit on more than one card (Queue A 15).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 import zlib
 from collections import Counter
@@ -187,9 +196,6 @@ class ServingEngine:
             raise ValueError(
                 f"bad parallel {self.parallel!r}: expected 'exact' or "
                 "'efficient'")
-        if self.prefix_sharing:
-            raise NotImplementedError(
-                "prefix sharing is not ported yet: ROADMAP Queue A 5")
         self.device = torch.device(self.device)
         self.plan = None
         if self.mesh is None and self.tp > 1:
@@ -502,7 +508,15 @@ class ServingEngine:
             need = float(self.kv.blocks_for(
                 self._requests[rid].context_len + 1))
             if self.kv.holds(rid):
+                # resident: charge owned (refcount-weighted) blocks, so
+                # N requests sharing a prefix pay for it once
                 need -= self.kv.shared_excess_blocks(rid)
+            elif self._sharing:
+                # waiting: discount the blocks a prefix match would
+                # adopt (kept >= 1 so every request charges something)
+                m, _, _ = self.kv.match_prefix(
+                    self._requests[rid].prompt_tokens)
+                need -= min(m // self.block_size, need - 1)
             if used_blocks + need <= budget:
                 selected.append(rid)
                 used_blocks += need
@@ -514,6 +528,35 @@ class ServingEngine:
         return selected
 
     # --------------------------------------------------------------- admit
+
+    @property
+    def _sharing(self) -> bool:
+        """Prefix sharing is live only when the family can resume a
+        prefill mid-context (chunked prefill) through the paged KV pool;
+        for the recurrent families the flag is inert."""
+        return (self.prefix_sharing and self._has_kv
+                and self.model.supports_chunked_prefill
+                and self.prefill_chunk is not None)
+
+    def _match_prompt(self, r: ServeRequest) -> tuple[int, list[int],
+                                                      list[int]]:
+        """Longest adoptable shared-block prefix of ``r``'s prompt,
+        capped twice: (a) strictly below the last context position, whose
+        block the decode path rewrites (``_finalize_prefill``'s rewind),
+        so it stays private and no copy-on-write fork is needed; (b) down
+        to the lcm(prefill_chunk, block_size) grid, so the remaining
+        chunks land on the boundaries a from-scratch prefill uses and get
+        the same shapes, hence the same KV bits and tokens."""
+        if not self._sharing:
+            return 0, [], []
+        matched, blocks, hashes = self.kv.match_prefix(r.prompt_tokens)
+        if not matched:
+            return 0, [], []
+        grid = self.prefill_chunk * self.block_size \
+            // math.gcd(self.prefill_chunk, self.block_size)
+        m = (min(matched, r.context_len - 1) // grid) * grid
+        k = m // self.block_size
+        return m, blocks[:k], hashes[:k]
 
     def _admit(self, r: ServeRequest) -> None:
         rid = r.request_id
@@ -534,8 +577,15 @@ class ServingEngine:
                 self._restore_swapped(r, slot, payload)
                 return
         self.kv.drop_swapped(rid)
-        slot = self.kv.allocate(rid, r.context_len)  # prompt + outputs
-        r.prefill_pos = 0
+        ctx_len = r.context_len      # replay prompt + outputs on recompute
+        matched, shared, hashes = self._match_prompt(r)
+        if matched:
+            slot = self.kv.allocate_shared(rid, ctx_len, shared, hashes)
+            r.prefill_pos = matched  # chunks resume at the divergence point
+            self.metrics.prefill_tokens_reused += matched
+        else:
+            slot = self.kv.allocate(rid, ctx_len)
+            r.prefill_pos = 0
         self._bind_slot(r, slot)
         self._cache_len[slot] = -1   # not decode-ready until prefilled
 
@@ -583,6 +633,11 @@ class ServingEngine:
         self._cache_len[r.slot] = len(ctx) - 1
         self._last_token[r.slot] = ctx[-1]
         self.metrics.prefills += 1
+        # publish this prompt's full blocks for later prompts to adopt
+        # (first writer wins; the manager never publishes the block of
+        # the last prompt position, which the rewind above rewrites)
+        if self._sharing:
+            self.kv.register_prefix(r.request_id, r.prompt_tokens)
 
     def _prefill_chunk_step(self, r: ServeRequest, take: int) -> None:
         """Advance one Sarathi chunk: run [prefill_pos, prefill_pos+take)

@@ -30,11 +30,18 @@ eager run.
 Without graphs (``graphs=False``, or a CPU device) the same runner runs
 the step eagerly on the same static buffers.  A failed capture or replay
 raises; nothing falls back to the eager step.
+
+Python's garbage collector is paused during a capture: collecting a dead
+engine there (a caller's wrapper can hold one in a reference cycle) frees
+its graphs, events and pinned buffers, CUDA calls that a capture forbids
+and that invalidate it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import time
 from typing import Callable
 
@@ -55,6 +62,18 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     has run on, for the life of the process: a stream per engine would
     leave one behind per engine."""
     return torch.cuda.Stream(device)
+
+
+@contextlib.contextmanager
+def _collection_paused():
+    """No garbage collection inside: see the module docstring."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class StepGraphs:
@@ -160,7 +179,7 @@ class StepRunner:
             self._write(step(self.inputs))
         current.wait_stream(g.stream)
         graph = torch.cuda.CUDAGraph()
-        with launches_withheld() as counted:
+        with launches_withheld() as counted, _collection_paused():
             with torch.cuda.graph(graph, pool=g.pool, stream=g.stream):
                 self._out.copy_(step(self.inputs))
         self._graph, self._launches = graph, counted

@@ -1,6 +1,16 @@
-"""Invariant-checking helpers of the port (the fault toolkit is ROADMAP
-Queue A 8)."""
+"""Reusable fault-injection + invariant-checking harness
+(repro_torch.testing).
 
+Everything here is production-importable (no pytest dependency): the
+chip smoke drive and the launcher use the same fault toolkit the tests
+assert on.
+"""
+
+from .faults import (FlakyPredictor, KVFaultError, PredictorUnavailable,
+                     VirtualClock, assert_engine_quiesced, inject_kv_fault,
+                     scale_distribution)
 from .tolerance import TokenMismatch, assert_tokens_close
 
-__all__ = ["TokenMismatch", "assert_tokens_close"]
+__all__ = ["FlakyPredictor", "KVFaultError", "PredictorUnavailable",
+           "TokenMismatch", "VirtualClock", "assert_engine_quiesced",
+           "assert_tokens_close", "inject_kv_fault", "scale_distribution"]

@@ -299,25 +299,28 @@ def test_gumbel_noise_is_a_pure_function_of_its_keys():
 
 
 def test_unported_options_refuse():
-    """tp > 1 for the recurrent families and prefix sharing raise naming
-    their ROADMAP items (the dense family's tp and the memory preflight
-    are tests/test_torch_sharded.py's)."""
+    """tp > 1 for the recurrent families raises naming its ROADMAP item
+    (the dense family's tp and the memory preflight are
+    tests/test_torch_sharded.py's)."""
     sched = port_core.Scheduler(policy="sagesched")
     for arch, kw, item in (
             ("mamba2-2.7b", {"tp": 2}, "Queue A 16"),
             ("zamba2-1.2b", {"tp": 2, "device_memory_gb": 1.0},
-             "Queue A 16"),
-            (ARCH, {"prefix_sharing": True}, "Queue A 5")):
+             "Queue A 16")):
         with pytest.raises(NotImplementedError, match=item):
             port_serving.ServingEngine(
                 model=build_model(get_config(arch, reduced=True)),
                 scheduler=sched, device="cpu", **kw)
 
 
-def test_launcher_gateway_refuses():
+def test_launcher_serves_through_gateway_on_cpu(capsys):
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        main(["--gateway", "--device", "cpu"])
+    engine, reqs = main(["--gateway", "--device", "cpu", "--n-requests",
+                         "6"])
+    assert len(reqs) == 6
+    assert all(r.state == port_serving.RequestState.FINISHED for r in reqs)
+    assert engine.metrics.completed == 6 and engine.metrics.shed == 0
+    assert "gateway verdicts: {'accept': 6}" in capsys.readouterr().out
 
 
 def test_launcher_serves_on_cpu():

@@ -16,7 +16,10 @@ every column instance (k2 = 8 ... 256) with n on block boundaries and past
 the grid's resident rows, a row alone bit-identical to the row in its
 batch; the scheduler's staged refresh bit-identical to the kernel on the
 same padded inputs, with one counted launch a refresh and a staging
-buffer reused across shapes.
+buffer reused across shapes.  Prefix sharing is held ON == OFF under the
+decode steps' CUDA graphs (multi-turn sessions, a cached-tier
+re-adoption, preemption of requests holding adopted blocks), and a
+Gateway deadline abort leaves a graphed engine quiesced.
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -31,6 +34,7 @@ import torch
 
 import repro_torch.core as port_core
 import repro_torch.serving as port_serving
+import repro_torch.testing as port_testing
 from repro_torch.configs import get_config
 from repro_torch.kernels.decode_attention.ops import (
     DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
@@ -59,6 +63,7 @@ from repro_torch.testing import assert_tokens_close
 from repro_torch.testing.generate import (dense_cache_from_prefill,
                                           greedy_generate,
                                           teacher_forced_check)
+from torch_sessions import session_drive
 
 ARCH = "llama3.2-1b"
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -1338,3 +1343,235 @@ def test_cuda_capture_failure_raises(cuda):
     assert not runner.captured
     # the eager first call counted its launch; the capture's is withheld
     assert PAGED_DECODE_KERNEL.launches == n0 + 1
+
+
+# ---------------------------- prefix sharing and the Gateway on the card
+
+def _session_drive(cuda, params, *, sharing, pmode="swap",
+                   step_mode="fused"):
+    """``torch_sessions.session_drive`` on the card (SageSched with the
+    CUDA Gittins backend, decode steps as CUDA graphs), with a budget
+    that preempts requests holding adopted blocks.  Returns (engine,
+    streams, counts)."""
+    cfg = get_config(ARCH, reduced=True)
+    eng = port_serving.ServingEngine(
+        model=build_model(cfg),
+        scheduler=port_core.Scheduler(policy="sagesched",
+                                      priority_backend="cuda"),
+        n_slots=2, max_seq_len=160, capacity_tokens=128, block_size=8,
+        prefill_chunk=16, seed=0, preemption_mode=pmode,
+        step_mode=step_mode, prefix_sharing=sharing, params=params,
+        device=cuda)
+    streams, counts = session_drive(eng, port_serving, cfg.vocab_size)
+    torch.cuda.synchronize()
+    port_testing.assert_engine_quiesced(eng)
+    return eng, streams, counts
+
+
+@pytest.fixture
+def llama_params(cuda):
+    cfg = get_config(ARCH, reduced=True)
+    return build_model(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
+def test_cuda_prefix_sharing_on_equals_off_graphed(cuda, llama_params,
+                                                    step_mode):
+    """Sharing ON gives the OFF streams token for token with the decode
+    steps as CUDA graphs (the resumed chunks keep the from-scratch
+    shapes, so flash and the scatter give the same bits), skips prefill
+    work, and fused equals orchestrated."""
+    _, off, _ = _session_drive(cuda, llama_params, sharing=False,
+                               step_mode=step_mode)
+    on, got, counts = _session_drive(cuda, llama_params, sharing=True,
+                                     step_mode=step_mode)
+    assert got == off
+    assert on.metrics.prefill_tokens_reused > 0
+    assert on.graphs_captured > 0
+    _, other, _ = _session_drive(
+        cuda, llama_params, sharing=True,
+        step_mode="orchestrated" if step_mode == "fused" else "fused")
+    assert other == got
+
+
+@pytest.mark.gpu
+def test_cuda_cached_tier_readoption_on_equals_off(cuda, llama_params):
+    """A finished request's prompt blocks stay in the pool at refcount 0;
+    a later prompt with the same prefix adopts them after other requests
+    ran their graphed decode steps (pad lanes and not-ready slots write
+    only to the scratch page).  The later stream is the OFF stream."""
+    cfg = get_config(ARCH, reduced=True)
+    rng = np.random.default_rng(8)
+    prefix = [int(t) for t in rng.integers(3, cfg.vocab_size, 40)]
+
+    def drive(sharing):
+        eng = port_serving.ServingEngine(
+            model=build_model(cfg),
+            scheduler=port_core.Scheduler(policy="fcfs"),
+            n_slots=4, max_seq_len=128, capacity_tokens=256, block_size=8,
+            prefill_chunk=16, seed=0, prefix_sharing=sharing,
+            params=llama_params, device=cuda)
+        cached = []
+        adopt = eng.kv.allocate_shared
+
+        def counted_adopt(rid, ctx_len, blocks, hashes):
+            cached.extend(b for b in blocks if eng.kv.refcount_of(b) == 0)
+            return adopt(rid, ctx_len, blocks, hashes)
+
+        eng.kv.allocate_shared = counted_adopt
+        frng = np.random.default_rng(9)
+        waves = [[prefix + [5, 6, 7]],
+                 [[int(t) for t in frng.integers(3, cfg.vocab_size, n)]
+                  for n in (9, 23, 30)],
+                 [prefix + [11, 12, 13, 14]]]
+        streams = []
+        for w, prompts in enumerate(waves):
+            reqs = [port_serving.ServeRequest(
+                f"w{w}r{i}", "p", p, max_new_tokens=10, temperature=0.0,
+                eos_token=-1) for i, p in enumerate(prompts)]
+            eng.submit_batch(reqs)
+            eng.run_until_done(max_steps=2000)
+            streams.append([r.output_tokens for r in reqs])
+        port_testing.assert_engine_quiesced(eng)
+        return eng, streams, cached
+
+    _, off, _ = drive(False)
+    on, got, cached = drive(True)
+    assert got == off
+    assert len(cached) >= 4          # the 32 grid-capped tokens' blocks
+    assert on.metrics.prefill_tokens_reused >= 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pmode", ["swap", "recompute"])
+def test_cuda_preempting_requests_that_hold_adopted_blocks(cuda,
+                                                           llama_params,
+                                                           pmode):
+    """Requests holding adopted blocks are preempted (swap: the payload
+    gathers the whole table, swap-in re-adopts the leading blocks and
+    restores only the rest); the streams are the OFF ones."""
+    _, off, _ = _session_drive(cuda, llama_params, sharing=False,
+                               pmode=pmode)
+    on, got, counts = _session_drive(cuda, llama_params, sharing=True,
+                                     pmode=pmode)
+    assert got == off
+    assert counts["adopted_preempts"] > 0
+    if pmode == "swap":
+        assert counts["adopted_swaps"] > 0
+        assert on.metrics.swap_ins > 0
+
+
+@pytest.mark.gpu
+def test_cuda_gateway_deadline_abort_under_graphs(cuda, llama_params):
+    """A TTLT deadline on a virtual clock aborts a running request of a
+    graphed engine through the Gateway: every block comes back, the
+    engine is quiesced, and a request offered afterwards streams what it
+    streams on a fresh engine."""
+    cfg = get_config(ARCH, reduced=True)
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, n)]
+               for n in (20, 14, 17)]
+
+    def gateway():
+        clock = port_testing.VirtualClock()
+        eng = port_serving.ServingEngine(
+            model=build_model(cfg),
+            scheduler=port_core.Scheduler(policy="fcfs"),
+            n_slots=2, max_seq_len=96, prefill_chunk=16, seed=0,
+            params=llama_params, device=cuda, clock=clock,
+            prefix_sharing=True)
+        return clock, eng, port_serving.Gateway(
+            eng, port_serving.GatewayConfig(max_inflight=2))
+
+    def req(i, **kw):
+        return port_serving.ServeRequest(
+            f"g{i}", "p", prompts[i], max_new_tokens=24, temperature=0.0,
+            eos_token=-1, **kw)
+
+    clock, eng, gw = gateway()
+    r0, r1 = req(0, ttlt_deadline_s=0.5), req(1)
+    gw.offer_batch([r0, r1])
+    for _ in range(4):
+        gw.step()
+        clock.advance(0.05)
+    assert r0.state == port_serving.RequestState.RUNNING \
+        and r0.generated > 0
+    clock.advance(1.0)
+    gw.tick()
+    assert r0.state == port_serving.RequestState.ABORTED
+    assert r0.finish_reason == "ttlt_deadline"
+    assert eng.metrics.timeout_aborts == 1 and eng.graphs_captured > 0
+    r2 = req(2)
+    gw.offer(r2)
+    gw.run_until_drained(max_steps=2000)
+    gw.assert_all_terminal()
+    gw.check_invariants()
+    port_testing.assert_engine_quiesced(eng)
+    assert eng.kv.used_tokens == 0 and eng.kv.free_slots == 2
+    _, fresh, fresh_gw = gateway()
+    alone = req(2)
+    fresh_gw.offer(alone)
+    fresh_gw.run_until_drained(max_steps=2000)
+    assert r2.output_tokens == alone.output_tokens
+    assert len(r2.output_tokens) == 24
+
+
+@pytest.mark.gpu
+def test_cuda_collecting_dead_graphs_inside_a_capture_invalidates_it(
+        cuda, llama_params):
+    """Why captures pause the collector: a dead engine held in a
+    reference cycle (a caller's wrapper around one of its methods) keeps
+    its captured graphs until the collector runs, and destroying a graph
+    inside another capture is a CUDA call the capture forbids."""
+    import functools
+    import gc
+    gc.collect()                       # nothing else left to collect
+    cfg = get_config(ARCH, reduced=True)
+    eng, _, _ = _graph_drive(cuda, cfg, llama_params, graphs=True,
+                             step_mode="fused", temperature=0.0)
+    assert eng.graphs_captured > 0
+    # eng -> partial -> eng: only the collector frees it
+    eng.step = functools.partial(type(eng).step, eng)
+    holder = [eng]
+    del eng
+    x = torch.zeros(8, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):  # torch.AcceleratorError included
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(cuda)):
+            y = x * 2
+            holder.clear()
+            gc.collect()
+            y.add_(1)
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_captures_pause_the_collector(cuda, llama_params):
+    """The engine's decode steps are captured with the collector paused
+    (so no dead engine's graphs are destroyed inside a capture), and the
+    collector runs again afterwards."""
+    import gc
+    cfg = get_config(ARCH, reduced=True)
+    eng = port_serving.ServingEngine(
+        model=build_model(cfg), scheduler=port_core.Scheduler(policy="fcfs"),
+        n_slots=2, max_seq_len=96, prefill_chunk=16, seed=0,
+        params=llama_params, device=cuda)
+    seen = []
+    body = eng._fused_body
+
+    def watched(x, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return body(x, **kw)
+
+    eng._fused_body = watched
+    rng = np.random.default_rng(3)
+    eng.submit_batch([port_serving.ServeRequest(
+        f"r{i}", "p", [int(t) for t in rng.integers(3, cfg.vocab_size, 12)],
+        max_new_tokens=8, temperature=0.0, eos_token=-1) for i in range(3)])
+    eng.run_until_done(max_steps=500)
+    assert eng.graphs_captured > 0 and len(seen) == eng.graphs_captured
+    assert not any(seen)
+    assert gc.isenabled()

@@ -54,7 +54,11 @@ Phases:
      the flash kernel at nemotron's second 512-token chunk and the partial
      kernel at one granite stripe and one dh-192 stripe, flat and peaked,
      each timed beside its library call and bound (``--kernels`` over an
-     older package without head dim 192 skips these).  Kernels and library
+     older package without head dim 192 skips these); last the paged
+     decode and flash kernels at olmoe-1b-7b's (H16/KV16, dh 128) and
+     internvl2-76b's (H64/KV8, dh 128) serving shapes and the dense decode
+     at olmoe's, flat and peaked, each timed beside its plain version,
+     its library call and its bound.  Kernels and library
      calls are timed on the device (``device_ms``: calls captured in a
      CUDA graph and replayed), plain versions eagerly (``cuda_ms``);
   4. serve at full width, from random weights of a seed, llama3.2-1b,
@@ -76,7 +80,8 @@ Phases:
      (head dim 192 and three head groups; MQA and six head groups), fused
      only, the same mix: every request must finish, the scheduler must
      preempt and swap, and the paged decode and flash kernels must launch
-     exactly as often as the path calls them;
+     exactly as often as the path calls them (as they must in every drive
+     of an attention family);
   4b. serve qwen2-1.5b at full width tensor-parallel, every shard on the
      one card (make_local_mesh(devices=["cuda:0"] * tp)), the same mix
      (fused): (a) without a mesh; (b) parallel="exact", tp 2, held
@@ -116,6 +121,20 @@ Phases:
      terminal with a reason, at least one SHED and one deadline abort of
      a streaming request, the invariants held, and dispositions and
      streams identical graphed and with graphs=False;
+  4d. after phase 5's other drives (nemotron's weights freed), the MoE
+     and VLM families: olmoe-1b-7b at full width and depth (13.6 GB of
+     bf16 weights, seed 0) through phase 4's mix, fused and orchestrated,
+     graphed, and fused again eagerly (held to its graphed twin), every
+     launch count exact, each drive's decode-step byte bound printed (the
+     weights a step reads: every expert's, as the dense dispatch runs
+     them all); on the same weights, phase 4b's exact and efficient tp 2
+     (experts sharded; (b) token-identical to 4d's fused drive, (c) one
+     step within TP_STEP_ULPS), phase 4c's session traffic at
+     MOE_SESSIONS (sharing ON == OFF, fused) and phase 5's generate drive
+     with capacity_factor = n_experts (nothing drops); then
+     deepseek-moe-16b (shared experts, a leading dense layer) and
+     internvl2-76b at full width cut to 2 layers, fused, each with its
+     eager twin held token-identical, launch for launch;
   5. generate at full width through Model.prefill -> Model.decode_step
      over the dense cache, from random weights of a seed:
      seamless-m4t-medium (all 12 + 12 layers; 8 x 4096 frames, 128-token
@@ -168,6 +187,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -211,10 +231,13 @@ from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked_reference, ssd_sequential_reference)
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+import repro_torch.models.moe as moe_module  # noqa: E402
+import repro_torch.models.transformer as transformer_module  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     decode_attention_paged)
 from repro_torch.models.encdec import encode  # noqa: E402
+from repro_torch.models.layers import iter_specs  # noqa: E402
 from repro_torch.serving import (Gateway, GatewayConfig,  # noqa: E402
                                  RequestState, ServeRequest, ServingEngine)
 from repro_torch.simulator import (generate_workload,  # noqa: E402
@@ -257,7 +280,7 @@ WIDE = (("nemotron-4-340b", dict(n_layers=2)),
 # (graphs=False) and held token-identical, launch for launch, to the
 # graphed one; and those with a sampled pair (temperature SAMPLED_T,
 # graphed and eager) held the same way
-EAGER_HELD = ("llama3.2-1b", "mamba2-2.7b")
+EAGER_HELD = ("llama3.2-1b", "mamba2-2.7b", "olmoe-1b-7b")
 SAMPLED_HELD = ("llama3.2-1b",)
 SAMPLED_T = 0.8
 # phase 4b: (label, tp, parallel, step modes); tp None = no mesh
@@ -299,6 +322,26 @@ FRONT_SYSTEM = 512
 # swaps out) requests that hold adopted blocks
 SESSION_SEED = 23
 OVERLOAD = (48, 3.0)
+# phase 4d: olmoe-1b-7b at full width and depth (13.8 GB of bf16 weights,
+# shared by its phase 4d, 4b, 4c and 5 drives, which run after phase 5's
+# other drives have freed nemotron's weights); then, fused, deepseek-moe-16b
+# (shared experts, a leading dense layer) and internvl2-76b (the VLM's
+# Llama-3-70B-wide backbone) at full width cut to 2 layers
+MOE_ARCH = "olmoe-1b-7b"
+MOE_WIDE = (("deepseek-moe-16b", dict(n_layers=2)),
+            ("internvl2-76b", dict(n_layers=2)))
+# phase 4b's olmoe drives: (a) is phase 4d's fused drive, not run again
+MOE_TP_DRIVES = (("b", 2, "exact", ("fused",)),
+                 ("c", 2, "efficient", ("fused",)))
+# phase 4c's shorter session drive for olmoe: (tenants, sessions a tenant,
+# turns), fused only
+MOE_SESSIONS = (2, 2, 2)
+# phase 5's olmoe drive, with capacity_factor = n_experts so that nothing
+# drops in the forward or the decode; its teacher-forced bar is its drift
+# on an H100 (8.50 bf16 steps: the forward's other GEMM shapes round the
+# router's input otherwise, and an expert picked on a near tie moves a
+# position's logits), rounded up to a whole step
+MOE_GENERATE = dict(b=2, prompt=256, max_len=512, steps=32, logit_ulps=9)
 # phase 6b: the cluster sizes of measure_scheduler_overhead, and
 # simulate_cluster's (nodes, requests, rps)
 OVERHEAD_NODES = (8, 32, 128)
@@ -1073,6 +1116,122 @@ def lse_library_ms(q, kp, vp, bt, cls) -> tuple[str, float]:
         qd, kd, vd, attn_mask=bias))
 
 
+def hold_paged_shape(cfg, dev, gen, rows: dict, *, plain: bool = False):
+    """The paged decode at ``cfg``'s serving shape (decode_case), a flat
+    and a peaked draw, windows 0 and 256, against its plain version; the
+    flat draw timed beside SDPA on the gathered cache and the byte bound
+    (and the plain version with ``plain``).  Raises the row's
+    max_abs_err."""
+    shape = f"H{cfg.n_heads}/KV{cfg.n_kv_heads}, dh {cfg.head_dim}"
+    for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+        q, kp, vp, tables, cl = decode_case(cfg, dev, gen)
+        q = (q.float() * q_scale).bfloat16()
+        for window in (0, 256):
+            got = decode_attention_paged_op(q, kp, vp, tables, cl,
+                                            window=window)
+            want = decode_attention_paged_reference(q, kp, vp, tables,
+                                                    cl, window=window)
+            torch.cuda.synchronize()
+            rows["decode_attention_paged"]["max_abs_err"] = max(
+                rows["decode_attention_paged"]["max_abs_err"],
+                attn_check(f"paged decode {cfg.name} {draw} (bf16, "
+                           f"{shape}, 8 lanes, cache_len 32..1280"
+                           f"{f', window {window}' if window else ''})",
+                           got, want))
+        if draw == "flat":
+            ms = device_ms(lambda: decode_attention_paged_op(
+                q, kp, vp, tables, cl))
+            lib = paged_sdpa_ms(q, kp, vp, tables, cl)
+            bnd, by = bound_ms(*paged_bytes_flops(q, cfg.n_kv_heads,
+                                                  tables, cl), BF16_FLOPS)
+            pl = ""
+            if plain:
+                pms = cuda_ms(lambda: decode_attention_paged_reference(
+                    q, kp, vp, tables, cl), iters=5)
+                pl = f", plain {pms:.4f} ms"
+            print(f"  paged decode {cfg.name}: kernel {ms:.4f} ms{pl}, "
+                  f"SDPA on gathered cache {lib:.4f} ms, bound {bnd:.5f} ms "
+                  f"({by})")
+        del q, kp, vp, tables, cl
+
+
+def hold_flash_shape(cfg, dev, gen, rows: dict, *, plain: bool = False):
+    """The flash kernel at ``cfg``'s second 512-token chunk over 512 rows,
+    a flat and a peaked draw, against its plain version; the flat draw
+    timed beside SDPA and the bound (and the plain version with
+    ``plain``).  Raises the row's max_abs_err."""
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+        q, k, v, pos, kv_pos = flash_case(cfg, dev, gen, 512, 512, 512)
+        q = (q.float() * q_scale).bfloat16()
+        got = flash_attention(q, k, v, pos, kv_pos)
+        want = attention_reference(q, k, v, pos, kv_pos)
+        torch.cuda.synchronize()
+        rows["flash_attention_prefill"]["max_abs_err"] = max(
+            rows["flash_attention_prefill"]["max_abs_err"],
+            attn_check(f"flash prefill {cfg.name} {draw} (bf16, H{h}/"
+                       f"KV{kvh}, dh {dh}, C=512, S_past=512, start=512)",
+                       got, want))
+        if draw == "flat":
+            ms = device_ms(lambda: flash_attention(q, k, v, pos, kv_pos))
+            mask = (kv_pos[None, :] >= 0) & (pos[:, None] >= kv_pos[None, :])
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 \
+                + (pos.numel() + kv_pos.numel()) * 4
+            bnd, by = bound_ms(n_bytes, 4.0 * float(mask.sum()) * h * dh,
+                               BF16_FLOPS)
+            pl = ""
+            if plain:
+                pms = cuda_ms(lambda: attention_reference(q, k, v, pos,
+                                                          kv_pos), iters=5)
+                pl = f", plain {pms:.4f} ms"
+            print(f"  flash prefill {cfg.name} (C=512, S_past=512): "
+                  f"kernel {ms:.4f} ms{pl}, SDPA {lib:.4f} ms, bound "
+                  f"{bnd:.5f} ms ({by})")
+            del qt, kt, vt
+        del q, k, v, want, got
+
+
+def phase_moe_heads(dev, gen, rows: dict) -> None:
+    """The attention kernels at the MoE and VLM serving shapes (after every
+    earlier draw): the paged decode and flash kernels at olmoe-1b-7b's
+    (H16/KV16, dh 128) and internvl2-76b's (H64/KV8, dh 128) shapes, and
+    the dense decode at olmoe's (phase 5's generate drive: 8 rows, 1024
+    slots), flat and peaked, each timed beside its plain version, its
+    library call and its bound.  Raises the rows' max_abs_err."""
+    for arch in (MOE_ARCH, "internvl2-76b"):
+        cfg = get_config(arch)
+        hold_paged_shape(cfg, dev, gen, rows, plain=True)
+        hold_flash_shape(cfg, dev, gen, rows, plain=True)
+    cfg = get_config(MOE_ARCH)
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+        q, k, v, cl = dense_decode_case(dev, gen, 8, h, kvh, dh, 1024, 1024,
+                                        q_scale)
+        got = decode_attention_op(q, k, v, cl)
+        want = decode_attention_dense_reference(q, k, v, cl)
+        torch.cuda.synchronize()
+        rows["decode_attention_dense"]["max_abs_err"] = max(
+            rows["decode_attention_dense"]["max_abs_err"],
+            attn_check(f"dense decode {cfg.name} {draw} (bf16, H{h}/KV{kvh},"
+                       f" dh {dh}, S_max 1024, cache_len 1..1024)", got,
+                       want))
+        if draw == "flat":
+            ms = device_ms(lambda: decode_attention_op(q, k, v, cl))
+            plain_ms = cuda_ms(lambda: decode_attention_dense_reference(
+                q, k, v, cl), iters=5)
+            lib = dense_decode_sdpa_ms(q, k, v, cl)
+            bnd, by = bound_ms(*dense_decode_bytes_flops(q, k, cl),
+                               BF16_FLOPS)
+            print(f"  dense decode {cfg.name}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, SDPA with a boolean mask {lib:.4f} "
+                  f"ms, bound {bnd:.5f} ms ({by})")
+        del q, k, v, cl
+    torch.cuda.empty_cache()
+
+
 def phase_wide_heads(dev, gen, rows: dict, kernels_only: bool) -> None:
     """The attention kernels at the head shapes the earlier checks do not
     reach, each with a flat and a peaked draw (after every earlier draw,
@@ -1094,32 +1253,7 @@ def phase_wide_heads(dev, gen, rows: dict, kernels_only: bool) -> None:
         raise SystemExit("FAIL: the package's kernels take no head dim 192")
     nem, gra = get_config("nemotron-4-340b"), get_config("granite-34b")
     for cfg in (nem, gra):
-        shape = f"H{cfg.n_heads}/KV{cfg.n_kv_heads}, dh {cfg.head_dim}"
-        for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
-            q, kp, vp, tables, cl = decode_case(cfg, dev, gen)
-            q = (q.float() * q_scale).bfloat16()
-            for window in (0, 256):
-                got = decode_attention_paged_op(q, kp, vp, tables, cl,
-                                                window=window)
-                want = decode_attention_paged_reference(q, kp, vp, tables,
-                                                        cl, window=window)
-                torch.cuda.synchronize()
-                rows["decode_attention_paged"]["max_abs_err"] = max(
-                    rows["decode_attention_paged"]["max_abs_err"],
-                    attn_check(f"paged decode {cfg.name} {draw} (bf16, "
-                               f"{shape}, 8 lanes, cache_len 32..1280"
-                               f"{f', window {window}' if window else ''})",
-                               got, want))
-            if draw == "flat":
-                ms = device_ms(lambda: decode_attention_paged_op(
-                    q, kp, vp, tables, cl))
-                lib = paged_sdpa_ms(q, kp, vp, tables, cl)
-                bnd, by = bound_ms(*paged_bytes_flops(q, cfg.n_kv_heads,
-                                                      tables, cl), BF16_FLOPS)
-                print(f"  paged decode {cfg.name}: kernel {ms:.4f} ms, SDPA "
-                      f"on gathered cache {lib:.4f} ms, bound {bnd:.5f} ms "
-                      f"({by})")
-            del q, kp, vp, tables, cl
+        hold_paged_shape(cfg, dev, gen, rows)
     h, kvh, dh = nem.n_heads, nem.n_kv_heads, nem.head_dim
     for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
         q, k, v, cl = dense_decode_case(dev, gen, 8, h, kvh, dh, 1024, 1224,
@@ -1142,32 +1276,7 @@ def phase_wide_heads(dev, gen, rows: dict, kernels_only: bool) -> None:
                   f"with a boolean mask {lib:.4f} ms, bound {bnd:.5f} ms "
                   f"({by})")
         del q, k, v, cl
-    for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
-        q, k, v, pos, kv_pos = flash_case(nem, dev, gen, 512, 512, 512)
-        q = (q.float() * q_scale).bfloat16()
-        got = flash_attention(q, k, v, pos, kv_pos)
-        want = attention_reference(q, k, v, pos, kv_pos)
-        torch.cuda.synchronize()
-        rows["flash_attention_prefill"]["max_abs_err"] = max(
-            rows["flash_attention_prefill"]["max_abs_err"],
-            attn_check(f"flash prefill nemotron-4-340b {draw} (bf16, H{h}/"
-                       f"KV{kvh}, dh {dh}, C=512, S_past=512, start=512)",
-                       got, want))
-        if draw == "flat":
-            ms = device_ms(lambda: flash_attention(q, k, v, pos, kv_pos))
-            mask = (kv_pos[None, :] >= 0) & (pos[:, None] >= kv_pos[None, :])
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib = device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True))
-            n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 \
-                + (pos.numel() + kv_pos.numel()) * 4
-            bnd, by = bound_ms(n_bytes, 4.0 * float(mask.sum()) * h * dh,
-                               BF16_FLOPS)
-            print(f"  flash prefill nemotron-4-340b (C=512, S_past=512): "
-                  f"kernel {ms:.4f} ms, SDPA {lib:.4f} ms, bound "
-                  f"{bnd:.5f} ms ({by})")
-            del qt, kt, vt
-        del q, k, v, want, got
+    hold_flash_shape(nem, dev, gen, rows)
     for cfg in (gra, nem):
         h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
@@ -1305,7 +1414,8 @@ def hold_eager(label: str, got, launches, want, want_launches) -> None:
 def path_kernels(cfg) -> tuple:
     """The kernels a served model's main path launches."""
     attn = (PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL)
-    return (GITTINS_KERNEL,) + {"dense": attn, "ssm": (SSD_SCAN_KERNEL,),
+    return (GITTINS_KERNEL,) + {"dense": attn, "moe": attn, "vlm": attn,
+                                "ssm": (SSD_SCAN_KERNEL,),
                                 "hybrid": (SSD_SCAN_KERNEL,) + attn
                                 }[cfg.family]
 
@@ -1316,13 +1426,30 @@ def swap_bytes(engine) -> int:
     return sum(t[:, 0].numel() * t.element_size() for t in ssm.values())
 
 
-def phase_serve(cfg, dev) -> tuple[dict, tuple]:
+def step_weight_bytes(cfg) -> int:
+    """Bytes of weights one decode step must read: every parameter but the
+    embedding table, of which it gathers one row a lane (the MoE's dense
+    dispatch runs every expert's GEMMs, so every expert is read)."""
+    model = build_model(cfg)
+    return sum(math.prod(spec.shape) * spec.dtype.itemsize
+               for path, spec in iter_specs(model.template())
+               if path != ("embed",))
+
+
+def phase_serve(cfg, dev, params=None) -> tuple[dict, tuple, dict]:
     """The graphed fused and orchestrated drives (their launches are the
     phase's), then, per EAGER_HELD and SAMPLED_HELD, the eager and
-    sampled drives held to their graphed twins."""
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = build_model(cfg).init(gen)
+    sampled drives held to their graphed twins.  An attention family's
+    drives launch the paged decode and flash kernels exactly as often as
+    the path calls them.  ``params``: another phase's weights (else made
+    here from seed 0).  Returns (launches, the largest Gittins shape, the
+    streams by drive)."""
+    if params is None:
+        params = build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(0))
     kernels = path_kernels(cfg)
+    attention = cfg.family in ("dense", "moe", "vlm")
+    step_bytes = step_weight_bytes(cfg)
     drives = [("fused", True, 0.0), ("orchestrated", True, 0.0)]
     if cfg.name in EAGER_HELD:
         drives.append(("fused", False, 0.0))
@@ -1352,7 +1479,9 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
               f"{m['prefill_chunks']}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
               f"launches {launches[label]}")
-        print(f"    {graph_report(engine)}")
+        print(f"    {graph_report(engine)}; a decode step's weights "
+              f"{step_bytes / 1e9:.3f} GB, byte bound "
+              f"{step_bytes / HBM_BPS * 1e3:.3f} ms")
         if engine._slot_state:
             per = swap_bytes(engine)
             print(f"    recurrent state per swap payload {per / 1e6:.1f} MB; "
@@ -1370,6 +1499,11 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
         if missing:
             raise SystemExit(f"FAIL serve[{label}]: kernels never launched "
                              f"on the main path: {missing}")
+        if attention:
+            want = tp_launches(cfg, engine, m)
+            if {k: launches[label].get(k, 0) for k in want} != want:
+                raise SystemExit(f"FAIL serve[{label}]: launches "
+                                 f"{launches[label]}, the path calls {want}")
         if not graphs:
             twin = label.replace("eager", "graphs")
             hold_eager(f"serve[{label}]", streams[label], launches[label],
@@ -1394,15 +1528,17 @@ def phase_serve(cfg, dev) -> tuple[dict, tuple]:
     total = {s: launches["fused, graphs"][s]
              + launches["orchestrated, graphs"][s]
              for s in launches["fused, graphs"]}
-    return total, max_shape
+    return total, max_shape, streams
 
 
-def phase_serve_wide(cfg, params, dev) -> dict:
-    """One fused drive of the two waves at a WIDE shape: every request
-    must finish, the scheduler must preempt and swap, and the paged
-    decode and flash kernels must launch exactly as often as the path
-    calls them (one a layer per decode call and per prefill chunk).
-    Returns the launches."""
+def phase_serve_wide(cfg, params, dev, eager: bool = False) -> dict:
+    """One fused drive of the two waves at a WIDE or MOE_WIDE shape: every
+    request must finish, the scheduler must preempt and swap, and the
+    paged decode and flash kernels must launch exactly as often as the
+    path calls them (one a layer per decode call and per prefill chunk).
+    With ``eager`` the drive runs again with graphs=False, held
+    token-identical to it, launch for launch.  Returns the graphed
+    drive's launches."""
     kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
                FLASH_PREFILL_KERNEL)
     for kern in kernels:
@@ -1410,6 +1546,7 @@ def phase_serve_wide(cfg, params, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     engine, reqs, secs, _ = serve(cfg, params, dev, "fused")
     launches = {k.symbol: k.launches for k in kernels}
+    step_bytes = step_weight_bytes(cfg)
     m = engine.metrics.summary(reqs)
     gen_tokens = sum(r.generated for r in reqs)
     ttft = np.array([r.ttft for r in reqs])
@@ -1423,7 +1560,9 @@ def phase_serve_wide(cfg, params, dev) -> dict:
           f"{m['decode_iterations']}, prefill chunks {m['prefill_chunks']}, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
           f"launches {launches}")
-    print(f"    {graph_report(engine)}")
+    print(f"    {graph_report(engine)}; a decode step's weights "
+          f"{step_bytes / 1e9:.3f} GB, byte bound "
+          f"{step_bytes / HBM_BPS * 1e3:.3f} ms")
     if m["preemptions"] == 0 or m["swap_outs"] == 0:
         raise SystemExit(f"FAIL serve {cfg.name}: the scheduler did not "
                          "preempt and swap")
@@ -1434,6 +1573,18 @@ def phase_serve_wide(cfg, params, dev) -> dict:
                          f"path calls {want} and Gittins")
     del engine
     torch.cuda.empty_cache()
+    if eager:
+        for kern in kernels:
+            kern.launches = 0
+        engine, twin, secs, _ = serve(cfg, params, dev, "fused",
+                                      graphs=False)
+        print(f"  serve[fused, eager] {cfg.name}: "
+              f"{sum(r.generated for r in twin) / secs:.1f} tok/s")
+        hold_eager(f"serve {cfg.name}", [r.output_tokens for r in twin],
+                   {k.symbol: k.launches for k in kernels},
+                   [r.output_tokens for r in reqs], launches)
+        del engine
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1456,13 +1607,37 @@ def tp_launches(cfg, engine, m) -> dict:
                 cfg.n_layers * m["prefill_chunks"] * shards}
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """The experts ``moe_route`` picks inside the block, call by call: a
+    list of (N, K) tensors, each row's picks sorted (empty for a model
+    without MoE layers)."""
+    calls, orig = [], moe_module.moe_route
+
+    def record(params, xf, cfg, *, decode):
+        out = orig(params, xf, cfg, decode=decode)
+        experts = out[1] // out[0].shape[1]         # row // C
+        calls.append(experts.view(xf.shape[0], -1).sort(dim=-1).values)
+        return out
+
+    moe_module.moe_route = transformer_module.moe_route = record
+    try:
+        yield calls
+    finally:
+        moe_module.moe_route = transformer_module.moe_route = orig
+
+
 def tp_step_check(cfg, params, engine, dev) -> dict:
     """One decode step of ``engine``'s plan against the same step without
     a mesh, on the same pool and inputs: 8 rows of 37..512 tokens whose
     K/V a forward over random 512-token prompts wrote into a paged pool.
     Holds the logits within TP_STEP_ULPS bf16 steps (at the unsharded
-    step's largest |logit|) and the argmax identical except where the
-    plan's pick lies within 2 steps of the unsharded maximum."""
+    step's largest |logit|) on every row whose MoE layers picked the
+    unsharded step's experts (all rows of a model without them; at least
+    one row must remain), and the argmax identical on every row except
+    where the plan's pick lies within 2 steps of the unsharded maximum.
+    A row whose experts differ in some layer, a discrete flip of a near
+    tie in the router, is counted and its drift printed."""
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(7)
     b, s, page = 8, 512, 16
@@ -1483,11 +1658,12 @@ def tp_step_check(cfg, params, engine, dev) -> dict:
     cl = torch.tensor([37, 129, 250, 300, 401, 466, 500, 512],
                       dtype=torch.int32, device=dev)
     last = toks[:, -1:]
-    want, _ = model.decode_step_paged(
-        params, last, {k: v.clone() for k, v in pool.items()}, cl, tables,
-        page_size=page)
+    with recorded_routes() as want_routes:
+        want, _ = model.decode_step_paged(
+            params, last, {k: v.clone() for k, v in pool.items()}, cl,
+            tables, page_size=page)
     plan = engine.plan
-    with plan.context():
+    with plan.context(), recorded_routes() as got_routes:
         got, _ = model.decode_step_paged(
             engine.params, last, plan.place_cache(pool), cl, tables,
             page_size=page)
@@ -1498,17 +1674,27 @@ def tp_step_check(cfg, params, engine, dev) -> dict:
     if not torch.isfinite(got).all():
         raise SystemExit("FAIL tp step: non-finite logits")
     step = float(bf16_ulp(want.abs().max()))
-    drift = float((got - want).abs().max()) / step
+    row_drift = (got - want).abs().max(dim=-1).values / step
+    same = torch.ones(b, dtype=torch.bool, device=dev)
+    for w, g in zip(want_routes, got_routes):
+        same &= (w == g.to(w.device)).all(dim=-1)
+    drift = float(row_drift[same].max()) if bool(same.any()) else math.inf
     wmax = want.max(dim=-1).values
     pick = got.argmax(dim=-1)
     flip = pick != want.argmax(dim=-1)
     margin = (wmax - want.gather(-1, pick[:, None])[:, 0]) / bf16_ulp(wmax)
     out = {"drift_ulps": drift, "flips": int(flip.sum()),
            "flip_ulps_max": float(margin[flip].max()) if bool(flip.any())
-           else 0.0}
+           else 0.0, "rerouted": int((~same).sum())}
+    rerouted = ""
+    if want_routes:
+        there = float(row_drift[~same].max()) if out["rerouted"] else 0.0
+        rerouted = (f"; {out['rerouted']}/{b} rows picked other experts in "
+                    f"some layer (max logit diff there {there:.2f} steps, "
+                    f"not held)")
     print(f"    one decode step vs no mesh: max logit diff {drift:.2f} bf16 "
           f"steps (bar {TP_STEP_ULPS}; step {step:.4g} at max |logit| "
-          f"{float(want.abs().max()):.4g}), argmax differs at "
+          f"{float(want.abs().max()):.4g}){rerouted}, argmax differs at "
           f"{out['flips']}/{b} rows (largest margin "
           f"{out['flip_ulps_max']:.2f} steps, excused within 2)")
     if drift > TP_STEP_ULPS or bool((flip & (margin > 2)).any()):
@@ -1543,22 +1729,28 @@ def lse_stripe_check(dev, n: int) -> None:
           f"{'bit-identical' if all(torch.equal(a, b) for a, b in zip(*part)) else 'DIFFERENT'}")
 
 
-def phase_serve_tp(dev) -> dict:
-    """qwen2-1.5b at full width through the drives of TP_DRIVES, every
-    shard on the one card.  Returns the summed launches."""
-    cfg = get_config(TP_ARCH)
-    params = build_model(cfg).init(
-        torch.Generator(device=dev).manual_seed(0))
+def phase_serve_tp(dev, arch=TP_ARCH, drives=TP_DRIVES, params=None,
+                   known=None, eager_held=TP_EAGER_HELD,
+                   same_streams=TP_SAME_STREAMS) -> dict:
+    """``arch`` at full width through ``drives`` (TP_DRIVES' labels), every
+    shard on the one card; ``params`` another phase's weights (else made
+    here from seed 0), ``known`` the streams of drives run elsewhere (the
+    no-mesh (a)).  An MoE plan must report its experts sharded.  Returns
+    the summed launches."""
+    cfg = get_config(arch)
+    if params is None:
+        params = build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(0))
     kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
                FLASH_PREFILL_KERNEL)
     total = {k.symbol: 0 for k in kernels}
-    streams = {}
-    for label, tp, parallel, modes in TP_DRIVES:
+    streams = dict(known or {})
+    for label, tp, parallel, modes in drives:
         graph_launches = {}
         mesh = None if tp is None else make_local_mesh(
             tp=tp, devices=[dev] * tp)
         runs = [(mode, graphs) for mode in modes
-                for graphs in ((True, False) if label in TP_EAGER_HELD
+                for graphs in ((True, False) if label in eager_held
                                else (True,))]
         for mode, graphs in runs:
             for kern in kernels:
@@ -1575,9 +1767,10 @@ def phase_serve_tp(dev) -> dict:
             branch = "no mesh" if report is None else (
                 f"tp {tp} {parallel}: attention {report['attention']}, "
                 f"attn_splits {report['attn_splits']}, vocab "
-                f"{report['vocab']}, mlp {report['mlp']}")
+                f"{report['vocab']}, mlp {report['mlp']}, experts "
+                f"{report['experts']}")
             how = "" if graphs else ", eager"
-            print(f"  ({label}) serve[{mode}{how}] {TP_ARCH} {branch} "
+            print(f"  ({label}) serve[{mode}{how}] {cfg.name} {branch} "
                   f"{torch.cuda.get_device_name(0)}: {len(reqs)}/{len(reqs)} "
                   f"finished, {gen_tokens} tokens in {secs:.3f} s = "
                   f"{gen_tokens / secs:.1f} tok/s, TTFT p50 "
@@ -1601,7 +1794,9 @@ def phase_serve_tp(dev) -> dict:
                       "c": ("sharded", 1, "sharded", "sharded"),
                       "d": ("lse-split", 4, "sharded", "sharded")}[label]
             if (report and (report["attention"], report["attn_splits"],
-                            report["vocab"], report["mlp"])) != expect:
+                            report["vocab"], report["mlp"])) != expect \
+                    or (report and cfg.family == "moe"
+                        and report["experts"] != "sharded"):
                 raise SystemExit(f"FAIL tp ({label}): plan {report}")
             got = [r.output_tokens for r in reqs]
             if not graphs:
@@ -1624,7 +1819,7 @@ def phase_serve_tp(dev) -> dict:
             if mode == "orchestrated":
                 same = sum(a == b for a, b in zip(got,
                                                   streams[label, "fused"]))
-                held = label in TP_SAME_STREAMS
+                held = label in same_streams
                 print(f"    fused vs orchestrated: {same}/{len(got)} streams "
                       f"identical ({'held' if held else 'printed'})")
                 if held and got != streams[label, "fused"]:
@@ -1691,9 +1886,11 @@ def hold_front_launches(label, cfg, engine, launches) -> None:
                          f"calls {want} and Gittins")
 
 
-def session_drive(cfg, params, dev, *, sharing, step_mode):
-    """SESSIONS through the Gateway: per tenant a system prompt of
-    FRONT_SYSTEM tokens, SESSIONS[1] sessions of SESSIONS[2] turns, each
+def session_drive(cfg, params, dev, *, sharing, step_mode,
+                  sessions=SESSIONS):
+    """``sessions`` (tenants, sessions a tenant, turns) through the Gateway:
+    per tenant a system prompt of FRONT_SYSTEM tokens, sessions[1]
+    sessions of sessions[2] turns, each
     turn wave offered with ``offer_batch`` and drained; turn 1 is the
     system prompt and 64-192 user tokens, turn t + 1 turn t's prompt,
     its output and 32-128 new user tokens; 48-96 new tokens a turn,
@@ -1701,14 +1898,14 @@ def session_drive(cfg, params, dev, *, sharing, step_mode):
     engine = front_engine(cfg, params, dev, sharing=sharing,
                           step_mode=step_mode)
     gw = Gateway(engine, GatewayConfig())
-    tenants, sessions, turns = SESSIONS
+    tenants, n_sessions, turns = sessions
     rng = np.random.default_rng(SESSION_SEED)
     systems = [[int(t) for t in rng.integers(3, cfg.vocab_size,
                                              FRONT_SYSTEM)]
                for _ in range(tenants)]
     prompts = {(t, s): systems[t] + [int(x) for x in rng.integers(
         3, cfg.vocab_size, int(rng.integers(64, 193)))]
-        for t in range(tenants) for s in range(sessions)}
+        for t in range(tenants) for s in range(n_sessions)}
     reqs = []
     t0 = time.perf_counter()
     for turn in range(turns):
@@ -1737,33 +1934,38 @@ def session_drive(cfg, params, dev, *, sharing, step_mode):
     return engine, reqs, time.perf_counter() - t0
 
 
-def phase_front_sessions(cfg, params, dev) -> dict:
-    """(i): session traffic with prefix sharing ON and OFF, fused and
-    orchestrated.  Holds ON == OFF token for token in each step mode,
+def phase_front_sessions(cfg, params, dev, sessions=SESSIONS,
+                         step_modes=("fused", "orchestrated"),
+                         sharers=True) -> dict:
+    """(i): session traffic with prefix sharing ON and OFF, in each of
+    ``step_modes``.  Holds ON == OFF token for token in each step mode,
     fused == orchestrated, reuse > 0 with fewer prefill tokens computed
-    ON, a preemption and a swap out of a request holding adopted blocks
-    in each ON drive, the Gateway's and the engine's invariants after
-    every wave, the fused keys within their bound, and every kernel's
-    launches exactly as the path calls them.  Returns the launches."""
+    ON, with ``sharers`` a preemption and a swap out of a request holding
+    adopted blocks in each ON drive, the Gateway's and the engine's
+    invariants after every wave, the fused keys within their bound, and
+    every kernel's launches exactly as the path calls them.  Returns the
+    launches."""
     kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
                FLASH_PREFILL_KERNEL)
     total = {k.symbol: 0 for k in kernels}
     streams, metrics = {}, {}
-    for step_mode in ("fused", "orchestrated"):
+    for step_mode in step_modes:
         for sharing in (True, False):
             label = f"{step_mode}, sharing {'ON' if sharing else 'OFF'}"
             for kern in kernels:
                 kern.launches = 0
             torch.cuda.reset_peak_memory_stats()
             engine, reqs, secs = session_drive(
-                cfg, params, dev, sharing=sharing, step_mode=step_mode)
+                cfg, params, dev, sharing=sharing, step_mode=step_mode,
+                sessions=sessions)
             counts = engine.adopted
             launches = {k.symbol: k.launches for k in kernels}
             m = engine.metrics
             gen_tokens = sum(r.generated for r in reqs)
             ttft = np.array([r.ttft for r in reqs])
             ttlt = np.array([r.ttlt for r in reqs])
-            print(f"  sessions[{label}] {torch.cuda.get_device_name(0)}: "
+            print(f"  sessions[{label}] {cfg.name} "
+                  f"{torch.cuda.get_device_name(0)}: "
                   f"{len(reqs)}/{len(reqs)} finished, {gen_tokens} tokens "
                   f"in {secs:.3f} s = {gen_tokens / secs:.1f} tok/s, TTFT "
                   f"p50 {np.median(ttft):.4f} s, TTLT p50 "
@@ -1782,7 +1984,8 @@ def phase_front_sessions(cfg, params, dev) -> dict:
                                  f"{engine.fused_compile_count} exceed "
                                  f"{engine.max_fused_compiles()}")
             hold_front_launches(f"sessions[{label}]", cfg, engine, launches)
-            if sharing and (m.preemptions == 0 or counts["swaps"] == 0):
+            if sharers and sharing and (m.preemptions == 0
+                                        or counts["swaps"] == 0):
                 raise SystemExit(f"FAIL sessions[{label}]: no preemption or "
                                  "no swap out of a request holding adopted "
                                  f"blocks ({m.preemptions}, {counts})")
@@ -1806,13 +2009,14 @@ def phase_front_sessions(cfg, params, dev) -> dict:
                 and metrics[on].prefill_tokens < metrics[off].prefill_tokens):
             raise SystemExit(f"FAIL sessions[{step_mode}]: sharing skipped "
                              "no prefill work")
-    fused, orch = streams["fused, sharing ON"], \
-        streams["orchestrated, sharing ON"]
-    same = sum(a == b for a, b in zip(fused, orch))
-    print(f"    fused vs orchestrated: {same}/{len(fused)} streams identical "
-          "(held)")
-    if fused != orch:
-        raise SystemExit("FAIL sessions: fused and orchestrated part")
+    if len(step_modes) > 1:
+        fused, orch = streams["fused, sharing ON"], \
+            streams["orchestrated, sharing ON"]
+        same = sum(a == b for a, b in zip(fused, orch))
+        print(f"    fused vs orchestrated: {same}/{len(fused)} streams "
+              "identical (held)")
+        if fused != orch:
+            raise SystemExit("FAIL sessions: fused and orchestrated part")
     return total
 
 
@@ -1930,7 +2134,8 @@ def generate_launches(cfg, steps: int) -> dict:
     the key split; in the prefill, flash for each attention layer's
     self-attention (plus the encoder's layers and the cross-attention of
     the encoder-decoder), and one SSD scan per Mamba2 layer."""
-    attn = {"dense": cfg.n_layers, "encdec": cfg.n_layers, "ssm": 0,
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
+            "encdec": cfg.n_layers, "ssm": 0,
             "hybrid": -(-cfg.n_layers // cfg.hybrid_attn_every)}[cfg.family]
     flash, split = attn, 0
     if cfg.family == "encdec":
@@ -2005,6 +2210,73 @@ def phase_generate(cfg, dev, *, b: int, prompt: int, max_len: int,
     del params, model, run
     torch.cuda.empty_cache()
     return launches
+
+
+# -------------------------------------------------------------- phase 4d
+
+def phase_moe(dev) -> tuple[dict, tuple]:
+    """olmoe-1b-7b at full width and depth on one set of weights (seed 0):
+    phase 4d's serve drives (phase_serve: fused and orchestrated, graphed,
+    and the fused drive again eagerly), phase 4b's exact and efficient tp
+    2 drives held to 4d's fused streams, phase 4c's shorter session drive
+    with sharing ON and OFF, and phase 5's generate drive with a capacity
+    that drops nothing; then MOE_WIDE's fused drives, each with its eager
+    twin.  Returns (the summed launches, the largest Gittins shape)."""
+    t0 = time.perf_counter()
+    total = {}
+
+    def add(launches):
+        for sym, n in launches.items():
+            total[sym] = total.get(sym, 0) + n
+
+    cfg = get_config(MOE_ARCH)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    print(f"phase 4d: serving {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_experts} experts "
+          f"of {cfg.moe_d_ff}, top {cfg.experts_per_token}, H{cfg.n_heads}/"
+          f"KV{cfg.n_kv_heads}, vocab {cfg.vocab_size}; "
+          f"{param_bytes(params) / 1e9:.3f} GB of weights)")
+    got, shape, streams = phase_serve(cfg, dev, params=params)
+    add(got)
+    print(f"phase 4b: serving {cfg.name} tensor-parallel with its experts "
+          f"sharded, every shard on {torch.cuda.get_device_name(0)}; (a) is "
+          f"phase 4d's fused drive")
+    add(phase_serve_tp(dev, MOE_ARCH, MOE_TP_DRIVES, params=params,
+                       known={("a", "fused"): streams["fused, graphs"]},
+                       eager_held=(), same_streams=()))
+    print(f"phase 4c: {cfg.name} behind the Gateway with prefix sharing, "
+          f"session traffic of {MOE_SESSIONS} (tenants, sessions, turns), "
+          f"fused")
+    add(phase_front_sessions(cfg, params, dev, sessions=MOE_SESSIONS,
+                             step_modes=("fused",), sharers=False))
+    gcfg = cfg.with_overrides(capacity_factor=float(cfg.n_experts))
+    print(f"phase 5: generating with {cfg.name} at full width and depth "
+          f"through Model.prefill -> Model.decode_step (capacity_factor "
+          f"{gcfg.capacity_factor:g}: nothing drops)")
+    add(phase_generate(gcfg, dev, params=params, **MOE_GENERATE))
+    del params
+    torch.cuda.empty_cache()
+    for arch, cut in MOE_WIDE:
+        wcfg = get_config(arch).with_overrides(**cut)
+        print(f"phase 4d: serving {wcfg.name} at full width cut to "
+              f"{wcfg.n_layers} layers (d {wcfg.d_model}, H{wcfg.n_heads}/"
+              f"KV{wcfg.n_kv_heads}, dh {wcfg.head_dim}, vocab "
+              f"{wcfg.vocab_size}), fused, graphed and eager")
+        params = build_model(wcfg).init(
+            torch.Generator(device=dev).manual_seed(0))
+        add(phase_serve_wide(wcfg, params, dev, eager=True))
+        del params
+        torch.cuda.empty_cache()
+    print(f"  phase 4d with olmoe's 4b, 4c and 5 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total, shape
+
+
+def param_bytes(node) -> int:
+    """Bytes of a nested parameter dict."""
+    if isinstance(node, dict):
+        return sum(param_bytes(v) for v in node.values())
+    return node.numel() * node.element_size()
 
 
 # --------------------------------------------------------------- phase 6
@@ -2378,6 +2650,7 @@ def main() -> int:
                                  phase_flash_dh128(dev, gen))
     rows.append(phase_lse(dev, gen))
     phase_wide_heads(dev, gen, {r["name"]: r for r in rows}, kernels_only)
+    phase_moe_heads(dev, gen, {r["name"]: r for r in rows})
     if kernels_only:
         print("phase 6: gittins kernel (no serve drive: main-path shape "
               "taken as (8, 8))")
@@ -2390,7 +2663,7 @@ def main() -> int:
         print(f"phase 4: serving {cfg.name} at full width "
               f"({cfg.n_layers} layers, d {cfg.d_model}, vocab "
               f"{cfg.vocab_size})")
-        got, shp = phase_serve(cfg, dev)
+        got, shp, _ = phase_serve(cfg, dev)
         for sym, n in got.items():
             launches[sym] = launches.get(sym, 0) + n
         if shp[0] * shp[1] > shape[0] * shape[1]:
@@ -2436,6 +2709,11 @@ def main() -> int:
                                      **kw).items():
             launches[sym] = launches.get(sym, 0) + n
         torch.cuda.empty_cache()
+    got, shp = phase_moe(dev)
+    for sym, n in got.items():
+        launches[sym] = launches.get(sym, 0) + n
+    if shp[0] * shp[1] > shape[0] * shape[1]:
+        shape = shp
     print(f"phase 6: gittins kernel (largest main-path refresh {shape})")
     rows.insert(0, phase_gittins(dev, shape))
     print("phase 6b: the simulator's central scheduler on the card")

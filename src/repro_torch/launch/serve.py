@@ -1,13 +1,16 @@
 """Serving launcher of the port: run the end-to-end engine on any --arch of
-the dense, SSM (mamba2-2.7b) or hybrid (zamba2-1.2b) families, on the card
+the dense, MoE (olmoe-1b-7b, deepseek-moe-16b), VLM (internvl2-76b, its
+vision frontend stubbed: text prompts only), SSM (mamba2-2.7b) or hybrid
+(zamba2-1.2b) families, on the card
 by default (``--device cpu`` for a reduced run on the CPU).  The same
 flags as ``repro.launch.serve`` plus ``--device``.  The encoder-decoder
 (seamless-m4t-medium) is refused, as the reference's CLI refuses it: the
 paged engine does not take it, and it runs through ``Model.prefill`` and
 ``Model.decode_step``.
 
-``--tp N`` serves the dense family tensor-parallel over N cards (the
-reference's N devices), ``--parallel exact|efficient`` picks the plan,
+``--tp N`` serves the dense, MoE (experts sharded) and VLM families
+tensor-parallel over N cards (the reference's N devices), ``--parallel
+exact|efficient`` picks the plan,
 and ``--device-memory-gb`` refuses a configuration that does not fit one
 device before anything is allocated.  With ``--device cpu`` the N shards
 sit on the CPU.  Over N cards the engine's decode steps run eagerly
@@ -19,6 +22,7 @@ deadlines, retries) and prints its verdict counts.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --full --n-slots 8 --max-seq-len 2048
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --full --tp 4 --parallel efficient --device-memory-gb 80
 """
@@ -53,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="decode tokens per host round-trip (fused mode)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel width of the dense family: needs "
+                    help="tensor-parallel width of the attention families "
+                         "(dense, MoE, VLM): needs "
                          "tp cards (with --device cpu, tp CPU shards)")
     ap.add_argument("--parallel", default="exact",
                     choices=("exact", "efficient"),

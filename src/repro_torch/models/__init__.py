@@ -1,4 +1,5 @@
-"""Model zoo of the port (dense, SSM and hybrid decoders; encoder-decoder)."""
+"""Model zoo of the port (dense, MoE, VLM, SSM and hybrid decoders;
+encoder-decoder)."""
 
 from .config import FAMILIES, ModelConfig
 from .model import Model, build_model

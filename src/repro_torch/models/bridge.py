@@ -4,7 +4,9 @@
 ``np.asarray`` gives over the leaves of ``repro``'s ``Model.init`` and
 returns the port's params: the same keys and the same stacked layout,
 as tensors on ``device``.  Because the layouts agree the bridge is only
-a dtype and device move.
+a dtype and device move, for every family's tree: an MoE tree keeps its
+f32 router beside its bf16 ``(L, E, ...)`` experts, shared experts and
+``dense_layers``.
 """
 
 from __future__ import annotations

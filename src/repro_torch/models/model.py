@@ -1,6 +1,6 @@
 """Model facade: one object per architecture with a uniform API
-(the port of ``repro.models.model``; the decoder-only dense, SSM and
-hybrid families and the encoder-decoder).
+(the port of ``repro.models.model``; the decoder-only dense, MoE, VLM,
+SSM and hybrid families and the encoder-decoder).
 
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -24,7 +24,7 @@ from .layers import init_from_template
 from .transformer import (decoder_decode_step, decoder_decode_step_paged,
                           decoder_forward, decoder_prefill_chunk,
                           decoder_template, init_cache_shapes,
-                          paged_cache_shapes, require_ported)
+                          paged_cache_shapes)
 
 __all__ = ["Model", "build_model"]
 
@@ -32,9 +32,6 @@ __all__ = ["Model", "build_model"]
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        require_ported(self.cfg)
 
     # ------------------------------------------------------------- params
 
@@ -51,12 +48,17 @@ class Model:
 
     def forward(self, params, batch, *, collect_cache: bool = False):
         """Batches are dicts: {"tokens": (B, S)} for the decoder
-        families, plus "frames": (B, S_enc, D) for the encoder-decoder."""
+        families, plus "patches": (B, P, D) for the VLM (optional: its
+        stubbed frontend's embeddings, prepended) and "frames": (B, S_enc,
+        D) for the encoder-decoder.  Returns (logits, cache or None, aux
+        loss)."""
         if self.cfg.family == "encdec":
             return encdec_forward(params, self.cfg, batch["frames"],
                                   batch["tokens"],
                                   collect_cache=collect_cache)
+        fe = batch.get("patches") if self.cfg.family == "vlm" else None
         return decoder_forward(params, self.cfg, batch["tokens"],
+                               frontend_embeds=fe,
                                collect_cache=collect_cache,
                                lengths=batch.get("lengths"))
 

@@ -1,22 +1,23 @@
-"""Decoder-only transformer: the dense GQA, Mamba2 SSD (``ssm``) and hybrid
-(Mamba2 backbone plus one shared attention block every
+"""Decoder-only transformer: the dense GQA, MoE, VLM (a dense decoder fed
+precomputed patch embeddings before its tokens), Mamba2 SSD (``ssm``) and
+hybrid (Mamba2 backbone plus one shared attention block every
 ``hybrid_attn_every`` layers) families.  Full-sequence forward, decode step
 over dense per-row caches, paged decode step and chunked prefill, as plain
-functions over a params dict
-with the reference's stacked ``(L, ...)`` layout and tree keys
-(``repro.models.transformer``).  Layers run as a Python loop over the
+functions over a params dict with the reference's stacked ``(L, ...)``
+layout and tree keys (``repro.models.transformer``): an MoE model's
+leading ``first_k_dense`` dense blocks sit under ``"dense_layers"`` and its
+MoE blocks under ``"layers"``, while its KV caches and pools stay one
+``(L, ...)`` tensor over all layers.  Layers run as a Python loop over the
 stacked axis.
 
 Under a tensor-parallel serving plan (``sharding.context.serving_plan``,
-installed by the engine) the dense family's paged decode step and chunked
-prefill run the plan's dataflow instead: per-shard parameter trees and KV
-pools, replicated work once on the plan's first device, sharded work once
-per shard, and the collectives of ``serving.sharded.ShardingPlan``
-(``_sharded_*`` below).
+installed by the engine) the paged decode step and chunked prefill of the
+attention families run the plan's dataflow instead: per-shard parameter
+trees and KV pools, replicated work once on the plan's first device,
+sharded work once per shard, and the collectives of
+``serving.sharded.ShardingPlan`` (``_sharded_*`` below).
 
-The encoder-decoder family is in ``encdec.py``.  The MoE and VLM
-families are not ported yet: building them raises
-``NotImplementedError`` naming their ROADMAP item.
+The encoder-decoder family is in ``encdec.py``.
 """
 
 from __future__ import annotations
@@ -24,38 +25,40 @@ from __future__ import annotations
 import torch
 
 from ..sharding.context import (attn_split_count, constrain_attn_split,
-                                constrain_kv_heads, constrain_q_heads,
-                                gather_model, serving_plan)
+                                constrain_expert_buf, constrain_kv_heads,
+                                constrain_q_heads, gather_model,
+                                serving_plan)
 from .attention import decode_attention, decode_attention_paged, \
     gqa_attention
 from .config import ModelConfig
 from .layers import (ParamSpec, apply_rope, attention_template, linear, mlp,
                      mlp_template, norm_template, rms_norm)
+from .moe import (expert_group, expert_mlp, moe_combine, moe_ffn,
+                  moe_route, moe_template)
 from .ssm import (mamba2_block, mamba2_decode_step, ssm_state_shape,
                   ssm_template)
 
 __all__ = ["decoder_template", "decoder_forward", "decoder_decode_step",
            "decoder_decode_step_paged", "decoder_prefill_chunk",
-           "init_cache_shapes", "paged_cache_shapes", "require_ported"]
+           "init_cache_shapes", "paged_cache_shapes"]
 
-_PORTED = ("dense", "ssm", "hybrid", "encdec")
-_NOT_PORTED = {
-    "moe": "ROADMAP Queue A 6 (MoE and VLM families)",
-    "vlm": "ROADMAP Queue A 6 (MoE and VLM families)",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet ({_NOT_PORTED.get(cfg.family, 'ROADMAP')})")
+# the families whose every layer is an attention block
+_ATTN = ("dense", "vlm", "moe")
 
 
 def _layer(stacked: dict, i: int) -> dict:
     """Layer ``i`` of a stacked ``(L, ...)`` parameter subtree (views)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def _attn_layers(cfg: ModelConfig, params) -> list[dict]:
+    """The attention blocks of an attention family in cache order: an MoE
+    model's ``first_k_dense`` dense blocks, then its MoE blocks."""
+    fk = cfg.first_k_dense if cfg.family == "moe" else 0
+    return ([_layer(params["dense_layers"], i) for i in range(fk)]
+            + [_layer(params["layers"], i)
+               for i in range(cfg.n_layers - fk)])
 
 
 def _window(cfg: ModelConfig) -> int:
@@ -74,27 +77,40 @@ def _groups(cfg: ModelConfig) -> list[range]:
 
 # ------------------------------------------------------------------ template
 
-def _dense_template(cfg: ModelConfig, layers: int | None):
+def _block_template(cfg: ModelConfig, layers: int | None, *,
+                    moe: bool = False, d_ff: int = 0):
+    """An attention block: MLP of width ``d_ff`` (``cfg.d_ff`` if 0), or
+    the MoE FFN."""
     D = cfg.d_model
-    return {"ln1": norm_template(D, layers), "ln2": norm_template(D, layers),
-            "attn": attention_template(cfg, layers),
-            "mlp": mlp_template(D, cfg.d_ff, cfg.activation, layers)}
+    t = {"ln1": norm_template(D, layers), "ln2": norm_template(D, layers),
+         "attn": attention_template(cfg, layers)}
+    if moe:
+        t["moe"] = moe_template(cfg, layers)
+    else:
+        t["mlp"] = mlp_template(D, d_ff or cfg.d_ff, cfg.activation, layers)
+    return t
 
 
 def decoder_template(cfg: ModelConfig):
-    require_ported(cfg)
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     t = {
         "embed": ParamSpec((V, D), torch.bfloat16, ("vocab", "embed")),
         "final_norm": norm_template(D),
     }
-    if cfg.family == "dense":
-        t["layers"] = _dense_template(cfg, L)
-    else:
+    if cfg.family in ("dense", "vlm"):
+        t["layers"] = _block_template(cfg, L)
+    elif cfg.family == "moe":
+        fk = cfg.first_k_dense
+        if fk:
+            t["dense_layers"] = _block_template(cfg, fk, d_ff=cfg.dense_d_ff)
+        t["layers"] = _block_template(cfg, L - fk, moe=True)
+    elif cfg.family in ("ssm", "hybrid"):
         t["layers"] = {"ln": norm_template(D, L),
                        "ssm": ssm_template(cfg, L)}
         if cfg.family == "hybrid":
-            t["shared_attn"] = _dense_template(cfg, None)   # one block
+            t["shared_attn"] = _block_template(cfg, None)   # one block
+    else:
+        raise ValueError(f"decoder_template: bad family {cfg.family}")
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamSpec((D, V), torch.bfloat16, ("embed", "vocab"))
     return t
@@ -133,16 +149,25 @@ def _logits(params, cfg, h):
 
 # ------------------------------------------------------- sequence forward
 
+def _ffn(cfg, lp, x, *, decode: bool):
+    """The block's FFN on its normed input: (out, aux loss); the MoE FFN
+    where the block has one, which drops no token when ``decode``."""
+    if "moe" in lp:
+        return moe_ffn(lp["moe"], x, cfg, decode=decode)
+    return mlp(lp["mlp"], x, cfg.activation), None
+
+
 def _dense_block_seq(cfg, lp, h, positions, window):
-    """One attention + MLP block over a sequence; returns (h, k, v)."""
+    """One attention + FFN block over a sequence; returns (h, k, v, aux)
+    (aux None for an MLP block)."""
     q, k, v = _qkv(cfg, lp["attn"], rms_norm(lp["ln1"], h, cfg.norm_eps),
                    positions)
     o = gqa_attention(q, k, v, causal=True, window=window,
                       positions=positions)
     h = h + _wo_proj(lp["attn"], o)
-    h = h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
-                cfg.activation)
-    return h, k, v
+    f, aux = _ffn(cfg, lp, rms_norm(lp["ln2"], h, cfg.norm_eps),
+                  decode=False)
+    return h + f, k, v, aux
 
 
 def _ssm_block_seq(cfg, lp, h, lengths):
@@ -151,27 +176,34 @@ def _ssm_block_seq(cfg, lp, h, lengths):
     return h + out, state
 
 
-def decoder_forward(params, cfg: ModelConfig, tokens, positions=None, *,
-                    collect_cache: bool = False, lengths=None):
+def decoder_forward(params, cfg: ModelConfig, tokens, positions=None,
+                    frontend_embeds=None, *, collect_cache: bool = False,
+                    lengths=None):
     """Full-sequence forward (prefill).  tokens: (B, S) int.
-    ``lengths`` (B,) int: true row lengths of an end-padded batch, threaded
-    into the SSM recurrence (pads leave the state unchanged); the
-    attention is causal, so end pads never reach a valid position.
-    Returns (logits (B, S, V), cache or None, aux loss 0).  The cache is
-    {"k", "v"}: (L or G, B, S, KV, dh) in the compute dtype, and for the
-    recurrent families {"ssm": {"ssd": (L, B, H, P, N) f32,
-    "conv": (L, B, K-1, DI)}}."""
-    require_ported(cfg)
+    ``frontend_embeds`` (B, P, D), optional: patch embeddings prepended to
+    the tokens' (the VLM's stubbed vision frontend), positions then
+    0 .. P + S - 1.  ``lengths`` (B,) int: true row lengths of an
+    end-padded batch, threaded into the SSM recurrence (pads leave the
+    state unchanged); the attention is causal, so end pads never reach a
+    valid position.  Returns (logits (B, S, V), cache or None, aux loss:
+    the MoE layers' summed load-balance loss, f32, 0 for the other
+    families).  The cache is {"k", "v"}: (L or G, B, S, KV, dh) in the
+    compute dtype, and for the recurrent families {"ssm": {"ssd": (L, B,
+    H, P, N) f32, "conv": (L, B, K-1, DI)}}."""
     h = params["embed"][tokens.long()]
+    if frontend_embeds is not None:
+        h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
     s = h.shape[1]
     if positions is None:
         positions = torch.arange(s, device=h.device)
     window = _window(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs, states = [], [], []
-    if cfg.family == "dense":
-        for i in range(cfg.n_layers):
-            h, k, v = _dense_block_seq(cfg, _layer(params["layers"], i), h,
-                                       positions, window)
+    if cfg.family in _ATTN:
+        for lp in _attn_layers(cfg, params):
+            h, k, v, a = _dense_block_seq(cfg, lp, h, positions, window)
+            if a is not None:
+                aux = aux + a
             ks.append(k)
             vs.append(v)
     else:
@@ -181,20 +213,20 @@ def decoder_forward(params, cfg: ModelConfig, tokens, positions=None, *,
                                        lengths)
                 states.append(st)
             if cfg.family == "hybrid":
-                h, k, v = _dense_block_seq(cfg, params["shared_attn"], h,
-                                           positions, window)
+                h, k, v, _ = _dense_block_seq(cfg, params["shared_attn"], h,
+                                              positions, window)
                 ks.append(k)
                 vs.append(v)
     logits = _logits(params, cfg, h)
     if not collect_cache:
-        return logits, None, torch.zeros((), device=h.device)
+        return logits, None, aux
     cache = {}
     if ks:
         cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
     if states:
         cache["ssm"] = {name: torch.stack([st[name] for st in states])
                         for name in ("ssd", "conv")}
-    return logits, cache, torch.zeros((), device=h.device)
+    return logits, cache, aux
 
 
 # ------------------------------------------------------- dense-cache decode
@@ -205,9 +237,8 @@ def init_cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
     (G = ceil(L / every) group layers for the hybrid; a ring of max_len
     slots under a sliding window) and, for the recurrent families,
     {"ssm": {"ssd" f32, "conv" bf16}} per row."""
-    require_ported(cfg)
     out = {}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in _ATTN + ("hybrid",):
         n_kv = len(_groups(cfg)) if cfg.family == "hybrid" else cfg.n_layers
         shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         out["k"] = (shape, torch.bfloat16)
@@ -248,8 +279,8 @@ def _dense_block_decode(cfg, lp, h, k_cache, v_cache, cache_len, *,
     h = h + _attn_decode(cfg, lp["attn"],
                          rms_norm(lp["ln1"], h, cfg.norm_eps), k_cache,
                          v_cache, cache_len, window=window)
-    return h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
-                   cfg.activation)
+    return h + _ffn(cfg, lp, rms_norm(lp["ln2"], h, cfg.norm_eps),
+                    decode=True)[0]
 
 
 def decoder_decode_step(params, cfg: ModelConfig, token, cache, cache_len):
@@ -263,14 +294,12 @@ def decoder_decode_step(params, cfg: ModelConfig, token, cache, cache_len):
     and the caller's cache is no longer the pre-step cache.  The
     recurrent families advance every row's state whatever ``cache_len``
     is, as the reference does."""
-    require_ported(cfg)
     h = params["embed"][token.long()]                      # (B,1,D)
     window = _window(cfg)
-    if cfg.family == "dense":
-        for i in range(cfg.n_layers):
-            h = _dense_block_decode(
-                cfg, _layer(params["layers"], i), h, cache["k"][i],
-                cache["v"][i], cache_len, window=window)
+    if cfg.family in _ATTN:
+        for i, lp in enumerate(_attn_layers(cfg, params)):
+            h = _dense_block_decode(cfg, lp, h, cache["k"][i], cache["v"][i],
+                                    cache_len, window=window)
         return _logits(params, cfg, h), cache
     for gi, group in enumerate(_groups(cfg)):
         for i in group:
@@ -296,9 +325,8 @@ def paged_cache_shapes(cfg: ModelConfig, n_pages: int, page_size: int,
     held in the compute dtype ``conv_dtype`` (bf16 on the card, as the
     reference declares it), the dtype the decode step returns it in: a
     bf16 tail under f32 weights would round the state every step."""
-    require_ported(cfg)
     out = {}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in _ATTN + ("hybrid",):
         n_kv = len(_groups(cfg)) if cfg.family == "hybrid" else cfg.n_layers
         shape = (n_kv, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
         out["k"] = (shape, torch.bfloat16)
@@ -348,8 +376,8 @@ def _dense_block_decode_paged(cfg, lp, h, k_pool, v_pool, cache_len,
     h = h + _attn_decode_paged(
         cfg, lp["attn"], rms_norm(lp["ln1"], h, cfg.norm_eps), k_pool,
         v_pool, cache_len, block_tables, window=window, page=page)
-    return h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
-                   cfg.activation)
+    return h + _ffn(cfg, lp, rms_norm(lp["ln2"], h, cfg.norm_eps),
+                    decode=True)[0]
 
 
 def _ssm_decode(cfg, lp, h, ssm_cache, i, active):
@@ -376,7 +404,6 @@ def decoder_decode_step_paged(params, cfg: ModelConfig, token, cache,
     ``active`` (B,) bool, optional (recurrent families): rows where it is
     False keep their recurrent state bit-unchanged, which is what the
     reference's fused step gets by selecting the old state back."""
-    require_ported(cfg)
     plan = serving_plan()
     if plan is not None and plan.shards_model:
         return _sharded_decode_step_paged(plan, params, cfg, token, cache,
@@ -384,12 +411,11 @@ def decoder_decode_step_paged(params, cfg: ModelConfig, token, cache,
                                           page=page_size)
     h = params["embed"][token.long()]                      # (B,1,D)
     window = _window(cfg)
-    if cfg.family == "dense":
-        for i in range(cfg.n_layers):
+    if cfg.family in _ATTN:
+        for i, lp in enumerate(_attn_layers(cfg, params)):
             h = _dense_block_decode_paged(
-                cfg, _layer(params["layers"], i), h, cache["k"][i],
-                cache["v"][i], cache_len, block_tables, window=window,
-                page=page_size)
+                cfg, lp, h, cache["k"][i], cache["v"][i], cache_len,
+                block_tables, window=window, page=page_size)
         return _logits(params, cfg, h), cache
     for gi, group in enumerate(_groups(cfg)):
         for i in group:
@@ -426,9 +452,10 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, tokens, past_k, past_v,
     tokens: (1, C) chunk (C may be padded); past_k/past_v:
     (L, 1, S_past, KV, dh) gathered prefix KV, where S_past may exceed the
     true prefix and ``start`` (the chunk's first position) masks the tail.
+    The MoE FFN routes the whole padded chunk (its capacity follows C), as
+    the reference's does.
     Returns (k_chunk, v_chunk): (L, 1, C, KV, dh)."""
-    require_ported(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in _ATTN:
         raise ValueError(f"chunked prefill unsupported for {cfg.family}")
     plan = serving_plan()
     if plan is not None and plan.shards_model:
@@ -439,8 +466,7 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, tokens, past_k, past_v,
                                                start, h.device)
     window = _window(cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_attn_layers(cfg, params)):
         q, k, v = _qkv(cfg, lp["attn"],
                        rms_norm(lp["ln1"], h, cfg.norm_eps), positions)
         kf = torch.cat([past_k[i].to(k.dtype), k], dim=1)
@@ -448,8 +474,8 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, tokens, past_k, past_v,
         o = gqa_attention(q, kf, vf, causal=True, window=window,
                           positions=positions, kv_positions=kv_positions)
         h = h + _wo_proj(lp["attn"], o)
-        h = h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
-                    cfg.activation)
+        h = h + _ffn(cfg, lp, rms_norm(lp["ln2"], h, cfg.norm_eps),
+                     decode=False)[0]
         ks.append(k)
         vs.append(v)
     return torch.stack(ks), torch.stack(vs)
@@ -457,9 +483,9 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, tokens, past_k, past_v,
 
 # ------------------------------------------------ tensor-parallel serving
 #
-# The dense family under ``serving.sharded.ShardingPlan``: ``params`` is the
-# list of per-shard trees and ``cache`` the list of per-shard pools.  x, h
-# and every replicated value live on the plan's first device.
+# The attention families under ``serving.sharded.ShardingPlan``: ``params``
+# is the list of per-shard trees and ``cache`` the list of per-shard pools.
+# x, h and every replicated value live on the plan's first device.
 
 
 def _sharded_embed(plan, params, tokens):
@@ -490,13 +516,48 @@ def _sharded_logits(plan, params, cfg, h):
                                                           plan.devices)]
 
 
-def _sharded_mlp(plan, cfg, lps, x):
-    """Column-parallel up/gate, row-parallel down, one psum; replicated on
+def _sharded_mlp(plan, cfg, mps, x):
+    """An MLP under the plan (``mps``: its per-shard parameter trees):
+    column-parallel up/gate, row-parallel down, one psum; replicated on
     the first device when the mlp does not shard."""
     if not plan.mlp_sharded:
-        return mlp(lps[0]["mlp"], x, cfg.activation)
-    return plan.psum([mlp(lp["mlp"], x.to(dev), cfg.activation)
-                      for lp, dev in zip(lps, plan.devices)])
+        return mlp(mps[0], x, cfg.activation)
+    return plan.psum([mlp(mp, x.to(dev), cfg.activation)
+                      for mp, dev in zip(mps, plan.devices)])
+
+
+def _sharded_moe(plan, cfg, mps, x, *, decode: bool):
+    """The MoE FFN under the plan (``mps``: its per-shard parameter
+    trees); returns (B, S, D) on the first device, the counterpart of the
+    reference's ``constrain_expert_buf`` and ``gather_model``.  Router,
+    top-K and dispatch run once on the first device; with the experts
+    sharded each shard runs its E / tp experts on its slice of the
+    capacity buffer, in GEMM calls of the unsharded path's shape
+    (``moe.expert_group``), and the slices are all-gathered in shard
+    order.  The pick and the K-way sum run replicated, in the unsharded
+    order, so the experts add no arithmetic of their own to the plan.
+    The shared experts are an MLP (``_sharded_mlp``: one psum where the
+    mlp axis shards)."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    buf, row, w, _ = moe_route(mps[0], xf, cfg, decode=decode)
+    group = expert_group(cfg.n_experts)
+    out_buf = gather_model([
+        expert_mlp(mp, part, cfg.activation, group)
+        for mp, part in zip(mps, constrain_expert_buf(buf))], dim=0)
+    out = moe_combine(out_buf, row, w, b * s, cfg.experts_per_token)
+    if cfg.n_shared_experts > 0:
+        out = out + _sharded_mlp(plan, cfg, [mp["shared"] for mp in mps], xf)
+    return out.reshape(b, s, d)
+
+
+def _sharded_ffn(plan, cfg, lps, x, *, decode: bool):
+    """The block's FFN under the plan (``lps``: the per-shard layer
+    trees)."""
+    if "moe" in lps[0]:
+        return _sharded_moe(plan, cfg, [lp["moe"] for lp in lps], x,
+                            decode=decode)
+    return _sharded_mlp(plan, cfg, [lp["mlp"] for lp in lps], x)
 
 
 def _shard_cfg(plan, cfg):
@@ -553,18 +614,21 @@ def _sharded_attn_decode(plan, cfg, scfg, lps, x, pools, cache_len,
 
 def _sharded_decode_step_paged(plan, params, cfg, token, caches, cache_len,
                                block_tables, *, page: int):
-    """``decoder_decode_step_paged`` of the dense family under the plan."""
+    """``decoder_decode_step_paged`` of an attention family under the
+    plan."""
     h = _sharded_embed(plan, params, token)
     window = _window(cfg)
     scfg = _shard_cfg(plan, cfg)
+    layers = [_attn_layers(cfg, p) for p in params]
     for i in range(cfg.n_layers):
-        lps = [_layer(p["layers"], i) for p in params]
+        lps = [ls[i] for ls in layers]
         pools = [(c["k"][i], c["v"][i]) for c in caches]
         h = h + _sharded_attn_decode(
             plan, cfg, scfg, lps, rms_norm(lps[0]["ln1"], h, cfg.norm_eps),
             pools, cache_len, block_tables, window=window, page=page)
-        h = h + _sharded_mlp(plan, cfg, lps,
-                             rms_norm(lps[0]["ln2"], h, cfg.norm_eps))
+        h = h + _sharded_ffn(plan, cfg, lps,
+                             rms_norm(lps[0]["ln2"], h, cfg.norm_eps),
+                             decode=True)
     return _sharded_logits(plan, params, cfg, h), caches
 
 
@@ -610,7 +674,7 @@ def _sharded_attn_chunk(plan, cfg, scfg, lps, x, past_k, past_v, positions,
 
 def _sharded_prefill_chunk(plan, params, cfg, tokens, past_k, past_v,
                            start: int):
-    """``decoder_prefill_chunk`` of the dense family under the plan.
+    """``decoder_prefill_chunk`` of an attention family under the plan.
     past_k/past_v: per-shard lists of (L, 1, S_past, KV_s, dh).  Returns
     the chunk's full-head (k, v): (L, 1, C, KV, dh) on the first device."""
     h = _sharded_embed(plan, params, tokens)
@@ -618,16 +682,18 @@ def _sharded_prefill_chunk(plan, params, cfg, tokens, past_k, past_v,
                                                start, h.device)
     window = _window(cfg)
     scfg = _shard_cfg(plan, cfg)
+    layers = [_attn_layers(cfg, p) for p in params]
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lps = [_layer(p["layers"], i) for p in params]
+        lps = [ls[i] for ls in layers]
         a, k, v = _sharded_attn_chunk(
             plan, cfg, scfg, lps, rms_norm(lps[0]["ln1"], h, cfg.norm_eps),
             [pk[i] for pk in past_k], [pv[i] for pv in past_v], positions,
             kv_positions, window)
         h = h + a
-        h = h + _sharded_mlp(plan, cfg, lps,
-                             rms_norm(lps[0]["ln2"], h, cfg.norm_eps))
+        h = h + _sharded_ffn(plan, cfg, lps,
+                             rms_norm(lps[0]["ln2"], h, cfg.norm_eps),
+                             decode=False)
         ks.append(k)
         vs.append(v)
     return torch.stack(ks), torch.stack(vs)

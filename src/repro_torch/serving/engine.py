@@ -54,8 +54,9 @@ keeps per-shard weights and KV pools, runs its model calls under the
 plan's hooks, gathers swap payloads to full-head host tensors and cuts
 them again on swap-in, and samples vocab-sharded logits partitioned (only
 the winning token crosses shards).  The host loop, the scheduler, the KV
-manager and its block tables stay single and shard-invariant.  Only the
-dense family runs sharded; a 1x1 mesh serves every family.
+manager and its block tables stay single and shard-invariant.  The
+attention families (dense, MoE with its experts sharded, VLM) run
+sharded; a 1x1 mesh serves every family.
 ``device_memory_gb`` refuses, before anything is allocated, an engine
 whose per-device weights, pool and workspace exceed it.
 
@@ -223,7 +224,7 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"tensor-parallel serving of the {self.model.cfg.family} "
                     "family (tp > 1) is not ported yet: ROADMAP Queue A 16")
-        # the dense family under a plan keeps per-shard weights and pools
+        # an attention family under a plan keeps per-shard weights and pools
         self._sharded = self.plan is not None and self.plan.shards_model
         # KVCacheManager is host bookkeeping: built before the preflight
         # so pool_blocks feeds the estimate before anything is allocated

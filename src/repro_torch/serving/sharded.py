@@ -26,19 +26,22 @@ dataflow eagerly (``models.transformer``, under ``context()``): work on
 replicated values runs once on the first device, sharded work once per
 shard.
 
-``parallel="exact"`` shards only the pool: attention runs per shard over
-its kv heads and every GEMM keeps its unsharded shape, so the streams
-are token-identical to one device.  ``parallel="efficient"`` adds the
+``parallel="exact"`` shards only the pool and the MoE experts: attention
+runs per shard over its kv heads, each shard runs its E / tp experts on
+its slice of the capacity buffer, and every GEMM keeps its unsharded
+shape, so the streams are token-identical to one device.  ``parallel="efficient"`` adds the
 Megatron axes: column-parallel wq/wk/wv and MLP up/gate, row-parallel
-wo/down (one psum each), vocab-sharded embedding and logits (sampling
+wo/down (one psum each; the MoE shared experts and an MoE model's
+leading dense blocks are MLPs too), vocab-sharded embedding and logits
+(sampling
 partitioned: only the winning token crosses shards), and, when the kv
 heads do not divide, the LSE split of the logical page axis, one stripe
 per shard.  It is held to the tolerance contract
 (``testing.assert_tokens_close``).
 
-Only the dense family runs sharded (``shards_model``); a 1x1 mesh serves
-every family through the single-device path, and the engine refuses the
-others at tp > 1.
+The attention families (dense, MoE, VLM) run sharded (``shards_model``);
+a 1x1 mesh serves every family through the single-device path, and the
+engine refuses the recurrent ones at tp > 1.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ class ShardingPlan:
     n_heads: int
     n_kv_heads: int
     attn_splits: int              # LSE page stripes (1 = no split)
-    shards_model: bool            # the dense family runs sharded
+    shards_model: bool            # an attention family: runs sharded
     tensor_rows: tuple            # per-tensor byte/spec accounting rows
     warnings: tuple               # big-weight replication-fallback notes
 
@@ -103,7 +106,8 @@ class ShardingPlan:
             n_kv_heads=cfg.n_kv_heads,
             attn_splits=int(report["attn_splits"])
             if parallel == "efficient" else 1,
-            shards_model=cfg.family == "dense", tensor_rows=rows,
+            shards_model=cfg.family in ("dense", "moe", "vlm"),
+            tensor_rows=rows,
             warnings=warns)
 
     # ------------------------------------------------------------ layout
@@ -125,6 +129,11 @@ class ShardingPlan:
     @property
     def mlp_sharded(self) -> bool:
         return self.rules.get("mlp") is not None
+
+    @property
+    def experts_sharded(self) -> bool:
+        """Expert parallelism: shard s holds experts [s E/tp, (s+1) E/tp)."""
+        return self.rules.get("expert") is not None
 
     @property
     def vocab_sharded(self) -> bool:
@@ -162,6 +171,15 @@ class ShardingPlan:
                 else (sl.stop - sl.start) * rep
             out.append(x.narrow(-2, start, width).to(dev))
         return out
+
+    def split_experts(self, x) -> list:
+        """Cut (E, ...) into shard s's experts, each on its shard's device;
+        ``[x]`` where the experts do not shard."""
+        if not self.experts_sharded:
+            return [x]
+        n = x.shape[0] // self.tp
+        return [x[s * n:(s + 1) * n].to(dev)
+                for s, dev in enumerate(self.devices)]
 
     def place_params(self, params):
         """Per-shard parameter trees (the tree itself when the family does

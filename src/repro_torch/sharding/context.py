@@ -18,8 +18,8 @@ import contextlib
 import threading
 
 __all__ = ["serving_sharding", "serving_plan", "gather_model",
-           "constrain_q_heads", "constrain_kv_heads", "attn_split_count",
-           "constrain_attn_split"]
+           "constrain_q_heads", "constrain_kv_heads", "constrain_expert_buf",
+           "attn_split_count", "constrain_attn_split"]
 
 _state = threading.local()
 
@@ -53,6 +53,15 @@ def constrain_kv_heads(x):
     context."""
     plan = serving_plan()
     return [x] if plan is None else plan.split_heads(x, q_heads=False)
+
+
+def constrain_expert_buf(buf):
+    """Cut an (E, C, D) MoE capacity buffer into the per-shard expert
+    slices of an expert-parallel plan (shard s: experts [s E/tp,
+    (s+1) E/tp)), each on its shard's device.  ``[buf]`` outside a
+    serving context or where the experts do not shard."""
+    plan = serving_plan()
+    return [buf] if plan is None else plan.split_experts(buf)
 
 
 def attn_split_count() -> int:

@@ -299,9 +299,9 @@ def test_gumbel_noise_is_a_pure_function_of_its_keys():
 
 
 def test_unported_options_refuse():
-    """tp > 1 for the recurrent families raises naming its ROADMAP item
-    (the dense family's tp and the memory preflight are
-    tests/test_torch_sharded.py's)."""
+    """tp > 1 for the recurrent families (SSM and hybrid) raises naming
+    its ROADMAP item (the attention families' tp -- dense, MoE, VLM --
+    and the memory preflight are tests/test_torch_sharded.py's)."""
     sched = port_core.Scheduler(policy="sagesched")
     for arch, kw, item in (
             ("mamba2-2.7b", {"tp": 2}, "Queue A 16"),

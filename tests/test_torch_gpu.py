@@ -1,12 +1,14 @@
 """CUDA kernels and the engine on the card: each hand-written kernel
 against its plain PyTorch version(s) in bf16, the engine's fused path
 against its orchestrated path under the tolerance contract, for the dense,
-SSM and hybrid families, the dense-cache Model.decode_step (the
+SSM and hybrid families, the MoE FFN against its CPU run, the dense-cache
+Model.decode_step (the
 encoder-decoder, mamba2 and zamba2 held to a teacher-forced forward, and
 llama3.2-1b against its paged decode), and tensor-parallel serving with
 every shard on the one card (the partial (out, lse) kernel stripe by
 stripe and across its sub-splits, the LSE split merged against the
-unsplit kernel, exact tp = 2 token-identical to no mesh).  The flash
+unsplit kernel, exact tp = 2 token-identical to no mesh, for the MoE
+family with its experts sharded too).  The flash
 kernel is held at ragged query and key counts, GQA ratios 1 to 6, head
 dims 64, 128 and 192, causal and not, masked prefix tiles and a
 straddling window; the paged, partial and dense decode kernels at
@@ -19,7 +21,9 @@ same padded inputs, with one counted launch a refresh and a staging
 buffer reused across shapes.  Prefix sharing is held ON == OFF under the
 decode steps' CUDA graphs (multi-turn sessions, a cached-tier
 re-adoption, preemption of requests holding adopted blocks), and a
-Gateway deadline abort leaves a graphed engine quiesced.
+Gateway deadline abort leaves a graphed engine quiesced.  The decode
+steps of the dense, MoE, VLM, SSM and hybrid engines are held graphed
+against eager (the MoE FFN captures: it reads nothing back to the host).
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -59,6 +63,8 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_reference,
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build_model
 from repro_torch.models.attention import decode_attention_paged
+from repro_torch.models.layers import init_from_template
+from repro_torch.models.moe import moe_ffn, moe_template
 from repro_torch.testing import assert_tokens_close
 from repro_torch.testing.generate import (dense_cache_from_prefill,
                                           greedy_generate,
@@ -1144,6 +1150,50 @@ def test_cuda_engine_tp2_exact_token_identical(cuda, step_mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
+def test_cuda_engine_moe_tp2_exact_token_identical(cuda, step_mode):
+    """A reduced olmoe-1b-7b, exact tp = 2 with both shards on the card:
+    each shard runs its two experts in GEMM calls of the unsharded path's
+    shape, and the streams are token-identical to the engine without a
+    mesh."""
+    cfg = get_config("olmoe-1b-7b", reduced=True)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    _, want = _tp_engine_run(cuda, cfg, params, step_mode=step_mode)
+    n0 = PAGED_DECODE_KERNEL.launches
+    eng, got = _tp_engine_run(cuda, cfg, params, tp=2, step_mode=step_mode)
+    assert got == want
+    assert eng.metrics.preemptions > 0
+    assert eng.sharding_report()["experts"] == "sharded"
+    assert eng.params[1]["layers"]["moe"]["w_in"].shape[1] \
+        == cfg.n_experts // 2
+    assert PAGED_DECODE_KERNEL.launches - n0 \
+        == cfg.n_layers * 2 * eng.metrics.decode_iterations
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("n,decode", [(8, True), (256, False)])
+def test_cuda_moe_ffn_vs_cpu(cuda, arch, n, decode):
+    """One MoE layer at full width on the card against the same call on
+    a CPU copy of its weights and input: the same experts (the f32 router
+    product), outputs within BF16_TOL."""
+    cfg = get_config(arch)
+    params = init_from_template(moe_template(cfg),
+                                torch.Generator(device=cuda).manual_seed(3))
+    x = torch.randn((1, n, cfg.d_model), generator=torch.Generator(
+        device=cuda).manual_seed(4), device=cuda).bfloat16()
+    got, aux = moe_ffn(params, x, cfg, decode=decode)
+    cpu = {k: (v.cpu() if torch.is_tensor(v)
+               else {kk: vv.cpu() for kk, vv in v.items()})
+           for k, v in params.items()}
+    want, want_aux = moe_ffn(cpu, x.cpu(), cfg, decode=decode)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu().float(), want.float(), **BF16_TOL)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
 def test_cuda_engine_lse_split_launches(cuda):
     """Efficient tp = 4 over 6 kv heads on the card: the LSE split, one
     partial launch per layer and stripe each decode call, no paged
@@ -1171,15 +1221,16 @@ def _graph_drive(cuda, cfg, params, *, graphs, step_mode, temperature,
     """The reduced engine drive of ``_tp_engine_run`` (sampled at
     ``temperature``), with the launches of every engine kernel."""
     before = [k.launches for k in ENGINE_KERNELS]
-    dense = cfg.family == "dense"
+    model = build_model(cfg)
+    chunked = model.supports_chunked_prefill
     eng = port_serving.ServingEngine(
-        model=build_model(cfg),
+        model=model,
         scheduler=port_core.Scheduler(policy="sagesched",
                                       priority_backend="cuda",
                                       bucket_size=8),
         n_slots=2, max_seq_len=96, capacity_tokens=48, block_size=8,
-        prefill_chunk=8 if dense else None,
-        max_tokens_per_step=12 if dense else None, step_mode=step_mode,
+        prefill_chunk=8 if chunked else None,
+        max_tokens_per_step=12 if chunked else None, step_mode=step_mode,
         decode_steps=decode_steps, params=params, device=cuda,
         parallel=parallel, graphs=graphs,
         mesh=None if tp is None else make_local_mesh(
@@ -1221,15 +1272,17 @@ def _hold_graphed_to_eager(cuda, cfg, params, **kw):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "olmoe-1b-7b",
+                                  "deepseek-moe-16b", "internvl2-76b"])
 @pytest.mark.parametrize("step_mode,decode_steps", [
     ("fused", 1), ("fused", 4), ("orchestrated", 1)])
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
 def test_cuda_graphed_decode_equals_eager(cuda, arch, step_mode,
                                           decode_steps, temperature):
-    """Reduced dense, SSM and hybrid engines: the decode steps replayed
-    from CUDA graphs give the eager (graphs=False) streams token for
-    token, greedy and sampled, with the eager launch counts."""
+    """Reduced dense, SSM, hybrid, MoE and VLM engines: the decode steps
+    replayed from CUDA graphs (the MoE FFN's routing and dispatch
+    captured) give the eager (graphs=False) streams token for token,
+    greedy and sampled, with the eager launch counts, one graph a key."""
     cfg = get_config(arch, reduced=True)
     params = build_model(cfg).init(
         torch.Generator(device=cuda).manual_seed(0))

@@ -1,7 +1,11 @@
-"""Dense decoder of the port (repro_torch.models) against the reference
-(repro.models) on reduced llama3.2-1b and qwen2-1.5b (qkv bias), and the
-dense-cache ``Model.decode_step`` of reduced llama3.2-1b (also with an
-8-slot sliding-window ring), mamba2-2.7b and zamba2-1.2b.
+"""Attention decoders of the port (repro_torch.models) against the
+reference (repro.models) on reduced llama3.2-1b, qwen2-1.5b (qkv bias),
+olmoe-1b-7b (MoE), deepseek-moe-16b (MoE with shared experts and a
+leading dense layer) and internvl2-76b (VLM, served on text alone), and
+the dense-cache ``Model.decode_step`` of the same three and of reduced
+llama3.2-1b (also with an 8-slot sliding-window ring), mamba2-2.7b and
+zamba2-1.2b.  The MoE prefill and chunk paths route with the configs'
+own capacity factor, so tokens drop there as in the reference.
 
 Both sides run the reference's own weights, upcast to f32 (jax 0.9 on
 the CPU cannot run a bf16 x bf16 -> f32 dot), carried into the port by
@@ -31,7 +35,8 @@ from repro_torch.models.layers import init_from_template
 # torch's default thread pool per worker would oversubscribe the CPU
 torch.set_num_threads(1)
 
-ARCHS = ["llama3.2-1b", "qwen2-1.5b"]
+ARCHS = ["llama3.2-1b", "qwen2-1.5b", "olmoe-1b-7b", "deepseek-moe-16b",
+         "internvl2-76b"]
 ATOL = 1e-4
 
 
@@ -192,18 +197,14 @@ def test_greedy_tokens_identical_16_steps(pair):
     assert got == want
 
 
-def test_other_families_not_ported():
-    for arch, item in (("olmoe-1b-7b", "Queue A 6"),
-                       ("internvl2-76b", "Queue A 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(get_config(arch, reduced=True))
-
-
 # -------------------------------------------------- dense-cache decode step
 
 # (arch, sliding-window ring of this many slots or 0, dense cache slots)
 DENSE_CASES = {"llama3.2-1b": ("llama3.2-1b", 0, 32),
                "llama3.2-1b-ring8": ("llama3.2-1b", 8, 8),
+               "olmoe-1b-7b": ("olmoe-1b-7b", 0, 32),
+               "deepseek-moe-16b": ("deepseek-moe-16b", 0, 32),
+               "internvl2-76b": ("internvl2-76b", 0, 32),
                "mamba2-2.7b": ("mamba2-2.7b", 0, 32),
                "zamba2-1.2b": ("zamba2-1.2b", 0, 32)}
 

@@ -11,7 +11,9 @@ tests/test_torch_engine.py) and holds the port's streams, engine counters
 and ``prefill_tokens_reused`` equal to the reference's, and the port's
 sharing-on run equal to its own sharing-off run.  The recurrent families
 cannot resume a prefill mid-context, so sharing is inert for them.  The
-MoE and VLM rows of the reference's matrix wait for those families.
+MoE (olmoe-1b-7b) and VLM (internvl2-76b) rows are the reference's too:
+a resumed chunk has the shape and tokens of the sharing-off chunk, so
+the MoE routes it with the same capacity.
 
 Also mirrored: session traffic through the Gateway, the session workload
 generator and the cluster simulator's node-level sharing, each held
@@ -35,8 +37,9 @@ from torch_sessions import session_drive
 
 torch.set_num_threads(1)
 
-FAMILIES = ["llama3.2-1b", "mamba2-2.7b", "zamba2-1.2b"]
-KV_CHUNKED = {"llama3.2-1b"}
+FAMILIES = ["llama3.2-1b", "mamba2-2.7b", "zamba2-1.2b", "olmoe-1b-7b",
+            "internvl2-76b"]
+KV_CHUNKED = {"llama3.2-1b", "olmoe-1b-7b", "internvl2-76b"}
 
 
 def _run(pkg, arch, *, sharing, pmode="swap", step_mode="fused",

@@ -4,7 +4,9 @@ reference (repro.sharding, repro.serving.sharded).
 
 The rule tables, the per-tensor byte rows and the memory estimate must
 equal the reference's.  The engine matrix of tests/test_sharded_serving.py
-runs for the dense family: every shard sits on the CPU through an
+runs for the dense family (qwen2-1.5b) and the MoE family (olmoe-1b-7b,
+experts sharded), with the reference's head and expert overrides: every
+shard sits on the CPU through an
 explicit ``devices=["cpu"] * tp`` (the reference's own tp > 1 cells need
 XLA host devices, which this suite does not set up), so the port's
 sharded engines are held to the reference's single-device engine on the
@@ -51,13 +53,14 @@ from repro_torch.testing import assert_tokens_close
 torch.set_num_threads(1)
 
 ARCH = "qwen2-1.5b"
-# heads overridden so that every width of the matrix divides them, as in
-# the reference's matrix; the non-dividing cases get their own tests
+# heads (and experts) overridden so that every width of the matrix divides
+# them, as in the reference's matrix; the non-dividing cases get their own
+# tests
 OV = (("n_heads", 8), ("n_kv_heads", 8))
 OV6 = (("n_heads", 6), ("n_kv_heads", 6))
+FAMILIES = {"dense": (ARCH, OV),
+            "moe": ("olmoe-1b-7b", OV + (("n_experts", 8),))}
 WIDTHS = [1, 2, 4]
-PORTED = [a for a in ARCH_IDS
-          if get_config(a).family in ("dense", "ssm", "hybrid", "encdec")]
 
 
 def _cpu_mesh(tp):
@@ -65,15 +68,15 @@ def _cpu_mesh(tp):
 
 
 @functools.lru_cache(maxsize=None)
-def _weights(ov):
-    cfg = ref_get_config(ARCH, reduced=True).with_overrides(**dict(ov))
+def _weights(arch, ov):
+    cfg = ref_get_config(arch, reduced=True).with_overrides(**dict(ov))
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
                         ref_build_model(cfg).init(jax.random.PRNGKey(0)))
     return jax.tree.map(jnp.asarray, tree), tree
 
 
 def _run(pkg, *, tp=None, parallel="exact", step_mode="fused",
-         pmode="swap", temperature=0.0, chunk=8, ov=OV):
+         pmode="swap", temperature=0.0, chunk=8, ov=OV, arch=ARCH):
     """The reference matrix's forcing workload (2 slots, a 32-token budget
     that preempts mid-decode, 3 requests) with chunked prefill, on the
     reference's f32-upcast weights; ``tp=None`` is the engine without a
@@ -82,8 +85,8 @@ def _run(pkg, *, tp=None, parallel="exact", step_mode="fused",
     core, serving = (ref_core, ref_serving) if ref \
         else (port_core, port_serving)
     cfg = (ref_get_config if ref else get_config)(
-        ARCH, reduced=True).with_overrides(**dict(ov))
-    jax_params, tree = _weights(ov)
+        arch, reduced=True).with_overrides(**dict(ov))
+    jax_params, tree = _weights(arch, ov)
     o = core.OraclePredictor()
     for i in range(3):
         o.register(f"p{i}", core.LengthDistribution(np.array([6 + 2 * i]),
@@ -114,10 +117,10 @@ def _run(pkg, *, tp=None, parallel="exact", step_mode="fused",
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(step_mode="fused", pmode="swap", chunk=8, ov=OV):
+def _reference(step_mode="fused", pmode="swap", chunk=8, ov=OV, arch=ARCH):
     """The reference's single-device greedy streams, once per cell."""
     eng, streams = _run("ref", step_mode=step_mode, pmode=pmode,
-                        chunk=chunk, ov=ov)
+                        chunk=chunk, ov=ov, arch=arch)
     assert eng.metrics.preemptions > 0
     return streams
 
@@ -135,9 +138,9 @@ def test_decode_rule_table_matches_reference(arch, tp, parallel):
 
 @pytest.mark.parametrize("parallel", ["exact", "efficient"])
 @pytest.mark.parametrize("tp", [1, 2, 4])
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_shard_bytes_and_estimate_match_reference(arch, tp, parallel):
-    """The per-tensor rows of every ported family's full template, and the
+    """The per-tensor rows of every family's full template, and the
     memory preflight's estimate of the decoder families."""
     cfg, rcfg = get_config(arch), ref_get_config(arch)
     rules, report = decode_rule_table(cfg, tp, parallel=parallel)
@@ -186,6 +189,7 @@ def test_context_hooks_are_identity_outside_a_plan():
     assert context.gather_model(x, 2) is x
     assert context.constrain_q_heads(x)[0] is x
     assert context.constrain_kv_heads(x)[0] is x
+    assert context.constrain_expert_buf(x)[0] is x
     assert context.constrain_attn_split([(x, x)]) is None
 
 
@@ -252,21 +256,46 @@ def test_partitioned_sampling_equals_the_unsharded_pick(all_greedy):
 
 # ------------------------------------------------------- engine matrix
 
+def _expert_report(eng, fam, tp):
+    """The MoE plan's experts: reported sharded, and each shard holding
+    its E / tp slice (rows and placed weights)."""
+    report = eng.sharding_report()
+    if fam != "moe":
+        assert report["experts"] == "n/a"
+        return
+    assert report["experts"] == "sharded" and eng.plan.experts_sharded
+    rows = [r for r in report["tensors"] if "'moe']['w_" in r["name"]]
+    assert rows and all(r["sharded"] and r["bytes_per_device"]
+                        == r["bytes"] // tp for r in rows)
+    router = next(r for r in report["tensors"] if "router" in r["name"])
+    assert not router["sharded"]
+    for shard in eng.params:
+        moe = shard["layers"]["moe"]
+        assert moe["w_in"].shape[1] == 8 // tp
+        assert moe["w_out"].shape[1] == 8 // tp
+        assert moe["router"].shape[-1] == 8
+
+
 @pytest.mark.parametrize("tp", WIDTHS)
 @pytest.mark.parametrize("pmode", ["swap", "recompute"])
 @pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
-def test_exact_mesh_matches_reference(step_mode, pmode, tp):
+@pytest.mark.parametrize("fam", sorted(FAMILIES))
+def test_exact_mesh_matches_reference(fam, step_mode, pmode, tp):
     """parallel="exact": the pool sharded over kv heads, attention per
-    shard, every GEMM unsharded: token-identical to the reference's
-    single-device engine, preemption mid-decode and all."""
-    want = _reference(step_mode, pmode)
-    eng, got = _run("port", tp=tp, step_mode=step_mode, pmode=pmode)
-    assert got == want, f"{step_mode}/{pmode}/tp={tp} diverged"
+    shard, the experts sharded, every GEMM of its unsharded shape:
+    token-identical to the reference's single-device engine, preemption
+    mid-decode and all."""
+    arch, ov = FAMILIES[fam]
+    want = _reference(step_mode, pmode, arch=arch, ov=ov)
+    eng, got = _run("port", tp=tp, step_mode=step_mode, pmode=pmode,
+                    arch=arch, ov=ov)
+    assert got == want, f"{fam}/{step_mode}/{pmode}/tp={tp} diverged"
     assert eng.metrics.preemptions > 0
     assert eng.plan is not None and eng.tp == tp
     report = eng.sharding_report()
     assert report["devices"] == tp and report["tp"] == tp
     assert report["attention"] == "sharded"
+    _expert_report(eng, fam, tp)
     assert len(eng._cache) == tp
     assert eng._cache[0]["k"].shape[3] == 8 // tp
     if step_mode == "fused":
@@ -274,31 +303,37 @@ def test_exact_mesh_matches_reference(step_mode, pmode, tp):
 
 
 @pytest.mark.parametrize("tp", [2, 4])
-def test_exact_mesh_sampled_streams_match_no_mesh(tp):
+@pytest.mark.parametrize("fam", sorted(FAMILIES))
+def test_exact_mesh_sampled_streams_match_no_mesh(fam, tp):
     """Sampled streams (temperature 0.7): exact mode is bit-identical to
     the port's engine without a mesh."""
-    _, want = _run("port", temperature=0.7)
-    _, got = _run("port", tp=tp, temperature=0.7)
+    arch, ov = FAMILIES[fam]
+    _, want = _run("port", temperature=0.7, arch=arch, ov=ov)
+    _, got = _run("port", tp=tp, temperature=0.7, arch=arch, ov=ov)
     assert got == want
 
 
 @pytest.mark.parametrize("tp", WIDTHS)
 @pytest.mark.parametrize("pmode", ["swap", "recompute"])
 @pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
-def test_efficient_mesh_within_tolerance(step_mode, pmode, tp):
+@pytest.mark.parametrize("fam", sorted(FAMILIES))
+def test_efficient_mesh_within_tolerance(fam, step_mode, pmode, tp):
     """parallel="efficient": column/row-parallel projections, vocab-sharded
-    embedding and logits with partitioned sampling; the reference's
-    greedy streams under the tolerance contract, bit-identical at tp=1."""
-    want = _reference(step_mode, pmode)
+    embedding and logits with partitioned sampling, the experts sharded as
+    in exact mode; the reference's greedy streams under the tolerance
+    contract, bit-identical at tp=1."""
+    arch, ov = FAMILIES[fam]
+    want = _reference(step_mode, pmode, arch=arch, ov=ov)
     eng, got = _run("port", tp=tp, step_mode=step_mode, pmode=pmode,
-                    parallel="efficient")
+                    parallel="efficient", arch=arch, ov=ov)
     assert_tokens_close(got, want, bit_identical=(tp == 1),
-                        label=f"{step_mode}/{pmode}/tp={tp}")
+                        label=f"{fam}/{step_mode}/{pmode}/tp={tp}")
     assert eng.metrics.preemptions > 0
     report = eng.sharding_report()
     assert report["parallel"] == "efficient"
     assert report["attention"] == "sharded"
     assert report["vocab"] == "sharded" and report["mlp"] == "sharded"
+    _expert_report(eng, fam, tp)
     if tp > 1:
         assert report["param_bytes_per_device"] < report["param_bytes"]
         assert report["replicated_bytes"] < 0.05 * report["param_bytes"]
@@ -330,22 +365,42 @@ def test_exact_fallback_replicates_non_dividing_heads():
 
 
 @pytest.mark.parametrize("parallel", ["exact", "efficient"])
-def test_mesh_chunked_prefill(parallel):
+@pytest.mark.parametrize("fam", sorted(FAMILIES))
+def test_mesh_chunked_prefill(fam, parallel):
     """4-token chunks scatter into the sharded pool through the per-shard
-    slices decode uses."""
-    want = _reference(chunk=4)
-    _, got = _run("port", tp=2, chunk=4, parallel=parallel)
+    slices decode uses (and route through the sharded experts)."""
+    arch, ov = FAMILIES[fam]
+    want = _reference(chunk=4, arch=arch, ov=ov)
+    _, got = _run("port", tp=2, chunk=4, parallel=parallel, arch=arch,
+                  ov=ov)
     assert_tokens_close(got, want, bit_identical=parallel == "exact")
 
 
 @pytest.mark.parametrize("parallel", ["exact", "efficient"])
-def test_mesh_swap_equals_recompute(parallel):
+@pytest.mark.parametrize("fam", sorted(FAMILIES))
+def test_mesh_swap_equals_recompute(fam, parallel):
     """The swap payload is a gather of the shards' slices and a scatter
     back: preemption history stays invisible to the streams."""
-    es, a = _run("port", tp=2, pmode="swap", parallel=parallel)
-    er, b = _run("port", tp=2, pmode="recompute", parallel=parallel)
+    arch, ov = FAMILIES[fam]
+    es, a = _run("port", tp=2, pmode="swap", parallel=parallel, arch=arch,
+                 ov=ov)
+    er, b = _run("port", tp=2, pmode="recompute", parallel=parallel,
+                 arch=arch, ov=ov)
     assert a == b
     assert es.metrics.swap_outs > 0 and er.metrics.preemptions > 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "internvl2-76b"])
+def test_exact_mesh_serves_the_other_attention_models(arch):
+    """deepseek-moe-16b (a dense first layer, shared experts; 4 experts
+    over tp 2) and internvl2-76b (the VLM's dense backbone, GQA with two
+    kv heads): exact tp 2 equals the reference's single-device greedy
+    streams."""
+    want = _reference(arch=arch, ov=())
+    eng, got = _run("port", tp=2, arch=arch, ov=())
+    assert got == want
+    assert eng.sharding_report()["experts"] == (
+        "sharded" if arch.startswith("deepseek") else "n/a")
 
 
 # ------------------------------------------------------ engine options

@@ -6,9 +6,9 @@
                                      # model under torch.profiler: device
                                      # busy share and the largest
                                      # device-time entries
-    python3 chip_smoke.py --kernels  # phases 1-3 and 6 only: every kernel
-                                     # check and time, no drive and no
-                                     # result line
+    python3 chip_smoke.py --kernels  # phases 1-3, 6 and 6c (a) only: every
+                                     # kernel check and time, no drive and
+                                     # no result line
 
 Phases:
   1. require CUDA; print the card's name and power limit;
@@ -177,10 +177,34 @@ Phases:
      Gittins kernel must launch; mean and p99 TTFT and TTLT of each and
      the requests whose metrics differ printed (the f32 kernel is not
      held bit-identical to numpy's float64);
+  6c. training, after every serving drive has freed its weights: (a) the
+     flash backward kernel (``csrc/flash_attention_bwd.cu``) against its
+     plain version (``attention_backward_reference``) on the training
+     forward's own O and LSE at BWD_CASES (llama3.2-1b's, qwen2-1.5b's and
+     nemotron-4-340b's head shapes, a window of 64, masked prefix rows
+     with a query offset, a bidirectional Sq 8 call), flat and peaked,
+     ``attn_check`` on each of dq, dk and dv; two calls bit-identical;
+     the LSE instance's O bit-identical to the serving instance's and its
+     LSE within LSE_TOL of the plain version's; each timed (device ms)
+     beside its bound and, at the three model shapes, SDPA's backward;
+     (b) llama3.2-1b at full width and depth trained TRAIN's 20 steps at B
+     8 x S 512 through ``make_train_step`` (seed 0, bf16 weights, f32
+     moments, lr 3e-3 on launch/train.py's schedule): every loss finite,
+     the last at least 0.2 below the first, the flash launches exact (two
+     LSE forwards a layer under remat, one backward, no serving launch),
+     s/step, tokens/s, peak GiB and the model-FLOP share printed, then
+     the params and state round-tripped through ``save_checkpoint`` /
+     ``load_checkpoint`` bit for bit; (c) qwen2-1.5b at full width cut to
+     2 layers, 5 steps, then grad accumulation 2 against 1 on one batch at
+     tests/test_training.py's bars; (d) olmoe-1b-7b at full width cut to
+     2 layers, 5 steps, its router aux loss finite and > 0; the losses of
+     (c) and (d) finite and falling; (e) a mamba2-2.7b train step (2
+     layers) refused with the SSD scan's missing-backward error;
   7. print one JSON line of per-kernel results (launches summed over
-     every serve and generate drive, the front door's and the
-     simulator's; the flash row counts both of the flash op's entry
-     points and names them), then the result line.
+     every serve and generate drive, the front door's, the simulator's
+     and the training drives'; the flash row counts the flash op's entry
+     points -- the serving instance, the key split and the training
+     forward's LSE instance -- and names them), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -218,9 +242,12 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_paged_reference)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    FLASH_PREFILL_KERNEL, HEAD_DIMS, flash_attention)
+    FLASH_BACKWARD_KERNEL, FLASH_PREFILL_KERNEL, FLASH_PREFILL_LSE_KERNEL,
+    HEAD_DIMS, flash_attention, flash_attention_backward,
+    flash_attention_lse, flash_key_ranges)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_reference)
+    attention_backward_reference, attention_reference)
+from repro_torch.kernels.grad_guard import BACKWARD_ITEM  # noqa: E402
 from repro_torch.kernels.bucketing import pow2_bucket  # noqa: E402
 from repro_torch.kernels.gittins.ops import (  # noqa: E402
     GITTINS_KERNEL, gittins_attained, gittins_attained_op, padded_rows)
@@ -230,7 +257,9 @@ from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
     SSD_SCAN_KERNEL, ssd_scan)
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked_reference, ssd_sequential_reference)
+from repro_torch.data import lm_batches  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.train import schedule_for as train_schedule  # noqa: E402,E501
 import repro_torch.models.moe as moe_module  # noqa: E402
 import repro_torch.models.transformer as transformer_module  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -243,10 +272,16 @@ from repro_torch.serving import (Gateway, GatewayConfig,  # noqa: E402
 from repro_torch.simulator import (generate_workload,  # noqa: E402
                                    make_profile, measure_scheduler_overhead,
                                    simulate_cluster)
-from repro_torch.testing import (VirtualClock,  # noqa: E402
-                                 assert_engine_quiesced, assert_tokens_close)
+from repro_torch.testing import (  # noqa: E402
+    GRAD_REL_BAR, GRAD_REL_BAR_MOE, VirtualClock, assert_engine_quiesced,
+    assert_tokens_close, grad_rel_errors)
 from repro_torch.testing.generate import (  # noqa: E402
     bf16_ulp, greedy_generate, teacher_forced_check)
+from repro_torch.training import (AdamW, load_checkpoint,  # noqa: E402
+                                  make_train_step, save_checkpoint)
+from repro_torch.training.train_loop import loss_and_grads  # noqa: E402
+from repro_torch.tree import (  # noqa: E402
+    tree_items, tree_leaves, tree_unflatten)
 
 # the flash op's key split for a few bidirectional queries (None over an
 # older package, timed with --kernels)
@@ -2274,9 +2309,7 @@ def phase_moe(dev) -> tuple[dict, tuple]:
 
 def param_bytes(node) -> int:
     """Bytes of a nested parameter dict."""
-    if isinstance(node, dict):
-        return sum(param_bytes(v) for v in node.values())
-    return node.numel() * node.element_size()
+    return sum(t.numel() * t.element_size() for t in tree_leaves(node))
 
 
 # --------------------------------------------------------------- phase 6
@@ -2589,6 +2622,438 @@ def phase_trace(cfg, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- phase 6c
+
+# the backward kernel's shapes: (label, B, Sq, H, KV, dh, causal, window,
+# S_past, start); S_past > 0 gathers a prefix of S_past rows before the
+# Sq queries at positions start.., the prefix rows at or past start masked
+# (kv position -10^9), as a chunked prefill does
+BWD_CASES = (
+    ("llama3.2-1b", 8, 512, 32, 8, 64, True, 0, 0, 0),
+    ("qwen2-1.5b", 8, 512, 12, 2, 128, True, 0, 0, 0),
+    ("nemotron-4-340b", 1, 1024, 96, 8, 192, True, 0, 0, 0),
+    ("window 64", 2, 512, 32, 8, 64, True, 64, 0, 0),
+    ("masked kv rows, query offset", 2, 256, 32, 8, 64, True, 0, 512, 448),
+    ("bidirectional Sq 8", 8, 8, 16, 16, 64, False, 0, 512, 512),
+)
+# the shapes timed beside SDPA's backward (causal, no window, no prefix)
+BWD_TIMED = ("llama3.2-1b", "qwen2-1.5b", "nemotron-4-340b")
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN = dict(batch=8, seq=512, steps=20, lr=3e-3, min_drop=0.2)
+# (arch, cut, steps, lr): full width, cut depth.  qwen2 at the learning
+# rate of tests/test_training.py's loss and accumulation tests; its first
+# also holds grad accumulation 2 against 1 on one batch at that file's
+# bars.  olmoe cut to 2 of its 16 layers jumps by 3-7 nats at step 2 or 3
+# at every rate tried, and the CPU's plain versions take the same path
+# (tools/train_witness.py); its rate was picked after its loss rose at 3e-3
+# and 1e-3, so its fall is no check of the MoE backward: grad_check is.
+TRAIN_WIDE = (("qwen2-1.5b", dict(n_layers=2), 5, 1e-3),
+              ("olmoe-1b-7b", dict(n_layers=2), 5, 3e-4))
+ACCUM_LR = 1e-3
+# grad_check's batch (B, S) for each config: small, as the CPU computes
+# the same gradients
+GRAD_BATCH = {"llama3.2-1b": (2, 512), "olmoe-1b-7b": (2, 256)}
+TRAIN_REFUSED = ("mamba2-2.7b", dict(n_layers=2))
+CKPT_PATH = Path(__file__).resolve().parent / "build" / "train_ckpt.npz"
+
+
+def bwd_case(spec, dev, gen, q_scale=1.0):
+    """q, k, v, dout, positions, kv positions of one BWD_CASES entry."""
+    _, b, sq, h, kvh, dh, causal, window, s_past, start = spec
+    sk = s_past + sq if s_past else sq
+    q = (torch.randn(b, sq, h, dh, generator=gen, device=dev)
+         * q_scale).bfloat16()
+    k = torch.randn(b, sk, kvh, dh, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, sk, kvh, dh, generator=gen, device=dev).bfloat16()
+    dout = torch.randn(b, sq, h, dh, generator=gen, device=dev).bfloat16()
+    pos = (start + torch.arange(sq, device=dev)).to(torch.int32)
+    kv_pos = pos
+    if s_past:
+        past = torch.arange(s_past, device=dev)
+        kv_pos = torch.cat([torch.where(past < start, past,
+                                        torch.full_like(past, -10 ** 9)),
+                            pos.long()]).to(torch.int32)
+        if not causal:     # a bidirectional call sees every valid key
+            kv_pos = torch.where(kv_pos >= 0, kv_pos,
+                                 torch.full_like(kv_pos, -1))
+    return q, k, v, dout, pos, kv_pos
+
+
+def bwd_bytes_flops(q, k, pos, kv_pos, causal, window):
+    """Bytes the backward must move (q, k, v, out, dout, lse, positions
+    read; dq, dk, dv written) and the operations this data needs: five
+    products of 2 dh a visible (query, key) pair a head."""
+    qp, kp = pos.long()[:, None], kv_pos.long()[None, :]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (qp >= kp)
+    if window > 0:
+        mask = mask & (qp - kp < window)
+    b, sq, h, dh = q.shape
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * 2 + b * h * sq * 4 \
+        + (pos.numel() + kv_pos.numel()) * 4
+    return n_bytes, 10.0 * float(mask.sum()) * b * h * dh
+
+
+def sdpa_backward_ms(q, k, v, dout, causal) -> tuple[float, float]:
+    """SDPA's backward (is_causal, enable_gqa) on the same inputs: device
+    ms of its forward and backward minus its forward (an autograd backward
+    runs on its forward's stream, so the two are captured together)."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    def both():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        f_ms = device_ms(fwd)
+    fb_ms = device_ms(both)
+    return fb_ms - f_ms, fb_ms
+
+
+def phase_train_kernels(dev, gen) -> dict:
+    """Phase 6c (a): the flash backward kernel against its plain version
+    at BWD_CASES, flat and peaked, on the training forward's own O and LSE;
+    the LSE instance's O bit-identical to the serving instance's (where the
+    serving op takes the prefill kernel) and its LSE within LSE_TOL of the
+    plain version's; two backward calls bit-identical; the flat draw timed
+    beside SDPA's backward and the bound.  Returns the kernel's row."""
+    row = {"name": "flash_attention_backward", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:73 "
+                       "(the backward of its function, which the reference "
+                       "takes by XLA autodiff of "
+                       "src/repro/models/attention.py:59 gqa_attention: no "
+                       "Pallas backward)",
+           "max_abs_err": 0.0}
+    for spec in BWD_CASES:
+        label, b, sq, h, kvh, dh, causal, window, s_past, start = spec
+        shape = (f"B {b}, Sq {sq}, H{h}/KV{kvh}, dh {dh}"
+                 f"{', causal' if causal else ', bidirectional'}"
+                 f"{f', window {window}' if window else ''}"
+                 f"{f', S_past {s_past}, start {start}' if s_past else ''}")
+        for draw, q_scale in (("flat", 1.0), ("peaked", PEAKED_Q)):
+            q, k, v, dout, pos, kv_pos = bwd_case(spec, dev, gen, q_scale)
+            kw = dict(causal=causal, window=window)
+            out, lse = flash_attention_lse(q, k, v, pos, kv_pos, **kw)
+            _, want_lse = attention_reference(q, k, v, pos, kv_pos,
+                                              return_lse=True, **kw)
+            if not flash_key_ranges(sq, kv_pos.numel(), **kw):
+                serving = flash_attention(q, k, v, pos, kv_pos, **kw)
+                if not torch.equal(out, serving):
+                    raise SystemExit(f"FAIL flash LSE instance {label}: O "
+                                     f"differs from the serving instance's")
+            check(f"flash LSE instance {label} {draw} lse ({shape})", lse,
+                  want_lse, LSE_TOL)
+            got = flash_attention_backward(q, k, v, pos, kv_pos, out, lse,
+                                           dout, **kw)
+            again = flash_attention_backward(q, k, v, pos, kv_pos, out, lse,
+                                             dout, **kw)
+            want = attention_backward_reference(q, k, v, pos, kv_pos, out,
+                                                lse, dout, **kw)
+            torch.cuda.synchronize()
+            for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+                if not torch.equal(g, a):
+                    raise SystemExit(f"FAIL flash backward {label} {draw}: "
+                                     f"{name} differs between two calls")
+                row["max_abs_err"] = max(row["max_abs_err"], attn_check(
+                    f"flash backward {label} {draw} {name} ({shape})", g, w))
+            if draw == "flat":
+                ms = device_ms(lambda: flash_attention_backward(
+                    q, k, v, pos, kv_pos, out, lse, dout, **kw))
+                bnd, by = bound_ms(*bwd_bytes_flops(q, k, pos, kv_pos,
+                                                    causal, window),
+                                   BF16_FLOPS)
+                text = (f"  flash backward {label}: kernel {ms:.4f} ms "
+                        f"(deterministic), bound {bnd:.5f} ms ({by})")
+                if label in BWD_TIMED:
+                    lib, lib_fb = sdpa_backward_ms(q, k, v, dout, causal)
+                    fwd_ms = device_ms(lambda: flash_attention_lse(
+                        q, k, v, pos, kv_pos, **kw))
+                    text += (f", SDPA backward {lib:.4f} ms (forward + "
+                             f"backward {lib_fb:.4f}); the LSE forward "
+                             f"{fwd_ms:.4f} ms")
+                if label == BWD_TIMED[0]:
+                    row["plain_ms"] = cuda_ms(
+                        lambda: attention_backward_reference(
+                            q, k, v, pos, kv_pos, out, lse, dout, **kw),
+                        iters=3)
+                    text += f", plain {row['plain_ms']:.4f} ms"
+                    row.update(ms=ms, bound_ms=bnd, bound_by=by,
+                               library_ms=lib)
+                print(text)
+            del q, k, v, dout, out, lse, got, again, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def reset_train_counts() -> None:
+    for kern in (FLASH_PREFILL_KERNEL, FLASH_PREFILL_LSE_KERNEL,
+                 FLASH_BACKWARD_KERNEL, FLASH_SPLIT_KERNEL):
+        kern.launches = 0
+
+
+def hold_train_counts(label, cfg, microbatches: int) -> dict:
+    """The flash launches of a training drive, exact: per microbatch one
+    LSE forward a layer with attention, twice under remat (the recompute),
+    and one backward; no serving-instance or key-split launch."""
+    n_attn = cfg.n_layers if cfg.family in ("dense", "vlm", "moe") else 0
+    fwd = n_attn * microbatches * (2 if cfg.remat else 1)
+    bwd = n_attn * microbatches
+    got = {"forward (LSE)": FLASH_PREFILL_LSE_KERNEL.launches,
+           "backward": FLASH_BACKWARD_KERNEL.launches,
+           "serving prefill": FLASH_PREFILL_KERNEL.launches,
+           "key split": FLASH_SPLIT_KERNEL.launches}
+    want = {"forward (LSE)": fwd, "backward": bwd, "serving prefill": 0,
+            "key split": 0}
+    print(f"  {label}: flash launches {got} (want {want})")
+    if got != want:
+        raise SystemExit(f"FAIL {label}: flash launches {got} != {want}")
+    return {FLASH_PREFILL_LSE_KERNEL.symbol: fwd,
+            FLASH_BACKWARD_KERNEL.symbol: bwd}
+
+
+def train_batches(cfg, dev, batch, seq, seed=0):
+    for b in lm_batches(cfg.vocab_size, batch, seq, seed=seed):
+        yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def train_drive(label, cfg, params, dev, *, steps, batch, seq, lr):
+    """``steps`` steps of ``make_train_step`` (AdamW at ``lr``,
+    launch/train.py's schedule) over ``lm_batches`` of seed 0.  Returns
+    (params, opt state, losses, aux losses, host s per step, launches)."""
+    model = build_model(cfg)
+    opt = AdamW(learning_rate=lr, moment_dtype=cfg.moment_dtype)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt, train_schedule(steps))
+    data = train_batches(cfg, dev, batch, seq)
+    losses, auxes, times = [], [], []
+    reset_train_counts()
+    for _ in range(steps):
+        mb = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, mt = step_fn(params, state, mb)
+        losses.append(float(mt["loss"]))
+        auxes.append(float(mt["aux_loss"]))
+        times.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses + auxes):
+        raise SystemExit(f"FAIL {label}: non-finite loss {losses} / aux "
+                         f"{auxes}")
+    launches = hold_train_counts(label, cfg, steps * max(1, cfg.grad_accum))
+    print(f"  {label}: losses {[round(x, 4) for x in losses]}")
+    return params, state, losses, auxes, times, launches
+
+
+def grad_check(cfg, params, dev) -> dict:
+    """The gradients of ``cfg``'s loss on the card (the flash kernels
+    forward and backward) against the CPU's (the plain versions) on the
+    same bf16 weights and a GRAD_BATCH batch: the loss within 1e-3
+    relative, every leaf within GRAD_REL_BAR (GRAD_REL_BAR_MOE for an MoE)
+    in relative norm (``grad_rel_errors``).  A missing or sign-flipped
+    attention gradient is off by about 1 or 2 on every leaf below
+    attention (tests/test_torch_gpu.py).  Returns the card's launches."""
+    b, s = GRAD_BATCH[cfg.name]
+    bar = GRAD_REL_BAR_MOE if cfg.family == "moe" else GRAD_REL_BAR
+    model = build_model(cfg)
+    mb = next(train_batches(cfg, dev, b, s))
+    reset_train_counts()
+    t0 = time.perf_counter()
+    lg, _, g_card = loss_and_grads(model, params, mb)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = hold_train_counts(f"{cfg.name} gradients", cfg, 1)
+    cpu = tree_unflatten(params, [t.cpu() for t in tree_leaves(params)])
+    lc, _, g_cpu = loss_and_grads(model, cpu, {k: v.cpu()
+                                               for k, v in mb.items()})
+    t2 = time.perf_counter()
+    errs = grad_rel_errors(g_card, g_cpu)
+    names = ["/".join(p) for p, _ in tree_items(params)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    qkv = max(e for n, e in zip(names, errs)
+              if n.split("/")[-1] in ("wq", "wk", "wv", "wo"))
+    print(f"  {cfg.name} gradients, card vs CPU (B {b} x S {s}, "
+          f"{len(errs)} leaves): loss {float(lg):.6f} vs {float(lc):.6f}; "
+          f"largest relative error {errs[worst]:.3e} ({names[worst]}), the "
+          f"attention projections' {qkv:.3e} (bar {bar:g}); card "
+          f"{t1 - t0:.2f} s, CPU {t2 - t1:.1f} s")
+    if not abs(float(lg) - float(lc)) <= 1e-3 * abs(float(lc)):
+        raise SystemExit(f"FAIL {cfg.name} gradients: loss {float(lg)} on "
+                         f"the card vs {float(lc)} on the CPU")
+    bad = {n: e for n, e in zip(names, errs) if not e <= bar}
+    if bad:
+        raise SystemExit(f"FAIL {cfg.name} gradients: leaves off the CPU's "
+                         f"beyond {bar:g}: {bad}")
+    return launches
+
+
+def tree_equal(a, b) -> bool:
+    """The same paths, and at each the same dtype, device and values."""
+    ia, ib = list(tree_items(a)), list(tree_items(b))
+    return [p for p, _ in ia] == [p for p, _ in ib] and all(
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+        for (_, x), (_, y) in zip(ia, ib))
+
+
+def phase_train(dev) -> dict:
+    """Phase 6c (b)-(e): training on the card.  (b) llama3.2-1b at full
+    width and depth (seed 0, bf16 weights, f32 moments): its gradients
+    against the CPU's (``grad_check``), then TRAIN's steps at
+    B x S, the loss finite and falling by TRAIN["min_drop"], exact flash
+    launches, s/step, tokens/s, peak GiB and the model-FLOP share of
+    BF16_FLOPS printed, then the params and state round-tripped through
+    save_checkpoint / load_checkpoint bit for bit; (c), (d) TRAIN_WIDE at
+    full width cut to 2 layers, each at its learning rate: qwen2-1.5b (qkv
+    biases, dh 128) and its grad accumulation 2 against 1, olmoe-1b-7b
+    with its gradients against the CPU's (``grad_check``) and its router
+    aux loss finite and > 0, each loss falling; (e) a mamba2-2.7b train
+    step refused with the SSD scan's backward item.  Returns the summed
+    launches."""
+    total = {}
+
+    def add(launches):
+        for sym, n in launches.items():
+            total[sym] = total.get(sym, 0) + n
+
+    cfg = get_config(TRAIN_ARCH)
+    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"phase 6c (b): training {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, H{cfg.n_heads}/"
+          f"KV{cfg.n_kv_heads}, vocab {cfg.vocab_size}, {n_params / 1e9:.4f} "
+          f"B parameters, remat {cfg.remat}), B {b} x S {s}, {steps} steps, "
+          f"lr {TRAIN['lr']:g}")
+    add(grad_check(cfg, params, dev))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, losses, _, times, launches = train_drive(
+        cfg.name, cfg, params, dev, steps=steps, batch=b, seq=s,
+        lr=TRAIN["lr"])
+    add(launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not losses[-1] <= losses[0] - TRAIN["min_drop"]:
+        raise SystemExit(f"FAIL {cfg.name} training: last loss "
+                         f"{losses[-1]:.4f} not {TRAIN['min_drop']} below the "
+                         f"first {losses[0]:.4f}")
+    step_s = float(np.median(times[1:]))
+    attn = 6.0 * cfg.n_layers * b * cfg.n_heads * cfg.head_dim * s * s
+    flops = 6.0 * n_params * b * s + attn
+    print(f"  {cfg.name}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; first "
+          f"step {times[0]:.3f} s, then {step_s:.4f} s/step (median), "
+          f"{b * s / step_s:.1f} tokens/s, peak {peak:.3f} GiB; model "
+          f"FLOPs a step 6 N T + 6 L B H dh S^2 = {flops / 1e12:.2f} T, "
+          f"{flops / step_s / BF16_FLOPS * 100:.2f}% of {BF16_FLOPS / 1e12:g} "
+          f"TFLOP/s")
+    CKPT_PATH.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    save_checkpoint(str(CKPT_PATH), params, state, step=steps)
+    t1 = time.perf_counter()
+    p2, s2, step2 = load_checkpoint(str(CKPT_PATH), params, state)
+    t2 = time.perf_counter()
+    size = CKPT_PATH.stat().st_size
+    CKPT_PATH.unlink()
+    if step2 != steps or not tree_equal(params, p2) \
+            or not tree_equal(state._asdict(), s2._asdict()):
+        raise SystemExit("FAIL checkpoint round trip: not bit-identical")
+    print(f"  checkpoint round trip bit-identical: {size / 1e9:.3f} GB, save "
+          f"{t1 - t0:.1f} s, load {t2 - t1:.1f} s")
+    del params, state, p2, s2
+    torch.cuda.empty_cache()
+
+    for arch, cut, wsteps, wlr in TRAIN_WIDE:
+        wcfg = get_config(arch).with_overrides(**cut)
+        print(f"phase 6c ({'c' if arch == TRAIN_WIDE[0][0] else 'd'}): "
+              f"training {wcfg.name} at full width cut to {wcfg.n_layers} "
+              f"layers (d {wcfg.d_model}, H{wcfg.n_heads}/KV{wcfg.n_kv_heads}"
+              f", dh {wcfg.head_dim}, vocab {wcfg.vocab_size}), B {b} x S "
+              f"{s}, {wsteps} steps, lr {wlr:g}")
+        params = build_model(wcfg).init(
+            torch.Generator(device=dev).manual_seed(0))
+        if wcfg.family == "moe":
+            add(grad_check(wcfg, params, dev))
+        # train_drive returns new tensors: params stays the initial weights
+        _, _, losses, auxes, _, launches = train_drive(
+            wcfg.name, wcfg, params, dev, steps=wsteps, batch=b, seq=s,
+            lr=wlr)
+        add(launches)
+        if not losses[-1] < losses[0]:
+            raise SystemExit(f"FAIL {wcfg.name} training: the loss did not "
+                             f"fall ({losses})")
+        if wcfg.family == "moe":
+            if not all(a > 0 for a in auxes):
+                raise SystemExit(f"FAIL {wcfg.name}: router aux loss not > 0 "
+                                 f"({auxes})")
+            print(f"  {wcfg.name}: router aux loss {auxes[0]:.6f} -> "
+                  f"{auxes[-1]:.6f}")
+        if arch == TRAIN_WIDE[0][0]:
+            add(accum_check(wcfg, params, dev))
+        del params
+        torch.cuda.empty_cache()
+
+    arch, cut = TRAIN_REFUSED
+    rcfg = get_config(arch).with_overrides(**cut)
+    print(f"phase 6c (e): a {rcfg.name} train step at full width cut to "
+          f"{rcfg.n_layers} layers must be refused (no SSD scan backward "
+          f"kernel)")
+    model = build_model(rcfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW(learning_rate=TRAIN["lr"])
+    try:
+        make_train_step(model, opt)(params, opt.init(params),
+                                    next(train_batches(rcfg, dev, 2, 256)))
+    except NotImplementedError as err:
+        if BACKWARD_ITEM not in str(err):
+            raise SystemExit(f"FAIL {rcfg.name}: refused without naming "
+                             f"the queue item: {err}")
+        print(f"  refused: {err}")
+    else:
+        raise SystemExit(f"FAIL {rcfg.name}: a train step on the card ran "
+                         f"through the SSD scan kernel, which has no "
+                         f"backward")
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def accum_check(cfg, params, dev) -> dict:
+    """Grad accumulation 2 against 1 on one B x S batch from the same
+    weights: the loss within 1e-2 relative and every parameter after the
+    step within rtol 5e-2, atol 5e-3 (tests/test_training.py's bars)."""
+    batch = next(train_batches(cfg, dev, TRAIN["batch"], TRAIN["seq"],
+                               seed=1))
+    opt = AdamW(learning_rate=ACCUM_LR)
+    out, total = {}, {}
+    for accum in (1, 2):
+        acfg = cfg.with_overrides(grad_accum=accum)
+        reset_train_counts()
+        out[accum] = make_train_step(build_model(acfg), opt)(
+            params, opt.init(params), batch)
+        for sym, n in hold_train_counts(f"{cfg.name} grad_accum {accum}",
+                                        acfg, accum).items():
+            total[sym] = total.get(sym, 0) + n
+    l1, l2 = float(out[1][2]["loss"]), float(out[2][2]["loss"])
+    if not abs(l1 - l2) <= 1e-2 * abs(l1):
+        raise SystemExit(f"FAIL grad_accum: loss {l2} vs {l1}")
+    worst = 0.0
+    for a, c in zip(tree_leaves(out[1][0]), tree_leaves(out[2][0])):
+        a32, c32 = a.float(), c.float()
+        err = (a32 - c32).abs()
+        if bool((err > 5e-2 * c32.abs() + 5e-3).any()):
+            raise SystemExit(f"FAIL grad_accum: params differ by "
+                             f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    print(f"  {cfg.name} grad_accum 2 vs 1: loss {l2:.6f} vs {l1:.6f}, "
+          f"params within {worst:.3e} (bars: loss rel 1e-2; rtol 5e-2, atol "
+          f"5e-3)")
+    return total
+
+
 def main() -> int:
     trace = sys.argv[1:] == ["--trace"]
     kernels_only = sys.argv[1:] == ["--kernels"]
@@ -2655,6 +3120,8 @@ def main() -> int:
         print("phase 6: gittins kernel (no serve drive: main-path shape "
               "taken as (8, 8))")
         phase_gittins(dev, (8, 8))
+        print("phase 6c (a): the flash backward kernel vs its plain version")
+        phase_train_kernels(dev, gen)
         return 0
 
     launches, shape = {}, (0, 0)
@@ -2721,24 +3188,37 @@ def main() -> int:
     for sym, n in phase_simulator(dev).items():
         launches[sym] = launches.get(sym, 0) + n
     print(f"  phase 6b took {time.perf_counter() - t6b:.1f} s")
+    print("phase 6c (a): the flash backward kernel vs its plain version")
+    t6c = time.perf_counter()
+    rows.append(phase_train_kernels(dev, gen))
+    for sym, n in phase_train(dev).items():
+        launches[sym] = launches.get(sym, 0) + n
+    print(f"  phase 6c took {time.perf_counter() - t6c:.1f} s")
     symbols = {"gittins_attained": GITTINS_KERNEL.symbol,
                "decode_attention_paged": PAGED_DECODE_KERNEL.symbol,
                "flash_attention_prefill": FLASH_PREFILL_KERNEL.symbol,
                "decode_attention_dense": DENSE_DECODE_KERNEL.symbol,
                "ssd_scan": SSD_SCAN_KERNEL.symbol,
-               "decode_attention_paged_lse": PAGED_LSE_KERNEL.symbol}
+               "decode_attention_paged_lse": PAGED_LSE_KERNEL.symbol,
+               "flash_attention_backward": FLASH_BACKWARD_KERNEL.symbol}
     for row in rows:
         row["launches"] = launches[symbols[row["name"]]]
     # the flash kernel's two entry points: one launch a call each
     flash = next(r for r in rows if r["name"] == "flash_attention_prefill")
     flash["split_launches"] = launches.get(FLASH_SPLIT_KERNEL.symbol, 0)
-    flash["launches"] += flash["split_launches"]
+    flash["lse_launches"] = launches.get(FLASH_PREFILL_LSE_KERNEL.symbol, 0)
+    flash["launches"] += flash["split_launches"] + flash["lse_launches"]
     flash["instances"] = {
+        "training forward (under autograd)": "flash_attention_prefill_lse "
+        "(the same kernel, also writing each row's log-sum-exp)",
         "Sq > 16, causal or windowed": "flash_attention_prefill (1 consumer "
         "warpgroup a 64-row query tile)",
         "Sq <= 16, bidirectional": "attention_short_queries in "
         "src/repro_torch/csrc/decode_attention.cu (split-KV decode template "
         "with key positions, 256-row sub-splits) + merge_kernel"}
+    if flash["lse_launches"] == 0:
+        raise SystemExit("FAIL: the flash LSE instance never launched on a "
+                         "training drive")
     if flash["split_launches"] == 0:
         raise SystemExit("FAIL: the flash key split never launched on a "
                          "main path")
@@ -2748,7 +3228,8 @@ def main() -> int:
                          f"{idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "split_launches", "instances", "op_ms", "refresh_ms",
+            "split_launches", "lse_launches", "instances", "op_ms",
+            "refresh_ms",
             "staged_copies")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

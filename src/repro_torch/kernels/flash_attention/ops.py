@@ -11,6 +11,17 @@ and the keys are cut at fixed ``SPLIT_UNITS`` 64-row units from key 0
 follows the batch or the card); one C call launches the split and merge
 kernels, counted as one launch of ``FLASH_SPLIT_KERNEL``.  Every other
 call is one launch of the prefill kernel, ``FLASH_PREFILL_KERNEL``.
+
+Under autograd (grad enabled and q, k or v requiring grad) the op goes
+through ``FlashAttentionFunction`` instead: its forward is one launch of
+the prefill kernel's training instance, ``FLASH_PREFILL_LSE_KERNEL``
+(which also writes each row's log-sum-exp; never the key split), and its
+backward one call of ``FLASH_BACKWARD_KERNEL`` (``csrc/
+flash_attention_bwd.cu``: D, then dK/dV, then dQ, counted as one launch).
+On the CPU the same Function runs the plain versions
+(``attention_reference(return_lse=True)``,
+``attention_backward_reference``), so only the kernels differ.  A build
+or launch error raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -18,11 +29,14 @@ from __future__ import annotations
 import torch
 
 from ..decode_attention.ops import SPLIT_UNITS, split_kv_sub_splits
-from .kernel import FLASH_PREFILL_KERNEL, FLASH_SPLIT_KERNEL
-from .ref import attention_reference
+from .kernel import (FLASH_BACKWARD_KERNEL, FLASH_PREFILL_KERNEL,
+                     FLASH_PREFILL_LSE_KERNEL, FLASH_SPLIT_KERNEL)
+from .ref import attention_backward_reference, attention_reference
 
-__all__ = ["flash_attention", "flash_key_ranges", "FLASH_PREFILL_KERNEL",
-           "FLASH_SPLIT_KERNEL", "SPLIT_MAX_SQ"]
+__all__ = ["flash_attention", "flash_attention_lse", "flash_attention_backward",
+           "FlashAttentionFunction", "flash_key_ranges",
+           "FLASH_PREFILL_KERNEL", "FLASH_PREFILL_LSE_KERNEL",
+           "FLASH_SPLIT_KERNEL", "FLASH_BACKWARD_KERNEL", "SPLIT_MAX_SQ"]
 
 HEAD_DIMS = (64, 128, 192)    # the CUDA kernels' head dims
 # the key split: at most this many queries (bidirectional, no window)
@@ -84,6 +98,10 @@ def flash_attention(q, k, v, positions, kv_positions, *, causal: bool = True,
     takes the key split through the split-KV decode template (f32
     scratch allocated here; its rounding is the decode kernels'), where a
     query that sees no key gets 0."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, positions, kv_positions,
+                                            causal, window)
     dev = q.device
     if dev.type == "cpu":
         return attention_reference(q, k, v, positions, kv_positions,
@@ -119,3 +137,95 @@ def flash_attention(q, k, v, positions, kv_positions, *, causal: bool = True,
                          int(window), dh ** -0.5, stream)
     FLASH_PREFILL_KERNEL.launches += 1
     return out
+
+
+def flash_attention_lse(q, k, v, positions, kv_positions, *,
+                        causal: bool = True, window: int = 0):
+    """The training forward: (out (B, Sq, H, dh) in q's dtype, lse (B, H,
+    Sq) f32, each row's natural-log log-sum-exp of its scaled scores).  On
+    CUDA one launch of the prefill kernel's LSE instance (whatever Sq: no
+    key split), whose ``out`` is bit-identical to the serving instance's;
+    on the CPU ``attention_reference(return_lse=True)``."""
+    dev = q.device
+    if dev.type == "cpu":
+        return attention_reference(q, k, v, positions, kv_positions,
+                                   causal=causal, window=window,
+                                   return_lse=True)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_lse: unsupported device {dev}")
+    _check(q, k, v, positions, kv_positions)
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    FLASH_PREFILL_LSE_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             positions.data_ptr(), kv_positions.data_ptr(),
+                             out.data_ptr(), lse.data_ptr(), b, sq, sk, h,
+                             kvh, dh, int(causal), int(window), dh ** -0.5,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    FLASH_PREFILL_LSE_KERNEL.launches += 1
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, positions, kv_positions, out, lse,
+                             dout, *, causal: bool = True, window: int = 0):
+    """(dq, dk, dv) of the flash op at (q, k, v) for the output gradient
+    ``dout``, from the training forward's ``out`` and ``lse``
+    (``flash_attention_lse``).  On CUDA one call of the backward kernel
+    (bf16 in and out, f32 accumulators; deterministic: no atomics), on the
+    CPU ``attention_backward_reference``."""
+    dev = q.device
+    if dev.type == "cpu":
+        return attention_backward_reference(q, k, v, positions, kv_positions,
+                                            out, lse, dout, causal=causal,
+                                            window=window)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_backward: unsupported device "
+                         f"{dev}")
+    _check(q, k, v, positions, kv_positions)
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    for name, t, shape, dtype in (("out", out, q.shape, torch.bfloat16),
+                                  ("dout", dout, q.shape, torch.bfloat16),
+                                  ("lse", lse, (b, h, sq), torch.float32)):
+        if t.shape != shape or t.device != dev or t.dtype != dtype \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_backward: {name} must be a "
+                             f"contiguous, 16-byte aligned {dtype} tensor of "
+                             f"shape {tuple(shape)} on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    FLASH_BACKWARD_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                          positions.data_ptr(), kv_positions.data_ptr(),
+                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          dsum.data_ptr(), b, sq, sk, h, kvh, dh,
+                          int(causal), int(window), dh ** -0.5,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    FLASH_BACKWARD_KERNEL.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The flash op under autograd: ``flash_attention_lse`` forward (O and
+    the LSE saved with q, k, v and the positions), ``flash_attention_
+    backward`` backward.  The positions, ``causal`` and ``window`` get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions, kv_positions, causal, window):
+        out, lse = flash_attention_lse(q, k, v, positions, kv_positions,
+                                       causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, positions, kv_positions, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, positions, kv_positions, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, positions, kv_positions, out, lse,
+            dout.to(q.dtype).contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None, None, None

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..grad_guard import refuse_backward
 from .kernel import SSD_SCAN_KERNEL
 from .ref import ssd_chunked_reference
 
@@ -64,7 +65,9 @@ def ssd_scan(x, dt, a_decay, bmat, cmat, init_state=None, *,
     and the final state (B,H,P,N) f32.
 
     On CUDA, x, B and C are bf16 and dt, a and the state f32, as on the
-    model path."""
+    model path.  Under autograd on the card it raises
+    (``grad_guard.refuse_backward``): the kernel has no backward yet."""
+    refuse_backward("ssd_scan", x, dt, a_decay, bmat, cmat, init_state)
     b, s, h, p = x.shape
     q = min(chunk, s)
     pad = -s % q

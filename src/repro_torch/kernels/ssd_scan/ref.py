@@ -56,8 +56,13 @@ def ssd_chunked_reference(x, dt, a_decay, bmat, cmat, init_state=None,
         la = torch.log(torch.clamp(aq.float(), min=1e-20))        # (B,q,H)
         cum = torch.cumsum(la, dim=1)
         seg = cum[:, :, None, :] - cum[:, None, :, :]              # (B,q,q,H)
-        lmat = torch.where(causal[None, :, :, None], torch.exp(seg),
-                           torch.zeros((), device=x.device))
+        # exp of the causal entries only: the masked ones (seg > 0, which
+        # can overflow) go in as -inf, so their exp is 0 and so is its
+        # gradient (exp(seg) masked afterwards gives the same forward but
+        # a NaN gradient, 0 * inf, once seg overflows: ROADMAP Queue C R7)
+        lmat = torch.exp(torch.where(causal[None, :, :, None], seg,
+                                     torch.full((), -torch.inf,
+                                                device=x.device)))
         scores = torch.einsum("bin,bjn->bij", cq, bq)              # (B,q,q)
         w = scores[..., None] * lmat
         xdt = xq.float() * dtq.float()[..., None]                  # (B,q,H,P)

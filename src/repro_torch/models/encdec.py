@@ -16,7 +16,7 @@ from .attention import encoder_attention, gqa_attention
 from .config import ModelConfig
 from .layers import (ParamSpec, attention_template, linear, mlp,
                      mlp_template, norm_template, rms_norm)
-from .transformer import _attn_decode, _layer, _qkv, _wo_proj
+from .transformer import _attn_decode, _layer, _qkv, _wo_proj, remat_call
 
 __all__ = ["encdec_template", "encode", "encdec_forward",
            "encdec_decode_step", "encdec_cache_shapes"]
@@ -49,19 +49,24 @@ def encdec_template(cfg: ModelConfig):
     }
 
 
-def encode(params, cfg: ModelConfig, frames):
+def encode(params, cfg: ModelConfig, frames, remat: bool | None = None):
     """frames: (B, S_enc, D) precomputed embeddings, cast to bf16 ->
     (B, S_enc, D).  RoPE on q and k at arange(S_enc), bidirectional
-    attention."""
+    attention; each layer under ``remat_call`` when ``remat``
+    (``cfg.remat`` if None)."""
+    remat = cfg.remat if remat is None else remat
     h = frames.to(torch.bfloat16)
     positions = torch.arange(h.shape[1], device=h.device)
-    for i in range(cfg.n_encoder_layers):
-        lp = _layer(params["enc_layers"], i)
-        q, k, v = _qkv(cfg, lp["attn"], rms_norm(lp["ln1"], h, cfg.norm_eps),
+
+    def body(lp, hh):
+        q, k, v = _qkv(cfg, lp["attn"], rms_norm(lp["ln1"], hh, cfg.norm_eps),
                        positions)
-        h = h + _wo_proj(lp["attn"], encoder_attention(q, k, v))
-        h = h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
-                    cfg.activation)
+        hh = hh + _wo_proj(lp["attn"], encoder_attention(q, k, v))
+        return hh + mlp(lp["mlp"], rms_norm(lp["ln2"], hh, cfg.norm_eps),
+                        cfg.activation)
+
+    for i in range(cfg.n_encoder_layers):
+        h = remat_call(remat, body, _layer(params["enc_layers"], i), h)
     return rms_norm(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -89,25 +94,32 @@ def _cross_attend(cfg, lp, h, ck, cv):
 
 
 def encdec_forward(params, cfg: ModelConfig, frames, dec_tokens, *,
-                   collect_cache: bool = False):
+                   collect_cache: bool = False, remat: bool | None = None):
     """Teacher-forced forward.  frames: (B, S_enc, D); dec_tokens: (B, S)
-    int.  Returns (logits (B, S, V), cache or None, aux loss 0); the cache
-    is {"k", "v"}: (L, B, S, KV, dh) and {"cross_k", "cross_v"}:
-    (L, B, S_enc, KV, dh)."""
-    enc_out = encode(params, cfg, frames)
+    int.  ``remat`` (``cfg.remat`` if None) runs each encoder and decoder
+    layer under ``remat_call``.  Returns (logits (B, S, V), cache or None,
+    aux loss 0); the cache is {"k", "v"}: (L, B, S, KV, dh) and
+    {"cross_k", "cross_v"}: (L, B, S_enc, KV, dh)."""
+    remat = cfg.remat if remat is None else remat
+    enc_out = encode(params, cfg, frames, remat)
     h = params["embed"][dec_tokens.long()]
     positions = torch.arange(h.shape[1], device=h.device)
     ck, cv = _cross_kv(params["dec_layers"], cfg, enc_out)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["dec_layers"], i)
-        q, k, v = _qkv(cfg, lp["attn"], rms_norm(lp["ln1"], h, cfg.norm_eps),
+
+    def body(lp, hh, ckl, cvl):
+        q, k, v = _qkv(cfg, lp["attn"], rms_norm(lp["ln1"], hh, cfg.norm_eps),
                        positions)
         o = gqa_attention(q, k, v, causal=True, positions=positions)
-        h = h + _wo_proj(lp["attn"], o)
-        h = _cross_attend(cfg, lp, h, ck[i], cv[i])
-        h = h + mlp(lp["mlp"], rms_norm(lp["ln2"], h, cfg.norm_eps),
-                    cfg.activation)
+        hh = hh + _wo_proj(lp["attn"], o)
+        hh = _cross_attend(cfg, lp, hh, ckl, cvl)
+        hh = hh + mlp(lp["mlp"], rms_norm(lp["ln2"], hh, cfg.norm_eps),
+                      cfg.activation)
+        return hh, k, v
+
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        h, k, v = remat_call(remat, body, _layer(params["dec_layers"], i), h,
+                             ck[i], cv[i])
         ks.append(k)
         vs.append(v)
     logits = rms_norm(params["final_norm"], h, cfg.norm_eps) \

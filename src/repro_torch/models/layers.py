@@ -17,10 +17,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..tree import tree_map
+
 __all__ = [
     "ParamSpec", "init_from_template", "rms_norm", "linear", "rope_freqs",
     "apply_rope", "mlp", "mlp_template", "attention_template",
-    "norm_template", "iter_specs",
+    "norm_template", "iter_specs", "specs_from_template",
+    "shapes_from_template",
 ]
 
 
@@ -74,6 +77,18 @@ def init_from_template(template, generator: torch.Generator,
             node = node.setdefault(key, {})
         node[path[-1]] = t
     return out
+
+
+def specs_from_template(template):
+    """Logical-axis tree mirroring the parameter tree: each leaf the
+    ParamSpec's ``axes`` tuple."""
+    return tree_map(lambda s: s.axes, template)
+
+
+def shapes_from_template(template):
+    """(shape, dtype) tree mirroring the parameter tree (the reference's
+    ``jax.ShapeDtypeStruct`` tree, for sizing without materialising)."""
+    return tree_map(lambda s: (tuple(s.shape), s.dtype), template)
 
 
 # ---------------------------------------------------------------- templates

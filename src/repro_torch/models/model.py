@@ -9,6 +9,7 @@ SSM and hybrid families and the encoder-decoder).
     k, v = model.prefill_chunk(params, tokens, past_k, past_v, start)
     logits, cache = model.decode_step_paged(params, tok, cache, cache_len,
                                             tables, page_size=16)
+    loss, aux = model.loss_fn(params, {"tokens": t, "labels": t})  # training
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ import torch
 from .config import ModelConfig
 from .encdec import (encdec_cache_shapes, encdec_decode_step, encdec_forward,
                      encdec_template)
-from .layers import init_from_template
+from .layers import init_from_template, specs_from_template
 from .transformer import (decoder_decode_step, decoder_decode_step_paged,
                           decoder_forward, decoder_prefill_chunk,
-                          decoder_template, init_cache_shapes,
+                          decoder_template, init_cache_shapes, lm_loss,
                           paged_cache_shapes)
 
 __all__ = ["Model", "build_model"]
@@ -44,23 +45,42 @@ class Model:
         """Random weights on the generator's device."""
         return init_from_template(self.template(), generator)
 
+    def param_specs(self):
+        """The logical-axis tree of the parameters."""
+        return specs_from_template(self.template())
+
     # ------------------------------------------------------------ forward
 
-    def forward(self, params, batch, *, collect_cache: bool = False):
+    def forward(self, params, batch, *, collect_cache: bool = False,
+                remat: bool | None = None):
         """Batches are dicts: {"tokens": (B, S)} for the decoder
         families, plus "patches": (B, P, D) for the VLM (optional: its
         stubbed frontend's embeddings, prepended) and "frames": (B, S_enc,
-        D) for the encoder-decoder.  Returns (logits, cache or None, aux
+        D) for the encoder-decoder.  ``remat`` (``cfg.remat`` if None)
+        checkpoints each layer.  Returns (logits, cache or None, aux
         loss)."""
         if self.cfg.family == "encdec":
             return encdec_forward(params, self.cfg, batch["frames"],
                                   batch["tokens"],
-                                  collect_cache=collect_cache)
+                                  collect_cache=collect_cache, remat=remat)
         fe = batch.get("patches") if self.cfg.family == "vlm" else None
         return decoder_forward(params, self.cfg, batch["tokens"],
                                frontend_embeds=fe,
-                               collect_cache=collect_cache,
+                               collect_cache=collect_cache, remat=remat,
                                lengths=batch.get("lengths"))
+
+    def loss_fn(self, params, batch, remat: bool | None = None):
+        """Scalar LM loss plus the router aux loss: (loss, {"lm_loss",
+        "aux_loss"}).  ``batch`` adds "labels" (B, S) and, optionally,
+        "loss_mask" over the S - 1 shifted positions, as the reference
+        takes it; the VLM's patch positions are dropped from the logits,
+        then the next-token shift."""
+        logits, _, aux = self.forward(params, batch, remat=remat)
+        labels = batch["labels"]
+        if self.cfg.family == "vlm" and "patches" in batch:
+            logits = logits[:, batch["patches"].shape[1]:]
+        loss = lm_loss(logits[:, :-1], labels[:, 1:], batch.get("loss_mask"))
+        return loss + aux, {"lm_loss": loss, "aux_loss": aux}
 
     def prefill(self, params, batch):
         """Returns (last-position logits (B, V), cache dict).
@@ -70,7 +90,8 @@ class Model:
         the returned state equals an unpadded prefill's (the engine pads
         to pow2 buckets).  The last-position logits are then a pad
         position's, which the engine never reads."""
-        logits, cache, _ = self.forward(params, batch, collect_cache=True)
+        logits, cache, _ = self.forward(params, batch, collect_cache=True,
+                                        remat=False)
         return logits[:, -1, :], cache
 
     # ------------------------------------------------ dense-cache decode

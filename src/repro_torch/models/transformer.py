@@ -23,6 +23,7 @@ The encoder-decoder family is in ``encdec.py``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..sharding.context import (attn_split_count, constrain_attn_split,
                                 constrain_expert_buf, constrain_kv_heads,
@@ -40,7 +41,8 @@ from .ssm import (mamba2_block, mamba2_decode_step, ssm_state_shape,
 
 __all__ = ["decoder_template", "decoder_forward", "decoder_decode_step",
            "decoder_decode_step_paged", "decoder_prefill_chunk",
-           "init_cache_shapes", "paged_cache_shapes"]
+           "init_cache_shapes", "paged_cache_shapes", "lm_loss",
+           "remat_call"]
 
 # the families whose every layer is an attention block
 _ATTN = ("dense", "vlm", "moe")
@@ -157,6 +159,19 @@ def _ffn(cfg, lp, x, *, decode: bool):
     return mlp(lp["mlp"], x, cfg.activation), None
 
 
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``remat`` (as the
+    reference's ``jax.checkpoint`` of a layer body): the body's saved
+    tensors are dropped after the forward and recomputed in the backward.
+    Non-reentrant, so the graph and the backward's operations are the same
+    either way: the loss and every gradient are bit-identical with and
+    without it.  With grad disabled there is nothing to save, and ``fn``
+    runs plainly."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _dense_block_seq(cfg, lp, h, positions, window):
     """One attention + FFN block over a sequence; returns (h, k, v, aux)
     (aux None for an MLP block)."""
@@ -178,18 +193,21 @@ def _ssm_block_seq(cfg, lp, h, lengths):
 
 def decoder_forward(params, cfg: ModelConfig, tokens, positions=None,
                     frontend_embeds=None, *, collect_cache: bool = False,
-                    lengths=None):
-    """Full-sequence forward (prefill).  tokens: (B, S) int.
+                    remat: bool | None = None, lengths=None):
+    """Full-sequence forward (training and prefill).  tokens: (B, S) int.
     ``frontend_embeds`` (B, P, D), optional: patch embeddings prepended to
     the tokens' (the VLM's stubbed vision frontend), positions then
-    0 .. P + S - 1.  ``lengths`` (B,) int: true row lengths of an
-    end-padded batch, threaded into the SSM recurrence (pads leave the
-    state unchanged); the attention is causal, so end pads never reach a
-    valid position.  Returns (logits (B, S, V), cache or None, aux loss:
-    the MoE layers' summed load-balance loss, f32, 0 for the other
-    families).  The cache is {"k", "v"}: (L or G, B, S, KV, dh) in the
-    compute dtype, and for the recurrent families {"ssm": {"ssd": (L, B,
-    H, P, N) f32, "conv": (L, B, K-1, DI)}}."""
+    0 .. P + S - 1.  ``remat`` (``cfg.remat`` if None) runs every layer
+    body -- the attention (dense, MoE, VLM) block, the Mamba2 block and the
+    hybrid's shared attention block -- under ``remat_call``.  ``lengths``
+    (B,) int: true row lengths of an end-padded batch, threaded into the
+    SSM recurrence (pads leave the state unchanged); the attention is
+    causal, so end pads never reach a valid position.  Returns (logits (B,
+    S, V), cache or None, aux loss: the MoE layers' summed load-balance
+    loss, f32, 0 for the other families).  The cache is {"k", "v"}: (L or
+    G, B, S, KV, dh) in the compute dtype, and for the recurrent families
+    {"ssm": {"ssd": (L, B, H, P, N) f32, "conv": (L, B, K-1, DI)}}."""
+    remat = cfg.remat if remat is None else remat
     h = params["embed"][tokens.long()]
     if frontend_embeds is not None:
         h = torch.cat([frontend_embeds.to(h.dtype), h], dim=1)
@@ -197,11 +215,18 @@ def decoder_forward(params, cfg: ModelConfig, tokens, positions=None,
     if positions is None:
         positions = torch.arange(s, device=h.device)
     window = _window(cfg)
+
+    def attn_block(lp, hh):
+        return _dense_block_seq(cfg, lp, hh, positions, window)
+
+    def ssm_block(lp, hh):
+        return _ssm_block_seq(cfg, lp, hh, lengths)
+
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs, states = [], [], []
     if cfg.family in _ATTN:
         for lp in _attn_layers(cfg, params):
-            h, k, v, a = _dense_block_seq(cfg, lp, h, positions, window)
+            h, k, v, a = remat_call(remat, attn_block, lp, h)
             if a is not None:
                 aux = aux + a
             ks.append(k)
@@ -209,12 +234,12 @@ def decoder_forward(params, cfg: ModelConfig, tokens, positions=None,
     else:
         for group in _groups(cfg):
             for i in group:
-                h, st = _ssm_block_seq(cfg, _layer(params["layers"], i), h,
-                                       lengths)
+                h, st = remat_call(remat, ssm_block,
+                                   _layer(params["layers"], i), h)
                 states.append(st)
             if cfg.family == "hybrid":
-                h, k, v, _ = _dense_block_seq(cfg, params["shared_attn"], h,
-                                              positions, window)
+                h, k, v, _ = remat_call(remat, attn_block,
+                                        params["shared_attn"], h)
                 ks.append(k)
                 vs.append(v)
     logits = _logits(params, cfg, h)
@@ -310,6 +335,20 @@ def decoder_decode_step(params, cfg: ModelConfig, token, cache, cache_len):
                 cfg, params["shared_attn"], h, cache["k"][gi],
                 cache["v"][gi], cache_len, window=window)
     return _logits(params, cfg, h), cache
+
+
+# -------------------------------------------------------------------- loss
+
+def lm_loss(logits, labels, mask=None):
+    """Mean next-token cross-entropy.  logits: (B, S, V); labels: (B, S)
+    int; mask (B, S), optional: the mean over the masked positions (their
+    count at least 1).  f32 ``log_softmax``, as the reference."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------- paged serving

@@ -56,6 +56,7 @@ from ..kernels.bucketing import pow2_bucket
 from ..sharding.context import serving_sharding
 from ..sharding.partitioning import (decode_rule_table, decode_rules,
                                      resolve_specs, shard_bytes_table)
+from ..tree import tree_leaves
 
 __all__ = ["ShardingPlan", "estimate_device_bytes",
            "REPLICATION_WARN_BYTES"]
@@ -322,10 +323,8 @@ class ShardingPlan:
 
 def _nested_bytes(node) -> int:
     """Bytes of a nested {name: (shape, dtype)} tree."""
-    if isinstance(node, dict):
-        return sum(_nested_bytes(v) for v in node.values())
-    shape, dtype = node
-    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return sum(math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+               for shape, dtype in tree_leaves(node))
 
 
 def estimate_device_bytes(model, *, tp: int, parallel: str = "exact",

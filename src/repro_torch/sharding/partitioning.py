@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from ..tree import tree_items
+
 __all__ = ["MEGATRON_AXES", "megatron_axes", "decode_rule_table",
            "decode_rules", "paged_kv_pool_spec", "resolve_specs",
            "shard_bytes_table"]
@@ -139,16 +141,6 @@ def _is_spec(x) -> bool:
         and hasattr(x, "dtype")
 
 
-def _leaves(tree, path: tuple = ()):
-    """(path, leaf) pairs in sorted-key order, as ``jax.tree`` visits a
-    dict; a leaf is a ParamSpec or an axes tuple (or None)."""
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            yield from _leaves(tree[key], path + (key,))
-    else:
-        yield path, tree
-
-
 def _set(out: dict, path: tuple, value) -> None:
     for key in path[:-1]:
         out = out.setdefault(key, {})
@@ -159,7 +151,7 @@ def resolve_specs(spec_tree, rules: dict):
     """Logical-axis tree (a template, or a tree of axes tuples) -> the same
     tree of per-dim mesh-axis tuples (``()`` for a replicated scalar)."""
     out: dict = {}
-    for path, leaf in _leaves(spec_tree):
+    for path, leaf in tree_items(spec_tree):
         axes = leaf.axes if _is_spec(leaf) else leaf
         _set(out, path, tuple(rules.get(a) for a in (axes or ())))
     return out
@@ -178,7 +170,7 @@ def shard_bytes_table(template, rules: dict, tp: int,
     the full size), and whether replication was a divisibility fallback
     (an axis in ``fallbacks``).  Rows and names as the reference's."""
     rows = []
-    for path, spec in _leaves(template):
+    for path, spec in tree_items(template):
         axes = spec.axes if spec.axes is not None else ()
         sharded = any(rules.get(a) is not None for a in axes)
         nbytes = int(math.prod(spec.shape)) \

@@ -9,8 +9,10 @@ assert on.
 from .faults import (FlakyPredictor, KVFaultError, PredictorUnavailable,
                      VirtualClock, assert_engine_quiesced, inject_kv_fault,
                      scale_distribution)
-from .tolerance import TokenMismatch, assert_tokens_close
+from .tolerance import (GRAD_REL_BAR, GRAD_REL_BAR_MOE, TokenMismatch,
+                        assert_tokens_close, grad_rel_errors)
 
-__all__ = ["FlakyPredictor", "KVFaultError", "PredictorUnavailable",
-           "TokenMismatch", "VirtualClock", "assert_engine_quiesced",
-           "assert_tokens_close", "inject_kv_fault", "scale_distribution"]
+__all__ = ["FlakyPredictor", "GRAD_REL_BAR", "GRAD_REL_BAR_MOE",
+           "KVFaultError", "PredictorUnavailable", "TokenMismatch",
+           "VirtualClock", "assert_engine_quiesced", "assert_tokens_close",
+           "grad_rel_errors", "inject_kv_fault", "scale_distribution"]

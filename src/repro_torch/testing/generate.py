@@ -15,6 +15,7 @@ import time
 
 import torch
 
+from ..tree import tree_leaves
 from .tolerance import assert_tokens_close
 
 __all__ = ["LOGIT_ULPS", "FLIP_ULPS", "bf16_ulp", "dense_cache_from_prefill",
@@ -31,21 +32,13 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
-def _leaves(node):
-    if isinstance(node, dict):
-        for v in node.values():
-            yield from _leaves(v)
-    else:
-        yield node
-
-
 def dense_cache_from_prefill(model, pre, batch: int, max_len: int):
     """A dense decode cache of ``max_len`` slots holding a prefill's cache:
     the self-attention K/V in the first slots, the recurrent state copied
     into the cache's own tensors (so the conv tail keeps the cache's
     dtype), and the encoder-decoder's cross K/V as the prefill's own
     tensors (no copy)."""
-    device = next(_leaves(pre)).device
+    device = tree_leaves(pre)[0].device
     cache = model.init_cache(batch, max_len, device=device)
     for name, t in pre.items():
         if name in ("k", "v"):

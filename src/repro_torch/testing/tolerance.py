@@ -18,13 +18,40 @@ autoregressive state differs and all later mismatches are expected, so
 only the first divergence point per stream is charged against the
 rate.  ``bit_identical=True`` restores the exact-mode contract (used
 at tp=1, where efficient mode degenerates to no resharding at all).
+
+Training's contract on the card is ``grad_rel_errors``: the gradients of
+a loss on the card (the flash kernels forward and backward) against the
+same loss's on the CPU (their plain versions) on the same bf16 weights
+and batch, each parameter leaf within ``GRAD_REL_BAR`` in relative norm
+(the attention bar's rtol), ``GRAD_REL_BAR_MOE`` for an MoE, whose router
+picks near ties differently under bf16 reorderings.  A leaf whose
+attention gradient is missing is off by about 1, one whose sign is
+flipped by about 2.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["assert_tokens_close", "TokenMismatch"]
+__all__ = ["assert_tokens_close", "TokenMismatch", "GRAD_REL_BAR",
+           "GRAD_REL_BAR_MOE", "grad_rel_errors"]
+
+# the card's gradient leaves against the CPU's, in relative norm
+GRAD_REL_BAR = 2e-2
+GRAD_REL_BAR_MOE = 5e-2
+
+
+def grad_rel_errors(got, want) -> list[float]:
+    """``||g - w|| / ||w||`` for each pair of gradient leaves (tensors,
+    on any device), summed in f64 on the CPU; 0 where both are 0."""
+    out = []
+    for g, w in zip(got, want, strict=True):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        den = float(w.norm())
+        num = float((g - w).norm())
+        out.append(num / den if den > 0 else (0.0 if num == 0 else
+                                               float("inf")))
+    return out
 
 
 class TokenMismatch(AssertionError):

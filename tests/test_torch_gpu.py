@@ -1628,3 +1628,179 @@ def test_cuda_captures_pause_the_collector(cuda, llama_params):
     assert eng.graphs_captured > 0 and len(seen) == eng.graphs_captured
     assert not any(seen)
     assert gc.isenabled()
+
+
+# ------------------------------------------------------------- training
+
+def _bwd_inputs(cuda, b, sq, h, kvh, dh, seed, s_past=0, start=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    sk = s_past + sq
+    q = torch.randn(b, sq, h, dh, generator=g, device=cuda).bfloat16()
+    k = torch.randn(b, sk, kvh, dh, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, sk, kvh, dh, generator=g, device=cuda).bfloat16()
+    dout = torch.randn(b, sq, h, dh, generator=g, device=cuda).bfloat16()
+    pos = (start + torch.arange(sq, device=cuda)).int()
+    past = torch.arange(s_past, device=cuda)
+    kv_pos = torch.cat([torch.where(past < start, past, -10 ** 9),
+                        pos.long()]).int()
+    return q, k, v, dout, pos, kv_pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128, 192])
+@pytest.mark.parametrize("sq,h,kvh,causal,window,s_past,start", [
+    (96, 6, 2, True, 0, 0, 0),        # GQA, a ragged tile
+    (64, 4, 1, True, 32, 128, 77),    # MQA, masked prefix rows, window
+    (8, 4, 4, False, 0, 40, 40),      # bidirectional, few queries
+])
+def test_cuda_flash_backward_vs_plain(cuda, dh, sq, h, kvh, causal, window,
+                                      s_past, start):
+    """The backward kernel against its plain version on the LSE
+    instance's own O and LSE; the LSE instance's O bit-identical to the
+    serving instance's, its LSE within 1e-4 of the plain version's; two
+    backward calls bit-identical (no atomics)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        FLASH_BACKWARD_KERNEL, FLASH_PREFILL_LSE_KERNEL,
+        flash_attention_backward, flash_attention_lse)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference)
+    q, k, v, dout, pos, kv_pos = _bwd_inputs(cuda, 2, sq, h, kvh, dh,
+                                             sq + dh, s_past, start)
+    kw = dict(causal=causal, window=window)
+    n_fwd, n_bwd = FLASH_PREFILL_LSE_KERNEL.launches, \
+        FLASH_BACKWARD_KERNEL.launches
+    out, lse = flash_attention_lse(q, k, v, pos, kv_pos, **kw)
+    got = flash_attention_backward(q, k, v, pos, kv_pos, out, lse, dout, **kw)
+    again = flash_attention_backward(q, k, v, pos, kv_pos, out, lse, dout,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert FLASH_PREFILL_LSE_KERNEL.launches == n_fwd + 1
+    assert FLASH_BACKWARD_KERNEL.launches == n_bwd + 2
+    _, want_lse = attention_reference(q, k, v, pos, kv_pos, return_lse=True,
+                                      **kw)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    if not flash_key_ranges(sq, kv_pos.numel(), **kw):
+        assert torch.equal(out, flash_attention(q, k, v, pos, kv_pos, **kw))
+    want = attention_backward_reference(q, k, v, pos, kv_pos, out, lse, dout,
+                                        **kw)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _attn_close(g, w)
+
+
+@pytest.mark.gpu
+def test_cuda_serving_flash_path_unchanged_without_grad(cuda):
+    """With grad disabled (or nothing requiring it) the flash op launches
+    the serving instance only: no LSE or backward launch."""
+    from repro_torch.kernels.flash_attention.ops import (
+        FLASH_BACKWARD_KERNEL, FLASH_PREFILL_LSE_KERNEL)
+    q, k, v, _, pos, kv_pos = _bwd_inputs(cuda, 1, 128, 8, 2, 64, 3)
+    q.requires_grad_()
+    n = (FLASH_PREFILL_KERNEL.launches, FLASH_PREFILL_LSE_KERNEL.launches,
+         FLASH_BACKWARD_KERNEL.launches)
+    with torch.no_grad():
+        flash_attention(q, k, v, pos, kv_pos)
+    flash_attention(q.detach(), k, v, pos, kv_pos)
+    torch.cuda.synchronize()
+    assert (FLASH_PREFILL_KERNEL.launches, FLASH_PREFILL_LSE_KERNEL.launches,
+            FLASH_BACKWARD_KERNEL.launches) == (n[0] + 2, n[1], n[2])
+
+
+def _card_vs_cpu_grads(cuda, arch):
+    """The loss and gradients of a reduced ``arch`` on the card and on the
+    CPU on the same bf16 weights and batch: (model, params on the card,
+    the batch on the card, names of the leaves, card loss, CPU loss,
+    ``grad_rel_errors`` of each leaf)."""
+    from repro_torch.data import lm_batches
+    from repro_torch.testing import grad_rel_errors
+    from repro_torch.training.train_loop import loss_and_grads
+    from repro_torch.tree import tree_items, tree_leaves, tree_unflatten
+    cfg = get_config(arch, reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    b = {k: torch.from_numpy(v)
+         for k, v in next(lm_batches(cfg.vocab_size, 4, 128, seed=0)).items()}
+    pg = tree_unflatten(params, [t.to(cuda) for t in tree_leaves(params)])
+    bg = {k: v.to(cuda) for k, v in b.items()}
+    lg, _, gg = loss_and_grads(model, pg, bg)
+    lc, _, gc = loss_and_grads(model, params, b)
+    names = ["/".join(p) for p, _ in tree_items(params)]
+    return model, pg, bg, names, float(lg), float(lc), \
+        grad_rel_errors(gg, gc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", [ARCH, "olmoe-1b-7b"])
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """A reduced llama3.2-1b or olmoe-1b-7b (the MoE dispatch under
+    autograd): the gradients of its loss on the card (the flash kernels
+    forward and backward) against the CPU's (the plain versions) on the
+    same bf16 weights and batch, the loss within 1e-3 relative and every
+    leaf within GRAD_REL_BAR (GRAD_REL_BAR_MOE for olmoe) in relative
+    norm.  Then one train step on the
+    card: its launches (two LSE forwards a layer under remat, one
+    backward) and finite parameters."""
+    from repro_torch.kernels.flash_attention.ops import (
+        FLASH_BACKWARD_KERNEL, FLASH_PREFILL_LSE_KERNEL)
+    from repro_torch.testing import GRAD_REL_BAR, GRAD_REL_BAR_MOE
+    from repro_torch.training import AdamW, make_train_step
+    from repro_torch.tree import tree_leaves
+    model, pg, bg, names, lg, lc, errs = _card_vs_cpu_grads(cuda, arch)
+    bar = GRAD_REL_BAR_MOE if model.cfg.family == "moe" else GRAD_REL_BAR
+    assert abs(lg - lc) <= 1e-3 * abs(lc)
+    bad = {n: e for n, e in zip(names, errs) if not e <= bar}
+    assert not bad, bad
+    opt = AdamW(learning_rate=1e-3)
+    n = (FLASH_PREFILL_LSE_KERNEL.launches, FLASH_BACKWARD_KERNEL.launches)
+    p1, _, mt = make_train_step(model, opt)(pg, opt.init(pg), bg)
+    torch.cuda.synchronize()
+    assert (FLASH_PREFILL_LSE_KERNEL.launches - n[0],
+            FLASH_BACKWARD_KERNEL.launches - n[1]) == (
+                2 * model.cfg.n_layers, model.cfg.n_layers)
+    assert torch.isfinite(mt["loss"])
+    assert all(torch.isfinite(t).all() for t in tree_leaves(p1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["missing", "flipped"])
+def test_cuda_gradient_check_catches_a_wrong_attention_backward(
+        cuda, fault, monkeypatch):
+    """The check above fails on the fault a loss on the card was open to:
+    attention's gradients missing (the Function's backward giving zeros
+    on the card, as a detached output would) or of the wrong sign.  Every
+    leaf of q, k and v projections is then off by about 1 or 2."""
+    from repro_torch.kernels.flash_attention.ops import FlashAttentionFunction
+    from repro_torch.testing import GRAD_REL_BAR_MOE
+    right = FlashAttentionFunction.backward
+
+    def wrong(ctx, dout):
+        grads = right(ctx, dout)
+        if not dout.is_cuda:
+            return grads
+        return tuple(None if g is None else
+                     (torch.zeros_like(g) if fault == "missing" else -g)
+                     for g in grads)
+    monkeypatch.setattr(FlashAttentionFunction, "backward",
+                        staticmethod(wrong))
+    *_, names, _, _, errs = _card_vs_cpu_grads(cuda, ARCH)
+    qkv = [e for n, e in zip(names, errs) if n.split("/")[-1] in
+           ("wq", "wk", "wv")]
+    assert len(qkv) == 3 and min(qkv) > 0.5 > GRAD_REL_BAR_MOE
+
+
+@pytest.mark.gpu
+def test_cuda_mamba2_train_step_is_refused(cuda):
+    """The SSD scan kernel has no backward: a mamba2 train step on the card
+    raises naming the queue item instead of training on detached
+    activations."""
+    from repro_torch.kernels.grad_guard import BACKWARD_ITEM
+    from repro_torch.training import AdamW, make_train_step
+    cfg = get_config("mamba2-2.7b", reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(3, cfg.vocab_size, (2, 64), device=cuda,
+                         dtype=torch.int32)
+    opt = AdamW()
+    with pytest.raises(NotImplementedError, match=BACKWARD_ITEM.split(",")[0]):
+        make_train_step(model, opt)(params, opt.init(params),
+                                    {"tokens": toks, "labels": toks})

@@ -76,10 +76,14 @@ def test_module_names_mirror_the_reference():
     the CUDA bindings are the port's own additions, and so are
     testing.generate, the dense-cache generate drive and its check, and
     serving.step_graphs, the engine's CUDA-graph step runners, which the
-    reference's jit needs no module for)."""
+    reference's jit needs no module for, and kernels.grad_guard, the
+    refusal of a kernel op without a backward under autograd, which XLA's
+    autodiff needs none of, and tree, the nested-dict walks that
+    ``jax.tree`` gives the reference)."""
     own = {"repro_torch.kernels.build", "repro_torch.models.bridge",
            "repro_torch.launch", "repro_torch.testing.generate",
-           "repro_torch.serving.step_graphs"}
+           "repro_torch.serving.step_graphs",
+           "repro_torch.kernels.grad_guard", "repro_torch.tree"}
     ref = {p.relative_to(ROOT / "src").with_suffix("").as_posix()
            .replace("/", ".").removesuffix(".__init__")
            for p in (ROOT / "src" / "repro").rglob("*.py")}

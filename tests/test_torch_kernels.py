@@ -8,6 +8,7 @@ from a seed and handed to both sides.  Tolerances: 1e-5 in f32 and 2e-2
 in bf16 (the JAX package's own kernel bar, tests/test_kernels.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +47,8 @@ from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
                                                      flash_attention,
                                                      flash_key_ranges)
 from repro_torch.kernels.flash_attention.ops import _check as _check_flash
+from repro_torch.kernels.flash_attention.ref import (
+    attention_backward_reference, attention_reference)
 from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
                                              gittins_attained)
 from repro_torch.models.attention import (combine_lse_partials,
@@ -767,3 +770,118 @@ def test_flash_key_split_sizing(sq, sk):
     assert [j for lo, hi in ranges for j in range(lo, hi)] == list(range(sk))
     assert all((hi - lo) % SPLIT_UNIT == 0 for lo, hi in ranges[:-1])
     assert flash_key_ranges(sq, 2 * sk + 7) >= n
+
+
+# --------------------------------------------------------- flash backward
+
+# (b, sq, h, kvh, dh, causal, window, s_past, start): GQA, MHA and MQA,
+# dh 64, 128 and 192, a window of 64, masked prefix rows (negative kv
+# positions) with a query offset, and a bidirectional call
+BWD_CASES = [
+    (2, 96, 4, 2, 64, True, 0, 0, 0),
+    (1, 80, 4, 4, 128, True, 0, 0, 0),
+    (1, 72, 6, 2, 192, True, 0, 0, 0),
+    (2, 160, 4, 2, 64, True, 64, 0, 0),
+    (1, 64, 4, 1, 64, True, 0, 128, 77),
+    (2, 8, 4, 2, 128, False, 0, 40, 40),
+]
+
+
+def _bwd_case(case, seed):
+    b, sq, h, kvh, dh, causal, window, s_past, start = case
+    rng = np.random.default_rng(seed)
+    sk = s_past + sq
+    q = rng.normal(0, 1, (b, sq, h, dh)).astype(np.float32)
+    k = rng.normal(0, 1, (b, sk, kvh, dh)).astype(np.float32)
+    v = rng.normal(0, 1, (b, sk, kvh, dh)).astype(np.float32)
+    dout = rng.normal(0, 1, (b, sq, h, dh)).astype(np.float32)
+    pos = start + np.arange(sq)
+    past = np.arange(s_past)
+    kv_pos = np.concatenate([np.where(past < start, past, -(10 ** 9)), pos])
+    return q, k, v, dout, pos, kv_pos, dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_attention_backward_reference_vs_autograd_and_jax_vjp(case):
+    """attention_backward_reference (the explicit formula the backward
+    kernel computes) against torch autograd of attention_reference and
+    against jax.vjp of the reference's gqa_attention, in f32."""
+    q, k, v, dout, pos, kv_pos, kw = _bwd_case(case, sum(case[:5]))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tpos, tkv = torch.from_numpy(pos), torch.from_numpy(kv_pos)
+    out, lse = attention_reference(tq, tk, tv, tpos, tkv, return_lse=True,
+                                   **kw)
+    auto = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+    got = attention_backward_reference(
+        tq.detach(), tk.detach(), tv.detach(), tpos, tkv, out.detach(),
+        lse.detach(),
+        torch.from_numpy(dout), **kw)
+    _, vjp = jax.vjp(lambda a, b_, c: jax_gqa(
+        a, b_, c, positions=jnp.asarray(pos),
+        kv_positions=jnp.asarray(kv_pos), **kw),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, auto, want):
+        assert g.shape == a.shape, name
+        np.testing.assert_allclose(g.numpy(), a.numpy(), **F32_TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL,
+                                   err_msg=name)
+
+
+def test_attention_reference_lse():
+    """The forward's LSE: log of the sum of exp of each row's scaled,
+    visible scores, (B, H, Sq) f32; the output unchanged by asking."""
+    q, k, v, _, pos, kv_pos, kw = _bwd_case(BWD_CASES[4], 5)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tpos, tkv = torch.from_numpy(pos), torch.from_numpy(kv_pos)
+    out, lse = attention_reference(tq, tk, tv, tpos, tkv, return_lse=True,
+                                   **kw)
+    assert torch.equal(out, attention_reference(tq, tk, tv, tpos, tkv,
+                                                **kw))
+    b, sq, h, dh = q.shape
+    kr = np.repeat(k.astype(np.float64), h // k.shape[2], axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kr) * dh ** -0.5
+    vis = (kv_pos[None, :] >= 0) & (pos[:, None] >= kv_pos[None, :])
+    s = np.where(vis, s, -np.inf)
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) \
+        + s.max(-1)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:3] + BWD_CASES[4:])
+def test_flash_function_cpu_grads_match_plain_autograd(case):
+    """flash_attention under autograd goes through FlashAttentionFunction
+    (the card's saved tensors, GQA reduction and plumbing, with the plain
+    versions in place of the kernels): its gradients equal plain autograd
+    of attention_reference, its output the op's without grad."""
+    q, k, v, dout, pos, kv_pos, kw = _bwd_case(case, 7)
+    tpos = torch.from_numpy(pos).to(torch.int32)
+    tkv = torch.from_numpy(kv_pos).to(torch.int32)
+    ins = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*ins, tpos, tkv, **kw)
+    assert out.grad_fn is not None \
+        and "FlashAttentionFunction" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, ins, torch.from_numpy(dout))
+    ins2 = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(
+        attention_reference(*ins2, tpos, tkv, **kw), ins2,
+        torch.from_numpy(dout))
+    with torch.no_grad():
+        plain = flash_attention(*(t.detach() for t in ins), tpos, tkv, **kw)
+    assert torch.equal(out.detach(), plain)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **F32_TOL)
+
+
+def test_flash_function_only_under_autograd():
+    """Without grad, or with no input requiring it, the op runs exactly
+    the serving path (no Function node)."""
+    q, k, v, _, pos, kv_pos, kw = _bwd_case(BWD_CASES[0], 1)
+    tpos = torch.from_numpy(pos).to(torch.int32)
+    ts = [torch.from_numpy(x) for x in (q, k, v)]
+    assert flash_attention(*ts, tpos, tpos, **kw).grad_fn is None
+    with torch.no_grad():
+        t = [x.clone().requires_grad_() for x in ts]
+        assert flash_attention(*t, tpos, tpos, **kw).grad_fn is None

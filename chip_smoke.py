@@ -6,7 +6,7 @@
                                      # model under torch.profiler: device
                                      # busy share and the largest
                                      # device-time entries
-    python3 chip_smoke.py --kernels  # phases 1-3, 6 and 6c (a) only: every
+    python3 chip_smoke.py --kernels  # phases 1-3, 6, 6c (a), (a') only: every
                                      # kernel check and time, no drive and
                                      # no result line
 
@@ -99,7 +99,18 @@ Phases:
      step of the plan to the same step without a mesh on the same pool
      and inputs (logits within TP_STEP_ULPS bf16 steps, argmax identical
      but where the unsharded maximum is within 2 steps), and print their
-     streams' match rate against (a);
+     streams' match rate against (a); and, right after each one's phase 4
+     drives on the same weights, mamba2-2.7b and zamba2-1.2b at full width
+     and depth (RECURRENT_TP_DRIVES, (a) being phase 4's fused and
+     orchestrated drives): (b) exact tp 2 (Mamba2 layers replicated on the
+     first shard, zamba2's pool over kv heads), held token-identical to (a)
+     in each step mode; (c) efficient tp 2 (Mamba2 heads, MLP and vocab
+     sharded), fused and orchestrated held token-identical, each again
+     without graphs held to its graphed twin, one decode step against the
+     no-mesh step on the same state and pool printed at full depth and
+     held within TP_STEP_ULPS cut to STEP_CUT_LAYERS (full width), its
+     match rate against (a) printed; every SSD, flash and paged launch
+     exact;
   4c. the front door: llama3.2-1b at full width (seed 0) behind the
      Gateway with prefix sharing (SageSched with the CUDA Gittins
      backend, FRONT_ENGINE: 8 slots x 2048 tokens, a 6144-token budget,
@@ -198,8 +209,22 @@ Phases:
      2 layers, 5 steps, then grad accumulation 2 against 1 on one batch at
      tests/test_training.py's bars; (d) olmoe-1b-7b at full width cut to
      2 layers, 5 steps, its router aux loss finite and > 0; the losses of
-     (c) and (d) finite and falling; (e) a mamba2-2.7b train step (2
-     layers) refused with the SSD scan's missing-backward error;
+     (c) and (d) finite and falling; (a') the SSD scan backward kernel
+     (``csrc/ssd_scan_bwd.cu``) against its plain version
+     (``ssd_backward_reference``) at SSD_BWD_CASES (mamba2-2.7b's and
+     zamba2-1.2b's shapes, with and without an initial state and a
+     final-state gradient, S 777), on the forward's saved tensors through
+     ``SSDScanFunction``, each gradient within BF16_TOL, two calls
+     bit-identical, each timed beside its bound (and at the training shape
+     B 8 x S 1024); (e) TRAIN_RECURRENT: zamba2-1.2b (20 steps) and
+     mamba2-2.7b (5 steps) at full width and depth, B 8 x S 1024, each
+     first with its gradients at full depth with the SSD backward kernel
+     held to those with its plain version on the card
+     (``ssd_plain_check``, SSD_PLAIN_GRAD_BAR) and, cut to
+     GRAD_CUT_LAYERS, to the CPU's (``grad_check``, GRAD_REL_BAR_SSM),
+     the SSD and flash launches exact (forwards twice a layer under
+     remat, one backward a layer), the loss falling, s/step, tokens/s,
+     peak GiB and the model-FLOP share printed;
   7. print one JSON line of per-kernel results (launches summed over
      every serve and generate drive, the front door's, the simulator's
      and the training drives'; the flash row counts the flash op's entry
@@ -247,16 +272,16 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention_lse, flash_key_ranges)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_backward_reference, attention_reference)
-from repro_torch.kernels.grad_guard import BACKWARD_ITEM  # noqa: E402
 from repro_torch.kernels.bucketing import pow2_bucket  # noqa: E402
 from repro_torch.kernels.gittins.ops import (  # noqa: E402
     GITTINS_KERNEL, gittins_attained, gittins_attained_op, padded_rows)
 from repro_torch.kernels.gittins.ref import (  # noqa: E402
     gittins_attained_reference)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
-    SSD_SCAN_KERNEL, ssd_scan)
+    SSD_BACKWARD_KERNEL, SSD_SCAN_KERNEL, ssd_scan, ssd_scan_backward)
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    ssd_chunked_reference, ssd_sequential_reference)
+    ssd_backward_reference, ssd_chunked_reference, ssd_sequential_reference)
 from repro_torch.data import lm_batches  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.launch.train import schedule_for as train_schedule  # noqa: E402,E501
@@ -269,12 +294,14 @@ from repro_torch.models.encdec import encode  # noqa: E402
 from repro_torch.models.layers import iter_specs  # noqa: E402
 from repro_torch.serving import (Gateway, GatewayConfig,  # noqa: E402
                                  RequestState, ServeRequest, ServingEngine)
+from repro_torch.serving.sharded import ShardingPlan  # noqa: E402
 from repro_torch.simulator import (generate_workload,  # noqa: E402
                                    make_profile, measure_scheduler_overhead,
                                    simulate_cluster)
 from repro_torch.testing import (  # noqa: E402
-    GRAD_REL_BAR, GRAD_REL_BAR_MOE, VirtualClock, assert_engine_quiesced,
-    assert_tokens_close, grad_rel_errors)
+    GRAD_REL_BAR, GRAD_REL_BAR_MOE, GRAD_REL_BAR_SSM, SSD_PLAIN_GRAD_BAR,
+    VirtualClock, assert_engine_quiesced, assert_tokens_close,
+    grad_rel_errors)
 from repro_torch.testing.generate import (  # noqa: E402
     bf16_ulp, greedy_generate, teacher_forced_check)
 from repro_torch.training import (AdamW, load_checkpoint,  # noqa: E402
@@ -335,6 +362,17 @@ TP_SAME_STREAMS = ("c",)
 # phase 4b: the drives run again eagerly (graphs=False) in each of their
 # step modes, held token-identical, launch for launch, to the graphed run
 TP_EAGER_HELD = ("c",)
+# phase 4b's drives of the recurrent families (mamba2-2.7b, zamba2-1.2b at
+# full width and depth, on phase 4's weights; (a) is phase 4's graphed
+# fused and orchestrated drives, not run again): exact tp 2 (the Mamba2
+# layers replicated, zamba2's pool over kv heads) and efficient tp 2 (the
+# Mamba2 heads sharded), each fused and orchestrated
+RECURRENT_TP_DRIVES = (("b", 2, "exact", ("fused", "orchestrated")),
+                       ("c", 2, "efficient", ("fused", "orchestrated")))
+# the depth at which (c)'s decode step is held to the no-mesh step for
+# the recurrent families (full width; at full depth the step drifts as a
+# one-ulp nudge of the weights does, and is printed)
+STEP_CUT_LAYERS = 2
 # phase 4b: one decode step of an efficient plan vs the same step without
 # a mesh, max |logit| difference in bf16 steps at the largest |logit|: its
 # drift on an H100 (2.00 for tp 2, 1.81 for tp 4; the step is
@@ -1626,20 +1664,29 @@ def phase_serve_wide(cfg, params, dev, eager: bool = False) -> dict:
 # -------------------------------------------------------------- phase 4b
 
 def tp_launches(cfg, engine, m) -> dict:
-    """The attention launches a drive's path makes: per decode call one
-    paged kernel per layer and attention shard (kv-head shards where the
-    plan shards attention, else one), or, under the LSE split, one partial
-    kernel per layer and stripe; per prefill chunk one flash kernel per
-    layer and attention shard."""
+    """The attention and SSD launches a drive's path makes: per decode
+    call one paged kernel per attention layer (the hybrid's shared block
+    once a group) and attention shard (kv-head shards where the plan
+    shards attention, else one), or, under the LSE split, one partial
+    kernel per layer and stripe; per prefill chunk (a recurrent family's
+    atomic prefill is one) one flash kernel per attention layer and
+    attention shard, and one SSD scan per Mamba2 layer and SSM shard
+    (head shards where the plan shards the SSM, else one)."""
     report = engine.sharding_report() or {"attention": "replicated",
                                           "attn_splits": 1}
     shards = engine.tp if report["attention"] == "sharded" else 1
-    per_step = cfg.n_layers * m["decode_iterations"]
+    n_attn = cfg.n_layers if cfg.family in ("dense", "moe", "vlm") else (
+        -(-cfg.n_layers // cfg.hybrid_attn_every)
+        if cfg.family == "hybrid" else 0)
+    per_step = n_attn * m["decode_iterations"]
     lse = report["attn_splits"] > 1
-    return {PAGED_DECODE_KERNEL.symbol: 0 if lse else per_step * shards,
-            PAGED_LSE_KERNEL.symbol: per_step * engine.tp if lse else 0,
-            FLASH_PREFILL_KERNEL.symbol:
-                cfg.n_layers * m["prefill_chunks"] * shards}
+    out = {PAGED_DECODE_KERNEL.symbol: 0 if lse else per_step * shards,
+           PAGED_LSE_KERNEL.symbol: per_step * engine.tp if lse else 0,
+           FLASH_PREFILL_KERNEL.symbol: n_attn * m["prefill_chunks"] * shards}
+    if cfg.family in ("ssm", "hybrid"):
+        ssm = engine.tp if report.get("ssm") == "sharded" else 1
+        out[SSD_SCAN_KERNEL.symbol] = cfg.n_layers * m["prefill_chunks"] * ssm
+    return out
 
 
 @contextlib.contextmanager
@@ -1662,45 +1709,57 @@ def recorded_routes():
         moe_module.moe_route = transformer_module.moe_route = orig
 
 
-def tp_step_check(cfg, params, engine, dev) -> dict:
-    """One decode step of ``engine``'s plan against the same step without
+def tp_step_check(cfg, params, plan, shard_params, dev, *,
+                  hold: bool = True) -> dict:
+    """One decode step of ``plan`` (``shard_params``: ``params`` placed by
+    it) against the same step without
     a mesh, on the same pool and inputs: 8 rows of 37..512 tokens whose
-    K/V a forward over random 512-token prompts wrote into a paged pool.
+    K/V a forward over random 512-token prompts wrote into a paged pool
+    (and whose recurrent state is that forward's final state: the SSM
+    reads no cache_len).
     Holds the logits within TP_STEP_ULPS bf16 steps (at the unsharded
     step's largest |logit|) on every row whose MoE layers picked the
     unsharded step's experts (all rows of a model without them; at least
     one row must remain), and the argmax identical on every row except
     where the plan's pick lies within 2 steps of the unsharded maximum.
     A row whose experts differ in some layer, a discrete flip of a near
-    tie in the router, is counted and its drift printed."""
+    tie in the router, is counted and its drift printed.  ``hold=False``
+    prints the same numbers without holding them."""
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(7)
     b, s, page = 8, 512, 16
-    L, kvh, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    kvh, dh = cfg.n_kv_heads, cfg.head_dim
     toks = torch.randint(3, cfg.vocab_size, (b, s), generator=gen,
                          device=dev)
-    _, cache, _ = model.forward(params, {"tokens": toks}, collect_cache=True)
+    with torch.no_grad():
+        _, cache, _ = model.forward(params, {"tokens": toks},
+                                    collect_cache=True)
     p = s // page + 1
     tables = (1 + torch.arange(b * p, device=dev, dtype=torch.int32)
               ).reshape(b, p)
     pool = model.init_paged_cache(b * p + 1, page, b, device=dev)
     idx = (tables[:, :s // page].long()[:, :, None] * page
            + torch.arange(page, device=dev)).reshape(b * s)
-    for name in ("k", "v"):
-        pool[name].view(L, -1, kvh, dh)[:, idx] = \
-            cache[name].reshape(L, b * s, kvh, dh)
+    if "k" in pool:
+        L = pool["k"].shape[0]
+        for name in ("k", "v"):
+            pool[name].view(L, -1, kvh, dh)[:, idx] = \
+                cache[name].reshape(L, b * s, kvh, dh)
+    if "ssm" in pool:          # each slot's state after its 512 tokens
+        for name, t in pool["ssm"].items():
+            t.copy_(cache["ssm"][name])
     del cache
     cl = torch.tensor([37, 129, 250, 300, 401, 466, 500, 512],
                       dtype=torch.int32, device=dev)
     last = toks[:, -1:]
     with recorded_routes() as want_routes:
         want, _ = model.decode_step_paged(
-            params, last, {k: v.clone() for k, v in pool.items()}, cl,
+            params, last, tree_unflatten(pool, [t.clone() for t in
+                                                tree_leaves(pool)]), cl,
             tables, page_size=page)
-    plan = engine.plan
     with plan.context(), recorded_routes() as got_routes:
         got, _ = model.decode_step_paged(
-            engine.params, last, plan.place_cache(pool), cl, tables,
+            shard_params, last, plan.place_cache(pool), cl, tables,
             page_size=page)
     if isinstance(got, list):
         got = plan.all_gather(got, -1)
@@ -1727,12 +1786,15 @@ def tp_step_check(cfg, params, engine, dev) -> dict:
         rerouted = (f"; {out['rerouted']}/{b} rows picked other experts in "
                     f"some layer (max logit diff there {there:.2f} steps, "
                     f"not held)")
-    print(f"    one decode step vs no mesh: max logit diff {drift:.2f} bf16 "
-          f"steps (bar {TP_STEP_ULPS}; step {step:.4g} at max |logit| "
-          f"{float(want.abs().max()):.4g}){rerouted}, argmax differs at "
-          f"{out['flips']}/{b} rows (largest margin "
-          f"{out['flip_ulps_max']:.2f} steps, excused within 2)")
-    if drift > TP_STEP_ULPS or bool((flip & (margin > 2)).any()):
+    print(f"    one decode step vs no mesh ({cfg.n_layers} layers): max "
+          f"logit diff {drift:.2f} bf16 steps ("
+          f"{f'bar {TP_STEP_ULPS}' if hold else 'printed, not held'}; step "
+          f"{step:.4g} at max |logit| {float(want.abs().max()):.4g})"
+          f"{rerouted}, argmax differs at {out['flips']}/{b} rows (largest "
+          f"margin {out['flip_ulps_max']:.2f} steps"
+          f"{', excused within 2' if hold else ''})")
+    if hold and (drift > TP_STEP_ULPS
+                 or bool((flip & (margin > 2)).any())):
         raise SystemExit("FAIL tp step: the plan's decode step is not "
                          "within its bars of the unsharded step")
     return out
@@ -1770,16 +1832,19 @@ def phase_serve_tp(dev, arch=TP_ARCH, drives=TP_DRIVES, params=None,
     """``arch`` at full width through ``drives`` (TP_DRIVES' labels), every
     shard on the one card; ``params`` another phase's weights (else made
     here from seed 0), ``known`` the streams of drives run elsewhere (the
-    no-mesh (a)).  An MoE plan must report its experts sharded.  Returns
-    the summed launches."""
+    no-mesh (a), by step mode: (b) is held to (a) in its own mode).  An
+    MoE plan must report its experts sharded, a recurrent one its SSM
+    replicated (exact) or sharded (efficient).  Returns the summed
+    launches."""
     cfg = get_config(arch)
     if params is None:
         params = build_model(cfg).init(
             torch.Generator(device=dev).manual_seed(0))
     kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
-               FLASH_PREFILL_KERNEL)
+               FLASH_PREFILL_KERNEL, SSD_SCAN_KERNEL)
     total = {k.symbol: 0 for k in kernels}
     streams = dict(known or {})
+    recurrent = cfg.family in ("ssm", "hybrid")
     for label, tp, parallel, modes in drives:
         graph_launches = {}
         mesh = None if tp is None else make_local_mesh(
@@ -1803,7 +1868,7 @@ def phase_serve_tp(dev, arch=TP_ARCH, drives=TP_DRIVES, params=None,
                 f"tp {tp} {parallel}: attention {report['attention']}, "
                 f"attn_splits {report['attn_splits']}, vocab "
                 f"{report['vocab']}, mlp {report['mlp']}, experts "
-                f"{report['experts']}")
+                f"{report['experts']}, ssm {report['ssm']}")
             how = "" if graphs else ", eager"
             print(f"  ({label}) serve[{mode}{how}] {cfg.name} {branch} "
                   f"{torch.cuda.get_device_name(0)}: {len(reqs)}/{len(reqs)} "
@@ -1831,7 +1896,10 @@ def phase_serve_tp(dev, arch=TP_ARCH, drives=TP_DRIVES, params=None,
             if (report and (report["attention"], report["attn_splits"],
                             report["vocab"], report["mlp"])) != expect \
                     or (report and cfg.family == "moe"
-                        and report["experts"] != "sharded"):
+                        and report["experts"] != "sharded") \
+                    or (report and recurrent and report["ssm"] != (
+                        "replicated" if parallel == "exact"
+                        else "sharded")):
                 raise SystemExit(f"FAIL tp ({label}): plan {report}")
             got = [r.output_tokens for r in reqs]
             if not graphs:
@@ -1842,9 +1910,9 @@ def phase_serve_tp(dev, arch=TP_ARCH, drives=TP_DRIVES, params=None,
                 continue
             streams[label, mode] = got
             graph_launches[mode] = launches
-            if label == "b" and got != streams["a", "fused"]:
-                raise SystemExit("FAIL tp (b): exact tp=2 is not "
-                                 "token-identical to no mesh")
+            if label == "b" and got != streams["a", mode]:
+                raise SystemExit(f"FAIL tp (b): exact tp=2 is not "
+                                 f"token-identical to no mesh ({mode})")
             if label in ("b", "c", "d"):
                 st = assert_tokens_close(got, streams["a", "fused"],
                                          min_match_rate=0.0)
@@ -1860,10 +1928,24 @@ def phase_serve_tp(dev, arch=TP_ARCH, drives=TP_DRIVES, params=None,
                 if held and got != streams[label, "fused"]:
                     raise SystemExit(f"FAIL tp ({label}): the fused and "
                                      "orchestrated streams part")
-                if not held:
+                if not held and engine.plan.attn_splits > 1:
                     lse_stripe_check(dev, engine.tp)
             if label in ("c", "d") and mode == "fused":
-                tp_step_check(cfg, params, engine, dev)
+                # a recurrent plan's step drifts with depth as a one-ulp
+                # nudge does (PERF.md, Queue C): printed at full depth,
+                # held at STEP_CUT_LAYERS
+                tp_step_check(cfg, params, engine.plan, engine.params, dev,
+                              hold=not recurrent)
+                if recurrent:
+                    ccfg = cfg.with_overrides(n_layers=STEP_CUT_LAYERS)
+                    cmodel = build_model(ccfg)
+                    cut = cmodel.init(
+                        torch.Generator(device=dev).manual_seed(0))
+                    cplan = ShardingPlan.build(cmodel, mesh,
+                                               parallel=parallel)
+                    tp_step_check(ccfg, cut, cplan, cplan.place_params(cut),
+                                  dev)
+                    del cut
             for k, n in launches.items():
                 total[k] += n
             del engine
@@ -2652,8 +2734,16 @@ TRAIN_WIDE = (("qwen2-1.5b", dict(n_layers=2), 5, 1e-3),
 ACCUM_LR = 1e-3
 # grad_check's batch (B, S) for each config: small, as the CPU computes
 # the same gradients
-GRAD_BATCH = {"llama3.2-1b": (2, 512), "olmoe-1b-7b": (2, 256)}
-TRAIN_REFUSED = ("mamba2-2.7b", dict(n_layers=2))
+GRAD_BATCH = {"llama3.2-1b": (2, 512), "olmoe-1b-7b": (2, 256),
+              "zamba2-1.2b": (2, 512), "mamba2-2.7b": (2, 512)}
+# the recurrent families' card-vs-CPU gradients: depth cut to this (from 12
+# layers on, the card's and the CPU's bf16 forwards part at random weights:
+# testing/tolerance.py); at full depth ssd_plain_check holds the kernel
+GRAD_CUT_LAYERS = 2
+# phase 6c (e): the recurrent families at full width and depth: (arch,
+# steps, B, S, lr, least fall of the loss from the first step to the last)
+TRAIN_RECURRENT = (("zamba2-1.2b", 20, 8, 1024, 3e-3, 0.2),
+                   ("mamba2-2.7b", 5, 8, 1024, 3e-3, 0.0))
 CKPT_PATH = Path(__file__).resolve().parent / "build" / "train_ckpt.npz"
 
 
@@ -2792,30 +2882,174 @@ def phase_train_kernels(dev, gen) -> dict:
     return row
 
 
+# the SSD backward kernel's shapes: (label, arch, B, S, initial state,
+# final-state gradient); (P, N, H, chunk) are the arch's.  S 777 is not a
+# multiple of the chunk (the op pads it)
+SSD_BWD_CASES = (
+    ("mamba2-2.7b", "mamba2-2.7b", 2, 1024, True, True),
+    ("mamba2-2.7b, no state", "mamba2-2.7b", 2, 1024, False, False),
+    ("zamba2-1.2b", "zamba2-1.2b", 2, 1024, True, True),
+    ("zamba2-1.2b, S 777", "zamba2-1.2b", 1, 777, False, True),
+)
+# the training shapes the backward is timed at too (B 8 x S 1024)
+SSD_BWD_TIMED = ("mamba2-2.7b", "zamba2-1.2b")
+
+
+def ssd_bwd_bytes_flops(x, bm, init: bool, dstate: bool, q: int):
+    """Bytes the SSD backward must move (x, dt, a, B, C, dy and the states
+    read; dx, ddt, da, dB, dC and d init written) and the operations of
+    its chunked form on this data: per chunk C B^T over the causal pairs
+    and dG's products with B and C (dG summed over the heads first); per
+    head dW and W dy over the pairs, and six products of 2 P N a row (the
+    chunk's own state and state gradient, S C_i, S^T dy_i, dS_out B_j,
+    dS_out^T xdt_j)."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    s_pad = -(-s // q) * q
+    n_bytes = 3 * x.numel() * 2 + 4 * b * s * h * 4 + 4 * bm.numel() * 2 \
+        + (2 * int(init) + int(dstate)) * b * h * p * n * 4
+    pairs = (s_pad // q) * q * (q + 1) / 2
+    flops = b * (pairs * (6 * n + h) + h * (pairs * 4 * p
+                                              + 6 * s_pad * 2 * p * n))
+    return n_bytes, flops
+
+
+def phase_train_ssd_kernels(dev, gen) -> dict:
+    """Phase 6c (a'): the SSD backward kernel (``csrc/ssd_scan_bwd.cu``)
+    against its plain version (``ssd_backward_reference``, f32) at
+    SSD_BWD_CASES, on the forward's own saved tensors: the scan runs under
+    autograd (``SSDScanFunction``, long memory) and its backward through
+    ``torch.autograd.grad``; each gradient within BF16_TOL (``check``),
+    two backward calls bit-identical; each case timed (device ms) beside
+    its bound, no library call computing it.  Returns the kernel's row."""
+    row = {"name": "ssd_scan_backward", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:64 (the "
+                       "backward of its function, which the reference "
+                       "takes by XLA autodiff of src/repro/models/ssm.py:82 "
+                       "ssd_chunked: no Pallas backward)",
+           "max_abs_err": 0.0, "library_ms": None, "instances": {}}
+    names = ("dx", "ddt", "da", "dB", "dC", "dinit")
+    for label, arch, b, s, init, with_ds in SSD_BWD_CASES:
+        cfg = get_config(arch)
+        q = cfg.ssm_chunk
+        h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        x, dt, a, bm, cm, st = ssd_case(cfg, dev, gen, s, init, (0.99, 1.0))
+        if b > 1:
+            more = ssd_case(cfg, dev, gen, s, init, (0.99, 1.0))
+            x, dt, a, bm, cm, st = (None if u is None else torch.cat([u, v])
+                                    for u, v in zip((x, dt, a, bm, cm, st),
+                                                    more))
+        dy = torch.randn(b, s, h, p, generator=gen, device=dev).bfloat16()
+        ds = torch.randn(b, h, p, n, generator=gen, device=dev) \
+            if with_ds else None
+        ins = [t.requires_grad_() for t in (x, dt, a, bm, cm, st)
+               if t is not None]
+        n0 = SSD_BACKWARD_KERNEL.launches
+        got = []
+        for _ in range(2):
+            y, fin = ssd_scan(x, dt, a, bm, cm, st, chunk=q)
+            # without dstate the final state's gradient reaches the
+            # Function as None (the kernel's null pointer)
+            got.append(torch.autograd.grad((y, fin) if with_ds else y, ins,
+                                           (dy, ds) if with_ds else dy))
+        torch.cuda.synchronize()
+        if SSD_BACKWARD_KERNEL.launches != n0 + 2:
+            raise SystemExit(f"FAIL ssd backward {label}: "
+                             f"{SSD_BACKWARD_KERNEL.launches - n0} launches "
+                             f"for 2 backward calls")
+        with torch.no_grad():
+            want = [w for w in ssd_backward_reference(
+                x, dt, a, bm, cm, st, dy, ds, chunk=q) if w is not None]
+        shape = (f"B {b}, S {s}, H {h}, P {p}, N {n}, chunk {q}"
+                 f"{', init state' if init else ''}"
+                 f"{', dstate' if with_ds else ''}")
+        for name, g, g2, w in zip(names, got[0], got[1], want):
+            if not torch.equal(g, g2):
+                raise SystemExit(f"FAIL ssd backward {label}: {name} "
+                                 f"differs between two calls")
+            row["max_abs_err"] = max(row["max_abs_err"], check(
+                f"ssd backward {label} {name} ({shape})", g, w, BF16_TOL))
+        xd, dtd, ad, bd, cd = (t.detach() for t in (x, dt, a, bm, cm))
+        std = None if st is None else st.detach()
+        ms = device_ms(lambda: ssd_scan_backward(xd, dtd, ad, bd, cd, std,
+                                                 dy, ds, chunk=q))
+        bnd, by = bound_ms(*ssd_bwd_bytes_flops(xd, bd, init, with_ds, q),
+                           BF16_FLOPS)
+        text = (f"  ssd backward {label} ({shape}): kernel {ms:.4f} ms "
+                f"(deterministic), bound {bnd:.5f} ms ({by}), no library "
+                f"call")
+        inst = {"ms": ms, "bound_ms": bnd, "bound_by": by}
+        if label == SSD_BWD_CASES[0][0]:
+            row["plain_ms"] = cuda_ms(lambda: ssd_backward_reference(
+                xd, dtd, ad, bd, cd, std, dy, ds, chunk=q), iters=3)
+            text += f", plain {row['plain_ms']:.4f} ms"
+            row.update(ms=ms, bound_ms=bnd, bound_by=by)
+        row["instances"][label] = inst
+        print(text)
+        del x, dt, a, bm, cm, st, ins, got, want, dy, ds
+    for arch in SSD_BWD_TIMED:           # the training shape, B 8 x S 1024
+        cfg = get_config(arch)
+        h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        case = [ssd_case(cfg, dev, gen, 1024, False, (0.99, 1.0))
+                for _ in range(8)]
+        x, dt, a, bm, cm = (torch.cat([c[i] for c in case])
+                            for i in range(5))
+        dy = torch.randn(8, 1024, h, p, generator=gen, device=dev).bfloat16()
+        ms = device_ms(lambda: ssd_scan_backward(x, dt, a, bm, cm, None, dy),
+                       iters=5)
+        fwd = device_ms(lambda: ssd_scan(x, dt, a, bm, cm), iters=5)
+        bnd, by = bound_ms(*ssd_bwd_bytes_flops(x, bm, False, False,
+                                                cfg.ssm_chunk), BF16_FLOPS)
+        print(f"  ssd backward {arch} training shape (B 8, S 1024): kernel "
+              f"{ms:.4f} ms, bound {bnd:.5f} ms ({by}); the forward "
+              f"{fwd:.4f} ms")
+        row["instances"][f"{arch} B 8 x S 1024"] = {
+            "ms": ms, "bound_ms": bnd, "bound_by": by, "forward_ms": fwd}
+        del x, dt, a, bm, cm, dy, case
+    torch.cuda.empty_cache()
+    return row
+
+
+TRAIN_KERNELS = (FLASH_PREFILL_KERNEL, FLASH_PREFILL_LSE_KERNEL,
+                 FLASH_BACKWARD_KERNEL, FLASH_SPLIT_KERNEL, SSD_SCAN_KERNEL,
+                 SSD_BACKWARD_KERNEL)
+
+
 def reset_train_counts() -> None:
-    for kern in (FLASH_PREFILL_KERNEL, FLASH_PREFILL_LSE_KERNEL,
-                 FLASH_BACKWARD_KERNEL, FLASH_SPLIT_KERNEL):
+    for kern in TRAIN_KERNELS:
         kern.launches = 0
 
 
 def hold_train_counts(label, cfg, microbatches: int) -> dict:
-    """The flash launches of a training drive, exact: per microbatch one
-    LSE forward a layer with attention, twice under remat (the recompute),
-    and one backward; no serving-instance or key-split launch."""
-    n_attn = cfg.n_layers if cfg.family in ("dense", "vlm", "moe") else 0
-    fwd = n_attn * microbatches * (2 if cfg.remat else 1)
-    bwd = n_attn * microbatches
+    """The kernel launches of a training drive, exact: per microbatch one
+    flash LSE forward an attention application (every layer of an
+    attention family, the hybrid's shared block once a group) and one SSD
+    forward a Mamba2 layer, each twice under remat (the recompute), and
+    one flash and one SSD backward each; no serving-instance or key-split
+    launch."""
+    n_attn = cfg.n_layers if cfg.family in ("dense", "vlm", "moe") else (
+        -(-cfg.n_layers // cfg.hybrid_attn_every)
+        if cfg.family == "hybrid" else 0)
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    again = 2 if cfg.remat else 1
     got = {"forward (LSE)": FLASH_PREFILL_LSE_KERNEL.launches,
            "backward": FLASH_BACKWARD_KERNEL.launches,
            "serving prefill": FLASH_PREFILL_KERNEL.launches,
-           "key split": FLASH_SPLIT_KERNEL.launches}
-    want = {"forward (LSE)": fwd, "backward": bwd, "serving prefill": 0,
-            "key split": 0}
-    print(f"  {label}: flash launches {got} (want {want})")
+           "key split": FLASH_SPLIT_KERNEL.launches,
+           "SSD forward": SSD_SCAN_KERNEL.launches,
+           "SSD backward": SSD_BACKWARD_KERNEL.launches}
+    want = {"forward (LSE)": n_attn * microbatches * again,
+            "backward": n_attn * microbatches, "serving prefill": 0,
+            "key split": 0, "SSD forward": n_ssd * microbatches * again,
+            "SSD backward": n_ssd * microbatches}
+    print(f"  {label}: launches {got} (want {want})")
     if got != want:
-        raise SystemExit(f"FAIL {label}: flash launches {got} != {want}")
-    return {FLASH_PREFILL_LSE_KERNEL.symbol: fwd,
-            FLASH_BACKWARD_KERNEL.symbol: bwd}
+        raise SystemExit(f"FAIL {label}: launches {got} != {want}")
+    return {FLASH_PREFILL_LSE_KERNEL.symbol: want["forward (LSE)"],
+            FLASH_BACKWARD_KERNEL.symbol: want["backward"],
+            SSD_SCAN_KERNEL.symbol: want["SSD forward"],
+            SSD_BACKWARD_KERNEL.symbol: want["SSD backward"]}
 
 
 def train_batches(cfg, dev, batch, seq, seed=0):
@@ -2851,15 +3085,17 @@ def train_drive(label, cfg, params, dev, *, steps, batch, seq, lr):
 
 
 def grad_check(cfg, params, dev) -> dict:
-    """The gradients of ``cfg``'s loss on the card (the flash kernels
-    forward and backward) against the CPU's (the plain versions) on the
+    """The gradients of ``cfg``'s loss on the card (the flash and SSD
+    kernels forward and backward) against the CPU's (the plain versions) on the
     same bf16 weights and a GRAD_BATCH batch: the loss within 1e-3
-    relative, every leaf within GRAD_REL_BAR (GRAD_REL_BAR_MOE for an MoE)
-    in relative norm (``grad_rel_errors``).  A missing or sign-flipped
+    relative, every leaf within GRAD_REL_BAR (GRAD_REL_BAR_MOE for an MoE,
+    GRAD_REL_BAR_SSM for the recurrent families) in relative norm
+    (``grad_rel_errors``).  A missing or sign-flipped
     attention gradient is off by about 1 or 2 on every leaf below
     attention (tests/test_torch_gpu.py).  Returns the card's launches."""
     b, s = GRAD_BATCH[cfg.name]
-    bar = GRAD_REL_BAR_MOE if cfg.family == "moe" else GRAD_REL_BAR
+    bar = {"moe": GRAD_REL_BAR_MOE, "ssm": GRAD_REL_BAR_SSM,
+           "hybrid": GRAD_REL_BAR_SSM}.get(cfg.family, GRAD_REL_BAR)
     model = build_model(cfg)
     mb = next(train_batches(cfg, dev, b, s))
     reset_train_counts()
@@ -2875,13 +3111,20 @@ def grad_check(cfg, params, dev) -> dict:
     errs = grad_rel_errors(g_card, g_cpu)
     names = ["/".join(p) for p, _ in tree_items(params)]
     worst = max(range(len(errs)), key=errs.__getitem__)
-    qkv = max(e for n, e in zip(names, errs)
-              if n.split("/")[-1] in ("wq", "wk", "wv", "wo"))
+    parts = []
+    for what, leaves in (("the attention projections'",
+                          ("wq", "wk", "wv", "wo")),
+                         ("the SSD scan's inputs' (bc_proj, dt_proj, a_log, "
+                          "in_proj_x)",
+                          ("bc_proj", "dt_proj", "a_log", "in_proj_x"))):
+        mine = [e for n, e in zip(names, errs) if n.split("/")[-1] in leaves]
+        if mine:
+            parts.append(f"{what} {max(mine):.3e}")
     print(f"  {cfg.name} gradients, card vs CPU (B {b} x S {s}, "
           f"{len(errs)} leaves): loss {float(lg):.6f} vs {float(lc):.6f}; "
-          f"largest relative error {errs[worst]:.3e} ({names[worst]}), the "
-          f"attention projections' {qkv:.3e} (bar {bar:g}); card "
-          f"{t1 - t0:.2f} s, CPU {t2 - t1:.1f} s")
+          f"largest relative error {errs[worst]:.3e} ({names[worst]}), "
+          f"{', '.join(parts)} (bar {bar:g}); card {t1 - t0:.2f} s, CPU "
+          f"{t2 - t1:.1f} s")
     if not abs(float(lg) - float(lc)) <= 1e-3 * abs(float(lc)):
         raise SystemExit(f"FAIL {cfg.name} gradients: loss {float(lg)} on "
                          f"the card vs {float(lc)} on the CPU")
@@ -2889,6 +3132,64 @@ def grad_check(cfg, params, dev) -> dict:
     if bad:
         raise SystemExit(f"FAIL {cfg.name} gradients: leaves off the CPU's "
                          f"beyond {bar:g}: {bad}")
+    return launches
+
+
+@contextlib.contextmanager
+def plain_ssd_backward():
+    """SSDScanFunction's backward by the plain version (f32, on the same
+    saved tensors) inside the block, the kernel's outside."""
+    kernel = ssd_ops.ssd_scan_backward
+
+    def plain(*args, chunk=256):
+        return ssd_backward_reference(*args, chunk=chunk)
+    ssd_ops.ssd_scan_backward = plain
+    try:
+        yield
+    finally:
+        ssd_ops.ssd_scan_backward = kernel
+
+
+def ssd_plain_check(cfg, params, dev) -> dict:
+    """A recurrent model's gradients at full depth on the card with the SSD
+    backward kernel against the same gradients with its plain version
+    (``plain_ssd_backward``): the same forward launches, so only the scan's
+    backward differs; every leaf within SSD_PLAIN_GRAD_BAR in relative
+    norm, the loss bit-equal.  Returns the kernel run's launches (the
+    plain run's are a comparison's, not counted)."""
+    b, s = GRAD_BATCH[cfg.name]
+    model = build_model(cfg)
+    mb = next(train_batches(cfg, dev, b, s))
+    reset_train_counts()
+    t0 = time.perf_counter()
+    lk, _, g_kernel = loss_and_grads(model, params, mb)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = hold_train_counts(f"{cfg.name} gradients", cfg, 1)
+    with plain_ssd_backward():
+        lp, _, g_plain = loss_and_grads(model, params, mb)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    reset_train_counts()
+    errs = grad_rel_errors(g_kernel, g_plain)
+    names = ["/".join(p) for p, _ in tree_items(params)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    bc = max(e for n, e in zip(names, errs) if n.endswith("bc_proj"))
+    print(f"  {cfg.name} gradients at full depth, SSD backward kernel vs "
+          f"its plain version on the card (B {b} x S {s}, {len(errs)} "
+          f"leaves): loss {float(lk):.6f} vs {float(lp):.6f}; largest "
+          f"relative error {errs[worst]:.3e} ({names[worst]}), bc_proj "
+          f"{bc:.3e} (bar {SSD_PLAIN_GRAD_BAR:g}); kernel run "
+          f"{t1 - t0:.2f} s, plain run {t2 - t1:.2f} s")
+    if float(lk) != float(lp):
+        raise SystemExit(f"FAIL {cfg.name}: the loss differs between the "
+                         f"two backward runs ({float(lk)} vs {float(lp)})")
+    bad = {n: e for n, e in zip(names, errs) if not e <= SSD_PLAIN_GRAD_BAR}
+    if bad:
+        raise SystemExit(f"FAIL {cfg.name} gradients: leaves off the plain "
+                         f"backward's beyond {SSD_PLAIN_GRAD_BAR:g}: {bad}")
+    del g_kernel, g_plain
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2911,9 +3212,14 @@ def phase_train(dev) -> dict:
     full width cut to 2 layers, each at its learning rate: qwen2-1.5b (qkv
     biases, dh 128) and its grad accumulation 2 against 1, olmoe-1b-7b
     with its gradients against the CPU's (``grad_check``) and its router
-    aux loss finite and > 0, each loss falling; (e) a mamba2-2.7b train
-    step refused with the SSD scan's backward item.  Returns the summed
-    launches."""
+    aux loss finite and > 0, each loss falling; (e) TRAIN_RECURRENT at
+    full width and depth, zamba2-1.2b and mamba2-2.7b, each with its
+    gradients with the SSD backward kernel against those with its plain
+    version (``ssd_plain_check``), and cut to GRAD_CUT_LAYERS against the
+    CPU's (``grad_check``), then its steps (the SSD kernels forward and
+    backward, exact launches), the loss falling by the case's least fall,
+    s/step, tokens/s, peak GiB and the model-FLOP share printed.  Returns
+    the summed launches."""
     total = {}
 
     def add(launches):
@@ -2996,28 +3302,52 @@ def phase_train(dev) -> dict:
         del params
         torch.cuda.empty_cache()
 
-    arch, cut = TRAIN_REFUSED
-    rcfg = get_config(arch).with_overrides(**cut)
-    print(f"phase 6c (e): a {rcfg.name} train step at full width cut to "
-          f"{rcfg.n_layers} layers must be refused (no SSD scan backward "
-          f"kernel)")
-    model = build_model(rcfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    opt = AdamW(learning_rate=TRAIN["lr"])
-    try:
-        make_train_step(model, opt)(params, opt.init(params),
-                                    next(train_batches(rcfg, dev, 2, 256)))
-    except NotImplementedError as err:
-        if BACKWARD_ITEM not in str(err):
-            raise SystemExit(f"FAIL {rcfg.name}: refused without naming "
-                             f"the queue item: {err}")
-        print(f"  refused: {err}")
-    else:
-        raise SystemExit(f"FAIL {rcfg.name}: a train step on the card ran "
-                         f"through the SSD scan kernel, which has no "
-                         f"backward")
-    del params
-    torch.cuda.empty_cache()
+    for arch, steps, rb, rs, lr, drop in TRAIN_RECURRENT:
+        rcfg = get_config(arch)
+        params = build_model(rcfg).init(
+            torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        groups = -(-rcfg.n_layers // rcfg.hybrid_attn_every) \
+            if rcfg.family == "hybrid" else 0
+        print(f"phase 6c (e): training {rcfg.name} at full width and depth "
+              f"({rcfg.n_layers} Mamba2 layers{f' + {groups} applications of the shared attention block' if groups else ''}"
+              f", d {rcfg.d_model}, H {rcfg.ssm_heads} x P "
+              f"{rcfg.ssm_head_dim}, N {rcfg.ssm_state}, chunk "
+              f"{rcfg.ssm_chunk}, vocab {rcfg.vocab_size}, "
+              f"{n_params / 1e9:.4f} B parameters, remat {rcfg.remat}), B "
+              f"{rb} x S {rs}, {steps} steps, lr {lr:g}")
+        add(ssd_plain_check(rcfg, params, dev))
+        # the card against the CPU where the two bf16 forwards still agree
+        ccfg = rcfg.with_overrides(n_layers=GRAD_CUT_LAYERS)
+        cut = build_model(ccfg).init(
+            torch.Generator(device=dev).manual_seed(0))
+        print(f"  {rcfg.name} cut to {GRAD_CUT_LAYERS} layers for the "
+              f"gradients against the CPU's")
+        add(grad_check(ccfg, cut, dev))
+        del cut
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, losses, _, times, launches = train_drive(
+            rcfg.name, rcfg, params, dev, steps=steps, batch=rb, seq=rs,
+            lr=lr)
+        add(launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not losses[-1] < losses[0] - drop:
+            raise SystemExit(f"FAIL {rcfg.name} training: last loss "
+                             f"{losses[-1]:.4f} not {drop} below the first "
+                             f"{losses[0]:.4f}")
+        step_s = float(np.median(times[1:]))
+        attn = 6.0 * groups * rb * rcfg.n_heads * rcfg.head_dim * rs * rs
+        flops = 6.0 * n_params * rb * rs + attn
+        print(f"  {rcfg.name}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"first step {times[0]:.3f} s, then {step_s:.4f} s/step "
+              f"(median), {rb * rs / step_s:.1f} tokens/s, peak {peak:.3f} "
+              f"GiB; model FLOPs a step 6 N T"
+              f"{' + 6 G B H dh S^2' if groups else ''} = "
+              f"{flops / 1e12:.2f} T, {flops / step_s / BF16_FLOPS * 100:.2f}"
+              f"% of {BF16_FLOPS / 1e12:g} TFLOP/s")
+        del params
+        torch.cuda.empty_cache()
     return total
 
 
@@ -3122,6 +3452,9 @@ def main() -> int:
         phase_gittins(dev, (8, 8))
         print("phase 6c (a): the flash backward kernel vs its plain version")
         phase_train_kernels(dev, gen)
+        print("phase 6c (a'): the SSD scan backward kernel vs its plain "
+              "version")
+        phase_train_ssd_kernels(dev, gen)
         return 0
 
     launches, shape = {}, (0, 0)
@@ -3130,11 +3463,26 @@ def main() -> int:
         print(f"phase 4: serving {cfg.name} at full width "
               f"({cfg.n_layers} layers, d {cfg.d_model}, vocab "
               f"{cfg.vocab_size})")
-        got, shp, _ = phase_serve(cfg, dev)
+        params = build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(0))
+        got, shp, streams = phase_serve(cfg, dev, params=params)
         for sym, n in got.items():
             launches[sym] = launches.get(sym, 0) + n
         if shp[0] * shp[1] > shape[0] * shape[1]:
             shape = shp
+        if cfg.family in ("ssm", "hybrid"):
+            print(f"phase 4b: serving {cfg.name} at full width and depth "
+                  f"tensor-parallel ({cfg.ssm_heads} Mamba2 heads"
+                  f"{f', H{cfg.n_heads}/KV{cfg.n_kv_heads}' if cfg.family == 'hybrid' else ''}"
+                  f"), every shard on {torch.cuda.get_device_name(0)}; (a) "
+                  f"is phase 4's drives")
+            for sym, n in phase_serve_tp(
+                    dev, arch, RECURRENT_TP_DRIVES, params=params,
+                    known={("a", mode): streams[f"{mode}, graphs"]
+                           for mode in ("fused", "orchestrated")}).items():
+                launches[sym] = launches.get(sym, 0) + n
+        del params
+        torch.cuda.empty_cache()
     shared = {}   # nemotron's weights, for its phase-5 drive too
     for arch, cut in WIDE:
         cfg = get_config(arch).with_overrides(**cut)
@@ -3191,6 +3539,8 @@ def main() -> int:
     print("phase 6c (a): the flash backward kernel vs its plain version")
     t6c = time.perf_counter()
     rows.append(phase_train_kernels(dev, gen))
+    print("phase 6c (a'): the SSD scan backward kernel vs its plain version")
+    rows.append(phase_train_ssd_kernels(dev, gen))
     for sym, n in phase_train(dev).items():
         launches[sym] = launches.get(sym, 0) + n
     print(f"  phase 6c took {time.perf_counter() - t6c:.1f} s")
@@ -3200,7 +3550,8 @@ def main() -> int:
                "decode_attention_dense": DENSE_DECODE_KERNEL.symbol,
                "ssd_scan": SSD_SCAN_KERNEL.symbol,
                "decode_attention_paged_lse": PAGED_LSE_KERNEL.symbol,
-               "flash_attention_backward": FLASH_BACKWARD_KERNEL.symbol}
+               "flash_attention_backward": FLASH_BACKWARD_KERNEL.symbol,
+               "ssd_scan_backward": SSD_BACKWARD_KERNEL.symbol}
     for row in rows:
         row["launches"] = launches[symbols[row["name"]]]
     # the flash kernel's two entry points: one launch a call each

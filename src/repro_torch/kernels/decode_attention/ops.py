@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..bucketing import pow2_bucket
-from ..grad_guard import SERVING_ONLY, refuse_backward
+from ..grad_guard import refuse_backward
 from .kernel import DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL
 from .ref import (decode_attention_dense_reference,
                   decode_attention_paged_lse_reference,
@@ -164,7 +164,7 @@ def decode_attention_paged_op(q, k_pool, v_pool, block_tables, cache_len, *,
     result is the same for any table width and batch.  From MMA_MIN_REP
     query heads a kv head it computes on the tensor cores (value sums
     with p in two bf16 parts, as the flash kernel)."""
-    refuse_backward("decode_attention_paged", q, k_pool, v_pool, why=SERVING_ONLY)
+    refuse_backward("decode_attention_paged", q, k_pool, v_pool)
     block_tables = _pad_tables(block_tables)
     pb = block_tables.shape[1]
     dev = q.device
@@ -208,7 +208,7 @@ def decode_attention_paged_lse_op(q, k_pool, v_pool, block_tables,
     gets out 0 from the kernel, where the plain version averages the
     row's values uniformly; both give lse = -1e30, which weighs it 0 in
     the merge (see ``csrc/decode_attention.cu``)."""
-    refuse_backward("decode_attention_paged_lse", q, k_pool, v_pool, why=SERVING_ONLY)
+    refuse_backward("decode_attention_paged_lse", q, k_pool, v_pool)
     block_tables = _pad_tables(block_tables)
     dev = q.device
     if dev.type == "cpu":
@@ -281,7 +281,7 @@ def decode_attention_op(q, k_cache, v_cache, cache_len, *,
     for any window, so the kernel takes no window: ``window`` changes no
     result and is accepted only for parity with the reference's
     signature."""
-    refuse_backward("decode_attention", q, k_cache, v_cache, why=SERVING_ONLY)
+    refuse_backward("decode_attention", q, k_cache, v_cache)
     dev = q.device
     if dev.type == "cpu":
         return decode_attention_dense_reference(q, k_cache, v_cache,

@@ -8,6 +8,16 @@ and x, B, C = 0, which carries the state through unchanged, and y is cut
 back to S rows.  The kernel runs in four launches (C.B^T once per chunk,
 each chunk's own state, the state from chunk to chunk, y); their scratch
 is allocated here, and the call counts as one launch.
+
+Under autograd (grad enabled and an input requiring grad) the padded scan
+goes through ``SSDScanFunction``: its forward is the same kernel call,
+saving the padded inputs, and its backward one call of
+``SSD_BACKWARD_KERNEL`` (``csrc/ssd_scan_bwd.cu``), which recomputes the
+chunk states in f32 rather than keeping the forward's.  The padding and
+the cut stay outside the Function, so autograd takes their gradients.
+On the CPU the same Function runs the plain versions
+(``ssd_chunked_reference``, ``ssd_backward_reference``).  A build or
+launch error raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,11 +25,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..grad_guard import refuse_backward
-from .kernel import SSD_SCAN_KERNEL
-from .ref import ssd_chunked_reference
+from .kernel import SSD_BACKWARD_KERNEL, SSD_SCAN_KERNEL
+from .ref import ssd_backward_reference, ssd_chunked_reference
 
-__all__ = ["ssd_scan", "SSD_SCAN_KERNEL"]
+__all__ = ["ssd_scan", "ssd_scan_backward", "SSDScanFunction",
+           "SSD_SCAN_KERNEL", "SSD_BACKWARD_KERNEL"]
 
 # (P, N) pairs the kernel is instantiated for: mamba2-2.7b, zamba2-1.2b,
 # and the reduced configs of both
@@ -58,6 +68,19 @@ def _check(x, dt, a_decay, bmat, cmat, init_state, q):
                              f"tensor on {dev}, got {t.dtype} on {t.device}")
 
 
+def _whole_chunks(q, x, dt, a_decay, bmat, cmat, *more):
+    """The inputs (and ``more`` row tensors, padded as x) padded to a whole
+    number of chunks of q rows, as ``repro/models/ssm.py::ssd_chunked``
+    pads: a = 1, everything else 0, which carries the state through
+    unchanged; all contiguous (the CPU products then see the same layout
+    whether or not the call padded: padded == unpadded, bit for bit)."""
+    pad = -x.shape[1] % q
+    ts = (x, dt, a_decay, bmat, cmat) + more
+    return tuple(F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad),
+                       value=1.0 if t is a_decay else 0.0).contiguous()
+                 if pad else t.contiguous() for t in ts)
+
+
 def ssd_scan(x, dt, a_decay, bmat, cmat, init_state=None, *,
              chunk: int = 256):
     """x: (B,S,H,P); dt, a_decay: (B,S,H); bmat/cmat: (B,S,N);
@@ -65,42 +88,117 @@ def ssd_scan(x, dt, a_decay, bmat, cmat, init_state=None, *,
     and the final state (B,H,P,N) f32.
 
     On CUDA, x, B and C are bf16 and dt, a and the state f32, as on the
-    model path.  Under autograd on the card it raises
-    (``grad_guard.refuse_backward``): the kernel has no backward yet."""
-    refuse_backward("ssd_scan", x, dt, a_decay, bmat, cmat, init_state)
-    b, s, h, p = x.shape
+    model path.  With grad enabled and an input requiring grad the scan
+    goes through ``SSDScanFunction`` (the backward kernel on the card)."""
+    s = x.shape[1]
     q = min(chunk, s)
-    pad = -s % q
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        a_decay = F.pad(a_decay, (0, 0, 0, pad), value=1.0)
-        bmat = F.pad(bmat, (0, 0, 0, pad))
-        cmat = F.pad(cmat, (0, 0, 0, pad))
-    # contiguous on both paths: the CPU products then see the same layout
-    # whether or not the call padded (padded == unpadded, bit for bit)
-    x, dt, a_decay, bmat, cmat = (t.contiguous() for t in
-                                  (x, dt, a_decay, bmat, cmat))
+    ts = _whole_chunks(q, x, dt, a_decay, bmat, cmat) + (init_state,)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        y, state = SSDScanFunction.apply(*ts, q)
+    else:
+        y, state = _scan(*ts, q)
+    return y[:, :s], state
+
+
+def _scan(x, dt, a_decay, bmat, cmat, init_state, q):
+    """The scan of padded, contiguous inputs (S a multiple of q)."""
     dev = x.device
     if dev.type == "cpu":
-        y, state = ssd_chunked_reference(x, dt, a_decay, bmat, cmat,
-                                         init_state, chunk=q)
-        return y[:, :s], state
+        return ssd_chunked_reference(x, dt, a_decay, bmat, cmat, init_state,
+                                     chunk=q)
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {dev}")
     _check(x, dt, a_decay, bmat, cmat, init_state, q)
+    b, s, h, p = x.shape
     n = bmat.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    scratch = _scratch(b, (s + pad) // q, h, p, n, q, dev)
+    scratch = _scratch(b, s // q, h, p, n, q, dev)
     SSD_SCAN_KERNEL(x.data_ptr(), dt.data_ptr(), a_decay.data_ptr(),
                     bmat.data_ptr(), cmat.data_ptr(),
                     None if init_state is None else init_state.data_ptr(),
                     y.data_ptr(), state.data_ptr(),
-                    *(t.data_ptr() for t in scratch), b, s + pad, h, p, n, q,
+                    *(t.data_ptr() for t in scratch), b, s, h, p, n, q,
                     torch.cuda.current_stream(dev).cuda_stream)
     SSD_SCAN_KERNEL.launches += 1
-    return y[:, :s], state
+    return y, state
+
+
+def ssd_scan_backward(x, dt, a_decay, bmat, cmat, init_state, dy,
+                      dstate=None, *, chunk: int = 256):
+    """The gradients (dx, ddt, da, dB, dC, dinit) of ``ssd_scan`` at its
+    inputs for the output gradients ``dy`` (B,S,H,P) in y's dtype and
+    ``dstate`` (B,H,P,N) f32 or None (zeros), each in its input's dtype;
+    dinit None without ``init_state``.  On CUDA one call of the backward
+    kernel (f32 inside; deterministic: no atomics, two calls bit-identical),
+    on the CPU ``ssd_backward_reference``; padded to whole chunks as the
+    forward is."""
+    dev = x.device
+    if dev.type == "cpu":
+        return ssd_backward_reference(x, dt, a_decay, bmat, cmat, init_state,
+                                      dy, dstate, chunk=chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_scan_backward: unsupported device {dev}")
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    q = min(chunk, s)
+    x, dt, a_decay, bmat, cmat, dy = _whole_chunks(q, x, dt, a_decay, bmat,
+                                                   cmat, dy)
+    _check(x, dt, a_decay, bmat, cmat, init_state, q)
+    for name, t, shape, dtype in (("dy", dy, x.shape, x.dtype),
+                                  ("dstate", dstate, (b, h, p, n),
+                                   torch.float32)):
+        if t is not None and (t.shape != shape or t.device != dev
+                              or t.dtype != dtype or not t.is_contiguous()):
+            raise ValueError(f"ssd_scan_backward: {name} must be a "
+                             f"contiguous {dtype} tensor of shape "
+                             f"{tuple(shape)} on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    nc = x.shape[1] // q
+    dx, ddt, da, dbm, dcm = (torch.empty_like(t) for t in
+                             (x, dt, a_decay, bmat, cmat))
+    dinit = None if init_state is None else torch.empty_like(init_state)
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = (torch.empty((b, nc, h, q), **f32),          # cum
+               torch.empty((b, nc, h, p, n), **f32),       # states
+               torch.empty((b, nc, h, p, n), **f32),       # state gradients
+               torch.empty((b, nc, q, q), **f32),          # C.B^T
+               torch.empty((b, nc, h, q, n), **f32),       # dB per head
+               torch.empty((b, nc, h, q, n), **f32))       # dC per head
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    SSD_BACKWARD_KERNEL(*(ptr(t) for t in (
+        x, dt, a_decay, bmat, cmat, init_state, dy, dstate, dx, ddt, da,
+        dbm, dcm, dinit) + scratch), b, x.shape[1], h, p, n, q,
+        torch.cuda.current_stream(dev).cuda_stream)
+    SSD_BACKWARD_KERNEL.launches += 1
+    return dx[:, :s], ddt[:, :s], da[:, :s], dbm[:, :s], dcm[:, :s], dinit
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """The padded scan under autograd: ``_scan`` forward (the serving
+    kernel call; the padded inputs saved), ``ssd_scan_backward`` backward.
+    The chunk gets no gradient; a final-state gradient that autograd
+    leaves None (training discards the state) counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_decay, bmat, cmat, init_state, q):
+        ctx.set_materialize_grads(False)
+        y, state = _scan(x, dt, a_decay, bmat, cmat, init_state, q)
+        ctx.save_for_backward(x, dt, a_decay, bmat, cmat, init_state)
+        ctx.q = q
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a_decay, bmat, cmat, init_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None \
+            else dy.to(x.dtype).contiguous()
+        if dstate is not None:
+            dstate = dstate.float().contiguous()
+        grads = ssd_scan_backward(x, dt, a_decay, bmat, cmat, init_state,
+                                  dy, dstate, chunk=ctx.q)
+        return (*grads, None)
 
 
 def _scratch(b, nc, h, p, n, q, dev):

@@ -10,6 +10,8 @@ that agreement checks the math and not a transcription.
 ``ssd_passes_reference`` computes the scan as ``csrc/ssd_scan.cu`` does:
 its four passes, its 64-row tiles and the bf16 parts it takes of each
 f32 factor, so that the precision of that design is tested on the CPU.
+``ssd_backward_reference`` is the chunked scan's backward written out in
+f32 (no autograd): the plain version of ``csrc/ssd_scan_bwd.cu``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ssd_chunked_reference", "ssd_sequential_reference",
-           "ssd_passes_reference"]
+           "ssd_passes_reference", "ssd_backward_reference"]
 
 TILE = 64     # the kernel's tile rows
 
@@ -197,3 +199,96 @@ def ssd_passes_reference(x, dt, a_decay, bmat, cmat, init_state=None,
             yr[-n_tiles:] = [torch.cat(yr[-n_tiles:])[:q]]
         ys.append(torch.cat(yr)[:s])
     return torch.stack(ys).to(x.dtype), torch.stack(finals)
+
+
+def ssd_backward_reference(x, dt, a_decay, bmat, cmat, init_state, dy,
+                           dstate=None, chunk: int = 256):
+    """The gradients of ``ssd_chunked_reference``'s (y, final state) for
+    the output gradients ``dy`` (B,S,H,P) and ``dstate`` (B,H,P,N) or None
+    (zeros): (dx, ddt, da, dB, dC, dinit), each in its input's dtype,
+    dinit None without ``init_state``.  f32 inside, written out per chunk
+    (the padding as the forward's, its rows' gradients cut off).
+
+    In a chunk of q rows, with S the state carried in, dS_out the
+    gradient of the state leaving it, E_ij = exp(cum_i - cum_j) for j <= i
+    (exp is never taken above the diagonal, where the segment sums can
+    overflow), G = C B^T, W = G E, xdt_j = x_j dt_j and g_j = exp(cum_last
+    - cum_j):
+
+      dS (into the chunk) = exp(cum_last) dS_out + sum_i exp(cum_i) dy_i C_i^T
+      dxdt_j = sum_{i>=j} W_ij dy_i + g_j dS_out B_j
+      dC_i = sum_j dG_ij B_j + exp(cum_i) S^T dy_i, dG = <dy_i, xdt_j> E
+      dB_j = sum_i dG_ij C_i + g_j dS_out^T xdt_j        (both over heads)
+      dcum = row sums - column sums of dW * W, + exp(cum_i) <dy_i, S C_i>,
+             - g_j <dS_out, xdt_j B_j^T>, and on the last row the sum of
+             the latter and exp(cum_last) <dS_out, S>
+
+    then dla is the reverse cumsum of dcum within the chunk and da = dla /
+    a where a > 1e-20, else 0 (the clamp of log a)."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    f = [t.float() for t in (x, dt, a_decay, bmat, cmat, dy)]
+    if pad:
+        f = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad),
+                   value=1.0 if i == 2 else 0.0) for i, t in enumerate(f)]
+    xc, dtc, ac, bc, cc, dyc = (
+        t.reshape(b, nc, q, *t.shape[2:]).movedim(1, 0) for t in f)
+    dev = x.device
+    cum = torch.cumsum(torch.log(torch.clamp(ac, min=1e-20)), dim=2)
+    last = cum[:, :, -1]                                    # (nc, B, H)
+    xdt = xc * dtc[..., None]                               # (nc,B,q,H,P)
+    g = torch.exp(last[:, :, None] - cum)                   # (nc,B,q,H)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+    states = []
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev) \
+        if init_state is None else init_state.float()
+    for c in range(nc):
+        states.append(state)
+        state = state * torch.exp(last[c])[..., None, None] + torch.einsum(
+            "bjn,bjhp,bjh->bhpn", bc[c], xdt[c], g[c])
+    d_out = torch.zeros_like(state) if dstate is None else dstate.float()
+    grads = {k: [None] * nc for k in ("x", "dt", "a", "b", "c")}
+    for c in reversed(range(nc)):
+        cu, st, dyq = cum[c], states[c], dyc[c]
+        seg = cu[:, :, None, :] - cu[:, None, :, :]            # (B,q,q,H)
+        e_mat = torch.exp(torch.where(causal[None, :, :, None], seg,
+                                      torch.full((), -torch.inf,
+                                                 device=dev)))
+        w = torch.einsum("bin,bjn->bij", cc[c], bc[c])[..., None] * e_mat
+        e_in = torch.exp(cu)                                   # (B,q,H)
+        dxdt = torch.einsum("bijh,bihp->bjhp", w, dyq) + g[c][..., None] \
+            * torch.einsum("bhpn,bjn->bjhp", d_out, bc[c])
+        d_w = torch.einsum("bihp,bjhp->bijh", dyq, xdt[c])
+        d_g = d_w * e_mat
+        grads["c"][c] = torch.einsum("bijh,bjn->bin", d_g, bc[c]) \
+            + torch.einsum("bih,bhpn,bihp->bin", e_in, st, dyq)
+        grads["b"][c] = torch.einsum("bijh,bin->bjn", d_g, cc[c]) \
+            + torch.einsum("bjh,bhpn,bjhp->bjn", g[c], d_out, xdt[c])
+        d_seg = d_w * w
+        dcum = d_seg.sum(2) - d_seg.sum(1)
+        dcum = dcum + e_in * torch.einsum("bihp,bhpn,bin->bih", dyq, st,
+                                          cc[c])
+        gdg = g[c] * torch.einsum("bhpn,bjhp,bjn->bjh", d_out, xdt[c],
+                                  bc[c])
+        dcum = dcum - gdg
+        dcum[:, -1] += gdg.sum(1) + torch.exp(last[c]) \
+            * (d_out * st).sum((-1, -2))
+        dla = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        grads["a"][c] = torch.where(ac[c] > 1e-20, dla / ac[c],
+                                    torch.zeros((), device=dev))
+        grads["x"][c] = dxdt * dtc[c][..., None]
+        grads["dt"][c] = (dxdt * xc[c]).sum(-1)
+        d_out = torch.exp(last[c])[..., None, None] * d_out + torch.einsum(
+            "bih,bihp,bin->bhpn", e_in, dyq, cc[c])
+
+    def whole(parts, like):
+        t = torch.stack(parts, dim=1)
+        return t.reshape(b, nc * q, *t.shape[3:])[:, :s].to(like.dtype)
+
+    return (whole(grads["x"], x), whole(grads["dt"], dt),
+            whole(grads["a"], a_decay), whole(grads["b"], bmat),
+            whole(grads["c"], cmat),
+            None if init_state is None else d_out.to(init_state.dtype))

@@ -57,9 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode-steps", type=int, default=1,
                     help="decode tokens per host round-trip (fused mode)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel width of the attention families "
-                         "(dense, MoE, VLM): needs "
-                         "tp cards (with --device cpu, tp CPU shards)")
+                    help="tensor-parallel width (every decoder family): "
+                         "needs tp cards (with --device cpu, tp CPU "
+                         "shards)")
     ap.add_argument("--parallel", default="exact",
                     choices=("exact", "efficient"),
                     help="exact = token-identical sharding (KV pool only); "

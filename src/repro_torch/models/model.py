@@ -89,9 +89,13 @@ class Model:
         end-padded token buffer: the recurrent families mask the scan, so
         the returned state equals an unpadded prefill's (the engine pads
         to pow2 buckets).  The last-position logits are then a pad
-        position's, which the engine never reads."""
+        position's, which the engine never reads.  Under a serving plan
+        with the vocab sharded they are the list of per-shard (B, V / tp)
+        column slices."""
         logits, cache, _ = self.forward(params, batch, collect_cache=True,
                                         remat=False)
+        if isinstance(logits, list):
+            return [part[:, -1, :] for part in logits], cache
         return logits[:, -1, :], cache
 
     # ------------------------------------------------ dense-cache decode

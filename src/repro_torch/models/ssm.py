@@ -19,7 +19,8 @@ from ..kernels.ssd_scan.ops import ssd_scan
 from .layers import ParamSpec
 
 __all__ = ["ssm_template", "ssd_chunked", "ssd_decode_step", "mamba2_block",
-           "mamba2_decode_step", "ssm_state_shape"]
+           "mamba2_decode_step", "mamba2_inputs", "mamba2_heads",
+           "mamba2_decode_inputs", "mamba2_decode_heads", "ssm_state_shape"]
 
 
 def ssm_template(cfg, layers: int | None = None):
@@ -122,6 +123,47 @@ def _dt(params, u):
     return _softplus((u @ params["dt_proj"]).float() + params["dt_bias"])
 
 
+def mamba2_inputs(params, u, cfg, lengths=None):
+    """The replicated half of a Mamba2 block on u (B,S,D): (B, C (B,S,N)
+    each, dt and the decay a (B,S,H)), which every head reads.
+    ``lengths`` as ``mamba2_block``'s: dt = 0 at pad positions."""
+    n = cfg.ssm_state
+    bc = u @ params["bc_proj"]                                 # (B,S,2N)
+    dt = _dt(params, u)                                        # (B,S,H)
+    if lengths is not None:
+        valid = torch.arange(u.shape[1], device=u.device)[None, :] \
+            < lengths.to(u.device)[:, None]
+        dt = torch.where(valid[..., None], dt, torch.zeros((), device=u.device))
+    a_decay = torch.exp(-torch.exp(params["a_log"]) * dt)      # (B,S,H)
+    return bc[..., :n], bc[..., n:], dt, a_decay
+
+
+def mamba2_heads(params, u, cfg, bmat, cmat, dt, a_decay, d_skip,
+                 state=None, lengths=None):
+    """The per-head half of a Mamba2 block: the in projections, conv, scan
+    and out projection of the heads ``params`` holds (all of them, or a
+    tensor-parallel shard's: in_proj_x / in_proj_z / conv_w cut on their
+    inner dim, out_proj on its input dim), with dt, a_decay and d_skip of
+    those heads.  Returns (out (B,S,D): the whole block's output, or the
+    shard's partial sum, new_state {"ssd", "conv"})."""
+    b, s, _ = u.shape
+    p = cfg.ssm_head_dim
+    xin = u @ params["in_proj_x"]                              # (B,S,DI)
+    z = u @ params["in_proj_z"]
+    conv_tail = None if state is None else state["conv"]
+    xc, new_tail = _causal_conv(xin, params["conv_w"], conv_tail,
+                                lengths=lengths)
+    xc = _silu(xc)
+    x_heads = xc.reshape(b, s, -1, p)
+    init = None if state is None else state["ssd"]
+    y, final = ssd_chunked(x_heads, dt, a_decay, bmat, cmat,
+                           init_state=init, chunk=cfg.ssm_chunk)
+    y = y + x_heads * d_skip[None, None, :, None].to(y.dtype)
+    y = y.reshape(b, s, -1) * _silu(z)
+    out = y @ params["out_proj"]
+    return out, {"ssd": final, "conv": new_tail}
+
+
 def mamba2_block(params, u, cfg, state=None, lengths=None):
     """Full Mamba2 block over a sequence. u: (B,S,D).
     Returns (out (B,S,D), new_state {"ssd", "conv"}).
@@ -130,39 +172,28 @@ def mamba2_block(params, u, cfg, state=None, lengths=None):
     get dt = 0, hence decay exp(-exp(A_log) * 0) = 1 exactly and input
     x * dt = 0, so the state passes the pads unchanged and the final
     state and every valid output equal the unpadded scan's."""
-    b, s, _ = u.shape
-    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    xin = u @ params["in_proj_x"]                              # (B,S,DI)
-    z = u @ params["in_proj_z"]
-    conv_tail = None if state is None else state["conv"]
-    xc, new_tail = _causal_conv(xin, params["conv_w"], conv_tail,
-                                lengths=lengths)
-    xc = _silu(xc)
-    bc = u @ params["bc_proj"]                                 # (B,S,2N)
-    bmat, cmat = bc[..., :n], bc[..., n:]
-    dt = _dt(params, u)                                        # (B,S,H)
-    if lengths is not None:
-        valid = torch.arange(s, device=u.device)[None, :] \
-            < lengths.to(u.device)[:, None]
-        dt = torch.where(valid[..., None], dt, torch.zeros((), device=u.device))
-    a_decay = torch.exp(-torch.exp(params["a_log"]) * dt)      # (B,S,H)
-    x_heads = xc.reshape(b, s, h, p)
-    init = None if state is None else state["ssd"]
-    y, final = ssd_chunked(x_heads, dt, a_decay, bmat, cmat,
-                           init_state=init, chunk=cfg.ssm_chunk)
-    y = y + x_heads * params["d_skip"][None, None, :, None].to(y.dtype)
-    y = y.reshape(b, s, h * p) * _silu(z)
-    out = y @ params["out_proj"]
-    return out, {"ssd": final, "conv": new_tail}
+    bmat, cmat, dt, a_decay = mamba2_inputs(params, u, cfg, lengths)
+    return mamba2_heads(params, u, cfg, bmat, cmat, dt, a_decay,
+                        params["d_skip"], state, lengths)
 
 
-def mamba2_decode_step(params, u, cfg, state, active=None):
-    """One-token decode. u: (B,1,D); state {"ssd", "conv"} per
-    ``ssm_state_shape``.  ``active`` (B,) bool, optional, leaves the
-    state of the rows where it is False bit-unchanged (see
-    ``ssd_decode_step``; their conv tail is kept by a select)."""
+def mamba2_decode_inputs(params, u, cfg):
+    """The replicated half of a one-token decode step on u (B,1,D):
+    (B, C (B,N), dt, a_decay (B,H))."""
+    n = cfg.ssm_state
+    bc = (u @ params["bc_proj"])[:, 0]
+    dt = _dt(params, u)[:, 0]                                  # (B,H)
+    a_decay = torch.exp(-torch.exp(params["a_log"]) * dt)
+    return bc[..., :n], bc[..., n:], dt, a_decay
+
+
+def mamba2_decode_heads(params, u, cfg, state, bvec, cvec, dt, a_decay,
+                        d_skip, active=None):
+    """The per-head half of a one-token decode step (the heads ``params``
+    and ``state`` hold, as ``mamba2_heads``).  Returns (out (B,1,D) or the
+    shard's partial sum, new_state)."""
     b = u.shape[0]
-    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    p = cfg.ssm_head_dim
     xin = u @ params["in_proj_x"]                              # (B,1,DI)
     z = u @ params["in_proj_z"]
     xc, new_tail = _causal_conv(xin, params["conv_w"], state["conv"])
@@ -170,14 +201,20 @@ def mamba2_decode_step(params, u, cfg, state, active=None):
         new_tail = torch.where(active[:, None, None], new_tail,
                                state["conv"])
     xc = _silu(xc)[:, 0]                                      # (B,DI)
-    bc = (u @ params["bc_proj"])[:, 0]
-    bvec, cvec = bc[..., :n], bc[..., n:]
-    dt = _dt(params, u)[:, 0]                                  # (B,H)
-    a_decay = torch.exp(-torch.exp(params["a_log"]) * dt)
-    x_heads = xc.reshape(b, h, p)
+    x_heads = xc.reshape(b, -1, p)
     y, new_ssd = ssd_decode_step(state["ssd"], x_heads, dt, a_decay,
                                  bvec, cvec, active=active)
-    y = y + x_heads * params["d_skip"][None, :, None].to(y.dtype)
-    y = y.reshape(b, 1, h * p) * _silu(z)
+    y = y + x_heads * d_skip[None, :, None].to(y.dtype)
+    y = y.reshape(b, 1, -1) * _silu(z)
     out = y @ params["out_proj"]
     return out, {"ssd": new_ssd, "conv": new_tail}
+
+
+def mamba2_decode_step(params, u, cfg, state, active=None):
+    """One-token decode. u: (B,1,D); state {"ssd", "conv"} per
+    ``ssm_state_shape``.  ``active`` (B,) bool, optional, leaves the
+    state of the rows where it is False bit-unchanged (see
+    ``ssd_decode_step``; their conv tail is kept by a select)."""
+    bvec, cvec, dt, a_decay = mamba2_decode_inputs(params, u, cfg)
+    return mamba2_decode_heads(params, u, cfg, state, bvec, cvec, dt,
+                               a_decay, params["d_skip"], active)

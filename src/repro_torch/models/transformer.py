@@ -11,10 +11,11 @@ MoE blocks under ``"layers"``, while its KV caches and pools stay one
 stacked axis.
 
 Under a tensor-parallel serving plan (``sharding.context.serving_plan``,
-installed by the engine) the paged decode step and chunked prefill of the
-attention families run the plan's dataflow instead: per-shard parameter
-trees and KV pools, replicated work once on the plan's first device,
-sharded work once per shard, and the collectives of
+installed by the engine) the paged decode step, the chunked prefill of
+the attention families and the atomic prefill (``decoder_forward``) of
+the recurrent families run the plan's dataflow instead: per-shard
+parameter trees, KV pools and recurrent state, replicated work once on the
+plan's first device, sharded work once per shard, and the collectives of
 ``serving.sharded.ShardingPlan`` (``_sharded_*`` below).
 
 The encoder-decoder family is in ``encdec.py``.
@@ -36,8 +37,9 @@ from .layers import (ParamSpec, apply_rope, attention_template, linear, mlp,
                      mlp_template, norm_template, rms_norm)
 from .moe import (expert_group, expert_mlp, moe_combine, moe_ffn,
                   moe_route, moe_template)
-from .ssm import (mamba2_block, mamba2_decode_step, ssm_state_shape,
-                  ssm_template)
+from .ssm import (mamba2_block, mamba2_decode_heads, mamba2_decode_inputs,
+                  mamba2_decode_step, mamba2_heads, mamba2_inputs,
+                  ssm_state_shape, ssm_template)
 
 __all__ = ["decoder_template", "decoder_forward", "decoder_decode_step",
            "decoder_decode_step_paged", "decoder_prefill_chunk",
@@ -206,7 +208,20 @@ def decoder_forward(params, cfg: ModelConfig, tokens, positions=None,
     S, V), cache or None, aux loss: the MoE layers' summed load-balance
     loss, f32, 0 for the other families).  The cache is {"k", "v"}: (L or
     G, B, S, KV, dh) in the compute dtype, and for the recurrent families
-    {"ssm": {"ssd": (L, B, H, P, N) f32, "conv": (L, B, K-1, DI)}}."""
+    {"ssm": {"ssd": (L, B, H, P, N) f32, "conv": (L, B, K-1, DI)}}.
+
+    Under a serving plan (the engine's atomic prefill of a recurrent
+    family) ``params`` is the plan's per-shard list and the forward runs
+    the plan's dataflow (``_sharded_forward``): the cache comes back
+    full-head on the first device, the logits as ``_sharded_logits``
+    gives them."""
+    plan = serving_plan()
+    if plan is not None and plan.shards_model:
+        if cfg.family not in ("ssm", "hybrid"):
+            raise ValueError(f"decoder_forward under a serving plan: the "
+                             f"{cfg.family} family prefills by chunks")
+        return _sharded_forward(plan, params, cfg, tokens, positions,
+                                lengths)
     remat = cfg.remat if remat is None else remat
     h = params["embed"][tokens.long()]
     if frontend_embeds is not None:
@@ -447,7 +462,7 @@ def decoder_decode_step_paged(params, cfg: ModelConfig, token, cache,
     if plan is not None and plan.shards_model:
         return _sharded_decode_step_paged(plan, params, cfg, token, cache,
                                           cache_len, block_tables,
-                                          page=page_size)
+                                          page=page_size, active=active)
     h = params["embed"][token.long()]                      # (B,1,D)
     window = _window(cfg)
     if cfg.family in _ATTN:
@@ -651,23 +666,133 @@ def _sharded_attn_decode(plan, cfg, scfg, lps, x, pools, cache_len,
     return _wo_proj(lps[0]["attn"], o)
 
 
+def _sharded_ssm_decode(plan, cfg, lps, h, caches, i, active):
+    """``_ssm_decode`` of Mamba2 layer i under the plan (``lps``: its
+    per-shard trees; ``caches``: the per-shard caches).  Replicated, it is
+    ``_ssm_decode`` itself on the first device's state.  Column-parallel,
+    B, C, dt and a are computed once and cut to each shard's heads, each
+    shard steps its heads' state in place (an inactive row's bits
+    unchanged), and the row-parallel out projections are summed (psum)."""
+    if not plan.ssm_sharded:
+        return _ssm_decode(cfg, lps[0], h, caches[0]["ssm"], i, active)
+    x = rms_norm(lps[0]["ln"], h, cfg.norm_eps)
+    bvec, cvec, dt, a_decay = mamba2_decode_inputs(lps[0]["ssm"], x, cfg)
+    parts = []
+    for s, (lp, c, dev) in enumerate(zip(lps, caches, plan.devices)):
+        hs = plan.ssm_slice(s)
+        st = {"ssd": c["ssm"]["ssd"][i], "conv": c["ssm"]["conv"][i]}
+        out, new = mamba2_decode_heads(
+            lp["ssm"], x.to(dev), cfg, st, bvec.to(dev), cvec.to(dev),
+            dt[:, hs].to(dev), a_decay[:, hs].to(dev),
+            lp["ssm"]["d_skip"][hs], None if active is None
+            else active.to(dev))
+        st["ssd"].copy_(new["ssd"])
+        st["conv"].copy_(new["conv"])
+        parts.append(out)
+    return h + plan.psum(parts)
+
+
+def _sharded_ssm_seq(plan, cfg, lps, h, lengths):
+    """``_ssm_block_seq`` under the plan: (h, the layer's final state
+    {"ssd" (B, H, P, N), "conv" (B, K-1, DI)}, full-head on the first
+    device).  Column-parallel, each shard scans its heads (the SSD kernel
+    takes any H) and the heads' states are all-gathered."""
+    if not plan.ssm_sharded:
+        return _ssm_block_seq(cfg, lps[0], h, lengths)
+    x = rms_norm(lps[0]["ln"], h, cfg.norm_eps)
+    bmat, cmat, dt, a_decay = mamba2_inputs(lps[0]["ssm"], x, cfg, lengths)
+    parts, ssds, convs = [], [], []
+    for s, (lp, dev) in enumerate(zip(lps, plan.devices)):
+        hs = plan.ssm_slice(s)
+        out, st = mamba2_heads(
+            lp["ssm"], x.to(dev), cfg, bmat.to(dev), cmat.to(dev),
+            dt[..., hs].to(dev), a_decay[..., hs].to(dev),
+            lp["ssm"]["d_skip"][hs],
+            lengths=None if lengths is None else lengths.to(dev))
+        parts.append(out)
+        ssds.append(st["ssd"])
+        convs.append(st["conv"])
+    return h + plan.psum(parts), {"ssd": plan.all_gather(ssds, 1),
+                                  "conv": plan.all_gather(convs, 2)}
+
+
+def _sharded_attn_seq(plan, cfg, lps, h, positions, window):
+    """``_dense_block_seq`` of the hybrid's shared block under the plan:
+    the chunk path with no prefix.  Returns (h, k, v), k and v full-head
+    on the first device."""
+    b = h.shape[0]
+    empty = torch.zeros((b, 0, cfg.n_kv_heads, cfg.head_dim), dtype=h.dtype,
+                        device=h.device)
+    past = plan.split_heads(empty, q_heads=False)
+    a, k, v = _sharded_attn_chunk(
+        plan, cfg, _shard_cfg(plan, cfg), lps,
+        rms_norm(lps[0]["ln1"], h, cfg.norm_eps), past, past, positions,
+        positions, window)
+    h = h + a
+    h = h + _sharded_ffn(plan, cfg, lps,
+                         rms_norm(lps[0]["ln2"], h, cfg.norm_eps),
+                         decode=False)
+    return h, k, v
+
+
+def _sharded_forward(plan, params, cfg, tokens, positions, lengths):
+    """``decoder_forward`` of a recurrent family under the plan, with its
+    cache (the atomic prefill): (logits, cache, aux 0)."""
+    h = _sharded_embed(plan, params, tokens)
+    if positions is None:
+        positions = torch.arange(h.shape[1], device=h.device)
+    window = _window(cfg)
+    layers = [p["layers"] for p in params]
+    ks, vs, ssds, convs = [], [], [], []
+    for group in _groups(cfg):
+        for i in group:
+            h, st = _sharded_ssm_seq(plan, cfg, [_layer(ls, i)
+                                                 for ls in layers],
+                                     h, lengths)
+            ssds.append(st["ssd"])
+            convs.append(st["conv"])
+        if cfg.family == "hybrid":
+            h, k, v = _sharded_attn_seq(plan, cfg,
+                                        [p["shared_attn"] for p in params],
+                                        h, positions, window)
+            ks.append(k)
+            vs.append(v)
+    cache = {"ssm": {"ssd": torch.stack(ssds), "conv": torch.stack(convs)}}
+    if ks:
+        cache["k"], cache["v"] = torch.stack(ks), torch.stack(vs)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _sharded_logits(plan, params, cfg, h), cache, aux
+
+
 def _sharded_decode_step_paged(plan, params, cfg, token, caches, cache_len,
-                               block_tables, *, page: int):
-    """``decoder_decode_step_paged`` of an attention family under the
-    plan."""
+                               block_tables, *, page: int, active=None):
+    """``decoder_decode_step_paged`` under the plan."""
     h = _sharded_embed(plan, params, token)
     window = _window(cfg)
     scfg = _shard_cfg(plan, cfg)
-    layers = [_attn_layers(cfg, p) for p in params]
-    for i in range(cfg.n_layers):
-        lps = [ls[i] for ls in layers]
+
+    def attn_block(lps, h, i):
         pools = [(c["k"][i], c["v"][i]) for c in caches]
         h = h + _sharded_attn_decode(
             plan, cfg, scfg, lps, rms_norm(lps[0]["ln1"], h, cfg.norm_eps),
             pools, cache_len, block_tables, window=window, page=page)
-        h = h + _sharded_ffn(plan, cfg, lps,
-                             rms_norm(lps[0]["ln2"], h, cfg.norm_eps),
-                             decode=True)
+        return h + _sharded_ffn(plan, cfg, lps,
+                                rms_norm(lps[0]["ln2"], h, cfg.norm_eps),
+                                decode=True)
+
+    if cfg.family in _ATTN:
+        layers = [_attn_layers(cfg, p) for p in params]
+        for i in range(cfg.n_layers):
+            h = attn_block([ls[i] for ls in layers], h, i)
+        return _sharded_logits(plan, params, cfg, h), caches
+    layers = [p["layers"] for p in params]
+    for gi, group in enumerate(_groups(cfg)):
+        for i in group:
+            h = _sharded_ssm_decode(plan, cfg,
+                                    [_layer(ls, i) for ls in layers], h,
+                                    caches, i, active)
+        if cfg.family == "hybrid":
+            h = attn_block([p["shared_attn"] for p in params], h, gi)
     return _sharded_logits(plan, params, cfg, h), caches
 
 

@@ -54,9 +54,10 @@ keeps per-shard weights and KV pools, runs its model calls under the
 plan's hooks, gathers swap payloads to full-head host tensors and cuts
 them again on swap-in, and samples vocab-sharded logits partitioned (only
 the winning token crosses shards).  The host loop, the scheduler, the KV
-manager and its block tables stay single and shard-invariant.  The
-attention families (dense, MoE with its experts sharded, VLM) run
-sharded; a 1x1 mesh serves every family.
+manager and its block tables stay single and shard-invariant.  Every
+decoder family runs sharded: dense, MoE with its experts sharded, VLM,
+and the recurrent ones, whose per-slot state is replicated (exact) or cut
+by Mamba2 heads (efficient) and whose swap payloads gather it full-head.
 ``device_memory_gb`` refuses, before anything is allocated, an engine
 whose per-device weights, pool and workspace exceed it.
 
@@ -68,9 +69,8 @@ from-scratch prefill gives them and every token is the sharing-off one.
 Live only with a KV pool, chunked prefill and ``prefill_chunk`` set; inert
 for the recurrent families.
 
-Not ported yet, and refused rather than ignored: tp > 1 for the SSM and
-hybrid families (ROADMAP Queue A 16) and CUDA graphs over a plan whose
-shards sit on more than one card (Queue A 15).
+Not ported yet, and refused rather than ignored: CUDA graphs over a plan
+whose shards sit on more than one card (ROADMAP Queue A 15).
 """
 
 from __future__ import annotations
@@ -220,11 +220,8 @@ class ServingEngine:
                     f"{len(set(self.plan.devices))} devices: one graph "
                     "cannot span cards, and multi-card serving is ROADMAP "
                     "Queue A 15; pass graphs=False")
-            if self.tp > 1 and not self.plan.shards_model:
-                raise NotImplementedError(
-                    f"tensor-parallel serving of the {self.model.cfg.family} "
-                    "family (tp > 1) is not ported yet: ROADMAP Queue A 16")
-        # an attention family under a plan keeps per-shard weights and pools
+        # a decoder family under a plan keeps per-shard weights, pools and
+        # recurrent state
         self._sharded = self.plan is not None and self.plan.shards_model
         # KVCacheManager is host bookkeeping: built before the preflight
         # so pool_blocks feeds the estimate before anything is allocated
@@ -433,7 +430,10 @@ class ServingEngine:
             else:
                 payload["k"] = self._cache["k"][:, idx].cpu()
                 payload["v"] = self._cache["v"][:, idx].cpu()
-        if self._slot_state:
+        if self._slot_state and self._sharded:
+            # full-head host copies: the shards' heads gathered
+            payload["ssm"] = self.plan.gather_state(self._cache, slot)
+        elif self._slot_state:
             # a copy even on the CPU, where .cpu() would return a view of
             # the live state that the next decode step overwrites
             payload["ssm"] = {name: t[:, slot].to("cpu", copy=True)
@@ -456,7 +456,9 @@ class ServingEngine:
                     payload["k"][:, skip:].to(self.device)
                 self._cache["v"][:, idx] = \
                     payload["v"][:, skip:].to(self.device)
-        if self._slot_state:
+        if self._slot_state and self._sharded:
+            self.plan.write_state(self._cache, slot, payload["ssm"])
+        elif self._slot_state:
             for name, t in self._cache["ssm"].items():
                 t[:, slot] = payload["ssm"][name].to(self.device)
         self._cache_len[slot] = payload["cache_len"]
@@ -675,14 +677,20 @@ class ServingEngine:
         spad = _pad_len(n, quantum=32)
         toks = np.zeros((1, spad), np.int64)
         toks[0, :n] = ctx
-        _, cache = self.model.prefill(
-            self.params, {"tokens": self._to_dev(toks),
-                          "lengths": self._to_dev(np.asarray([n]))})
+        with self._ctx():
+            _, cache = self.model.prefill(
+                self.params, {"tokens": self._to_dev(toks),
+                              "lengths": self._to_dev(np.asarray([n]))})
         if self._has_kv:
             self._scatter(cache["k"], cache["v"], self._to_dev(
                 self._phys_positions(r, 0, n, spad)))
-        for name, t in self._cache["ssm"].items():
-            t[:, r.slot] = cache["ssm"][name][:, 0].to(t.dtype)
+        if self._sharded:
+            # the full-head state, each shard taking its heads
+            self.plan.write_state(self._cache, r.slot, {
+                name: t[:, 0] for name, t in cache["ssm"].items()})
+        else:
+            for name, t in self._cache["ssm"].items():
+                t[:, r.slot] = cache["ssm"][name][:, 0].to(t.dtype)
         r.prefill_pos = n
         self.metrics.prefill_chunks += 1
         self.metrics.prefill_tokens += n

@@ -39,9 +39,20 @@ heads do not divide, the LSE split of the logical page axis, one stripe
 per shard.  It is held to the tolerance contract
 (``testing.assert_tokens_close``).
 
-The attention families (dense, MoE, VLM) run sharded (``shards_model``);
-a 1x1 mesh serves every family through the single-device path, and the
-engine refuses the recurrent ones at tp > 1.
+The recurrent families (SSM, hybrid) follow the same rules.  Under the
+exact plan every Mamba2 parameter and the per-slot recurrent state are
+replicated (the reference's ``constrain_cache``: "recurrent state
+replicated") and the Mamba2 layers run once on the first device; only the
+hybrid's attention pool shards over kv heads.  The efficient plan shards
+``ssm_inner``: in_proj_x, in_proj_z and conv_w column-parallel (shard s
+holds heads [s H/tp, (s+1) H/tp) and their conv channels, and the slot
+state of those heads), bc_proj, dt_proj, dt_bias, a_log and d_skip
+replicated and computed once, out_proj row-parallel with one psum.  Swap
+payloads stay full-head host copies of the state, gathered from the
+shards and cut again.
+
+Every decoder family runs sharded (``shards_model``); the encoder-decoder
+is not served.
 """
 
 from __future__ import annotations
@@ -64,6 +75,9 @@ __all__ = ["ShardingPlan", "estimate_device_bytes",
 # describe() warns when a weight at least this big hit the replication
 # fallback (its logical axis did not divide the mesh)
 REPLICATION_WARN_BYTES = 32 << 20
+# the dim that holds the Mamba2 heads of each recurrent-state tensor: the
+# ssd state (..., H, P, N), the conv tail (..., H * P)
+_SSM_HEAD_DIM = {"ssd": -3, "conv": -1}
 
 
 @dataclass(frozen=True)
@@ -77,8 +91,9 @@ class ShardingPlan:
     devices: tuple                # the device of each shard
     n_heads: int
     n_kv_heads: int
+    ssm_heads: int                # Mamba2 heads (0 for no SSM)
     attn_splits: int              # LSE page stripes (1 = no split)
-    shards_model: bool            # an attention family: runs sharded
+    shards_model: bool            # a decoder family: runs sharded
     tensor_rows: tuple            # per-tensor byte/spec accounting rows
     warnings: tuple               # big-weight replication-fallback notes
 
@@ -105,9 +120,12 @@ class ShardingPlan:
             report=report, specs=resolve_specs(template, rules),
             devices=tuple(mesh.devices[0]), n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads,
+            ssm_heads=cfg.ssm_heads if cfg.family in ("ssm", "hybrid")
+            else 0,
             attn_splits=int(report["attn_splits"])
             if parallel == "efficient" else 1,
-            shards_model=cfg.family in ("dense", "moe", "vlm"),
+            shards_model=cfg.family in ("dense", "moe", "vlm", "ssm",
+                                        "hybrid"),
             tensor_rows=rows,
             warnings=warns)
 
@@ -139,6 +157,21 @@ class ShardingPlan:
     @property
     def vocab_sharded(self) -> bool:
         return self.rules.get("vocab") is not None
+
+    @property
+    def ssm_sharded(self) -> bool:
+        """Column-parallel Mamba2 heads (efficient mode, d_inner dividing
+        tp): shard s holds heads [s H/tp, (s+1) H/tp)."""
+        return self.rules.get("ssm_inner") is not None
+
+    def ssm_slice(self, s: int) -> slice:
+        """Shard s's Mamba2 heads (all of them where the SSM does not
+        shard); its conv channels are the same slice of the heads' P-wide
+        groups (``_ssm_cut``)."""
+        if not self.ssm_sharded:
+            return slice(None)
+        n = self.ssm_heads // self.tp
+        return slice(s * n, (s + 1) * n)
 
     @property
     def pool_owners(self) -> list[int]:
@@ -203,21 +236,71 @@ class ShardingPlan:
     def place_cache(self, cache: dict):
         """Per-shard paged caches from the whole (L, n_pages, page, KV, dh)
         pools: kv-head slices when the pool is sharded, else the whole pool
-        once per device.  The cache itself when the family does not run
-        sharded."""
+        once per device; and the per-slot recurrent state (``"ssm"``):
+        each shard's heads when the SSM shards, else the whole state once,
+        on the first device, shared by every shard's entry.  The cache
+        itself when the family does not run sharded."""
         if not self.shards_model:
             return cache
         out, copies = [], {}
         for s, dev in enumerate(self.devices):
-            if self.pool_sharded:
+            c = {}
+            if "k" in cache and self.pool_sharded:
                 sl = self.kv_slice(s)
-                out.append({k: cache[k][:, :, :, sl].to(dev).contiguous()
-                            for k in ("k", "v")})
-            else:
+                c.update({k: cache[k][:, :, :, sl].to(dev).contiguous()
+                          for k in ("k", "v")})
+            elif "k" in cache:
                 if dev not in copies:
                     copies[dev] = {k: cache[k].to(dev) for k in ("k", "v")}
-                out.append(dict(copies[dev]))
+                c.update(copies[dev])
+            if "ssm" in cache:
+                if self.ssm_sharded:
+                    c["ssm"] = {name: self._ssm_cut(name, t, s).to(dev)
+                                .contiguous()
+                                for name, t in cache["ssm"].items()}
+                else:
+                    c["ssm"] = out[0]["ssm"] if out else {
+                        name: t.to(self.primary)
+                        for name, t in cache["ssm"].items()}
+            out.append(c)
         return out
+
+    @property
+    def ssm_owners(self):
+        """The shards whose recurrent states are distinct."""
+        return range(self.tp) if self.ssm_sharded else [0]
+
+    def _ssm_cut(self, name: str, t, s: int):
+        """Shard s's part of a recurrent-state tensor: its heads of the
+        ssd state (..., H, P, N), its channels of the conv tail (..., DI),
+        P a head."""
+        sl = self.ssm_slice(s)
+        if sl.stop is None:
+            return t
+        dim = _SSM_HEAD_DIM[name]
+        width = t.shape[dim] // self.ssm_heads
+        return t.narrow(dim, sl.start * width, (sl.stop - sl.start) * width)
+
+    def gather_state(self, caches, slot: int) -> dict:
+        """A full-head host copy (never a view) of one slot's recurrent
+        state: {"ssd": (L, H, P, N), "conv": (L, K-1, DI)}, the shards'
+        heads concatenated when the SSM shards."""
+        out = {}
+        for name, dim in _SSM_HEAD_DIM.items():
+            parts = [caches[s]["ssm"][name][:, slot].to("cpu", copy=True)
+                     for s in self.ssm_owners]
+            out[name] = torch.cat(parts, dim=dim) if len(parts) > 1 \
+                else parts[0]
+        return out
+
+    def write_state(self, caches, slot: int, state: dict) -> None:
+        """Write a full-head slot state ({"ssd": (L, H, P, N), "conv": (L,
+        K-1, DI)}, on any device) into every shard's state, in place, each
+        shard taking its heads."""
+        for s in self.ssm_owners:
+            for name, t in caches[s]["ssm"].items():
+                t[:, slot] = self._ssm_cut(name, state[name], s).to(
+                    t.device, t.dtype)
 
     # -------------------------------------------------------- collectives
 

@@ -27,6 +27,20 @@ and batch, each parameter leaf within ``GRAD_REL_BAR`` in relative norm
 picks near ties differently under bf16 reorderings.  A leaf whose
 attention gradient is missing is off by about 1, one whose sign is
 flipped by about 2.
+
+The recurrent families (SSM, hybrid) at random weights are far more
+sensitive to bf16 rounding: on an H100 at full width, 2 layers, the
+card's leaves sit up to 4.3e-2 (mamba2-2.7b) and 3.2e-2 (zamba2-1.2b)
+from the CPU's, and from 12 layers on the two bf16 forwards part (0.4 at
+zamba2's 12 layers, up to 2.7 at mamba2's 64), so the card-vs-CPU check
+runs them cut to 2 layers at ``GRAD_REL_BAR_SSM``.  At full depth the SSD
+scan's backward kernel is held on the card instead: the gradients with
+the kernel against those with its plain version on the same forward,
+``SSD_PLAIN_GRAD_BAR`` (measured up to 2.5e-2 at mamba2's 64 layers and
+3.6e-2 at its 12: the bf16 backward of the layers above carries the two
+versions' rounding; ``tools/recurrent_grad_depth.py`` prints both).
+A missing scan gradient puts bc_proj (which reaches the loss through
+the scan alone) off by about 1 under either check.
 """
 
 from __future__ import annotations
@@ -34,11 +48,16 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["assert_tokens_close", "TokenMismatch", "GRAD_REL_BAR",
-           "GRAD_REL_BAR_MOE", "grad_rel_errors"]
+           "GRAD_REL_BAR_MOE", "GRAD_REL_BAR_SSM", "SSD_PLAIN_GRAD_BAR",
+           "grad_rel_errors"]
 
 # the card's gradient leaves against the CPU's, in relative norm
 GRAD_REL_BAR = 2e-2
 GRAD_REL_BAR_MOE = 5e-2
+GRAD_REL_BAR_SSM = 1e-1        # SSM and hybrid, cut to 2 layers
+# the card's leaves with the SSD backward kernel against those with its
+# plain version on the same forward, at full depth
+SSD_PLAIN_GRAD_BAR = 5e-2
 
 
 def grad_rel_errors(got, want) -> list[float]:

@@ -299,18 +299,25 @@ def test_gumbel_noise_is_a_pure_function_of_its_keys():
 
 
 def test_unported_options_refuse():
-    """tp > 1 for the recurrent families (SSM and hybrid) raises naming
-    its ROADMAP item (the attention families' tp -- dense, MoE, VLM --
-    and the memory preflight are tests/test_torch_sharded.py's)."""
-    sched = port_core.Scheduler(policy="sagesched")
-    for arch, kw, item in (
-            ("mamba2-2.7b", {"tp": 2}, "Queue A 16"),
-            ("zamba2-1.2b", {"tp": 2, "device_memory_gb": 1.0},
-             "Queue A 16")):
-        with pytest.raises(NotImplementedError, match=item):
-            port_serving.ServingEngine(
-                model=build_model(get_config(arch, reduced=True)),
-                scheduler=sched, device="cpu", **kw)
+    """tp > 1 for the recurrent families (SSM and hybrid), refused until
+    ROADMAP Queue A 16, now serves: each family at tp 2 on CPU shards (the
+    hybrid with the memory preflight) finishes its requests with the plan
+    in place (the matrix against the reference is
+    tests/test_torch_sharded.py's)."""
+    for arch, kw in (("mamba2-2.7b", {"tp": 2}),
+                     ("zamba2-1.2b", {"tp": 2, "device_memory_gb": 1.0})):
+        cfg = get_config(arch, reduced=True)
+        eng = port_serving.ServingEngine(
+            model=build_model(cfg),
+            scheduler=port_core.Scheduler(policy="sagesched"),
+            n_slots=2, max_seq_len=96, device="cpu", **kw)
+        reqs = _requests(port_serving, cfg.vocab_size, 2, 0.0)
+        eng.submit_batch(reqs)
+        eng.run_until_done(max_steps=2000)
+        assert all(r.state == port_serving.RequestState.FINISHED
+                   for r in reqs)
+        assert eng.tp == 2 and eng.plan.shards_model
+        assert len(eng._cache) == 2 and "ssm" in eng._cache[0]
 
 
 def test_launcher_serves_through_gateway_on_cpu(capsys):

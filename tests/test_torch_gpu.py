@@ -23,7 +23,10 @@ decode steps' CUDA graphs (multi-turn sessions, a cached-tier
 re-adoption, preemption of requests holding adopted blocks), and a
 Gateway deadline abort leaves a graphed engine quiesced.  The decode
 steps of the dense, MoE, VLM, SSM and hybrid engines are held graphed
-against eager (the MoE FFN captures: it reads nothing back to the host).
+against eager (the MoE FFN captures: it reads nothing back to the host),
+with and without a plan.  The SSD scan's backward kernel is held to its
+plain version, and reduced-depth mamba2 and zamba2 gradients on the card
+to the CPU's, a check shown failing with the scan's gradient zeroed.
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -1316,6 +1319,31 @@ def test_cuda_graphed_decode_equals_eager_under_plans(cuda, tp, parallel,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("parallel", ["exact", "efficient"])
+@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_cuda_graphed_decode_equals_eager_under_ssm_plans(cuda, arch,
+                                                          parallel,
+                                                          step_mode,
+                                                          temperature):
+    """Reduced mamba2 and zamba2 at tp 2 with both shards on the card: the
+    exact plan's replicated Mamba2 layers and the efficient plan's per-head
+    shards (each stepping its heads' state in place, frozen lanes and
+    all) captured whole give the eager streams and launch counts, greedy
+    and sampled."""
+    cfg = get_config(arch, reduced=True).with_overrides(n_heads=8,
+                                                        n_kv_heads=8)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    eng = _hold_graphed_to_eager(cuda, cfg, params, step_mode=step_mode,
+                                 temperature=temperature, tp=2,
+                                 parallel=parallel)
+    assert eng.sharding_report()["ssm"] == (
+        "sharded" if parallel == "efficient" else "replicated")
+
+
+@pytest.mark.gpu
 def test_cuda_compile_bound_under_churn(cuda):
     """tests/test_torch_graphs.py's wide churn workload on the card: one
     graph a fused key, within ``max_fused_compiles()``, and a second wave
@@ -1788,19 +1816,149 @@ def test_cuda_gradient_check_catches_a_wrong_attention_backward(
     assert len(qkv) == 3 and min(qkv) > 0.5 > GRAD_REL_BAR_MOE
 
 
-@pytest.mark.gpu
-def test_cuda_mamba2_train_step_is_refused(cuda):
-    """The SSD scan kernel has no backward: a mamba2 train step on the card
-    raises naming the queue item instead of training on detached
-    activations."""
-    from repro_torch.kernels.grad_guard import BACKWARD_ITEM
-    from repro_torch.training import AdamW, make_train_step
-    cfg = get_config("mamba2-2.7b", reduced=True)
+def _card_vs_cpu_recurrent(cuda, arch, monkeypatch=None, zero_ssd=False):
+    """``arch`` at full width cut to 2 layers: the loss and gradients on
+    the card (the SSD scan kernel forward and backward, for zamba2 the
+    flash kernels too) against the CPU's (the plain versions) on the same
+    bf16 weights and a B 2 x S 512 batch (two chunks a row).  With
+    ``zero_ssd`` the SSD op's gradients are zeroed on the card, as a
+    detached scan would leave them.  Returns (names, card loss, CPU loss,
+    ``grad_rel_errors``)."""
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels.ssd_scan.ops import SSDScanFunction
+    from repro_torch.testing import grad_rel_errors
+    from repro_torch.training.train_loop import loss_and_grads
+    from repro_torch.tree import tree_items, tree_leaves, tree_unflatten
+    if zero_ssd:
+        right = SSDScanFunction.backward
+
+        def zeroed(ctx, dy, dstate):
+            grads = right(ctx, dy, dstate)
+            if dy is None or not dy.is_cuda:
+                return grads
+            return tuple(None if g is None else torch.zeros_like(g)
+                         for g in grads)
+        monkeypatch.setattr(SSDScanFunction, "backward",
+                            staticmethod(zeroed))
+    cfg = get_config(arch).with_overrides(n_layers=2)
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=cuda).manual_seed(0))
-    toks = torch.randint(3, cfg.vocab_size, (2, 64), device=cuda,
-                         dtype=torch.int32)
-    opt = AdamW()
-    with pytest.raises(NotImplementedError, match=BACKWARD_ITEM.split(",")[0]):
-        make_train_step(model, opt)(params, opt.init(params),
-                                    {"tokens": toks, "labels": toks})
+    params = model.init(torch.Generator().manual_seed(0))
+    b = {k: torch.from_numpy(v)
+         for k, v in next(lm_batches(cfg.vocab_size, 2, 512, seed=0)).items()}
+    pg = tree_unflatten(params, [t.to(cuda) for t in tree_leaves(params)])
+    lg, _, gg = loss_and_grads(model, pg, {k: v.to(cuda)
+                                           for k, v in b.items()})
+    lc, _, gc = loss_and_grads(model, params, b)
+    names = ["/".join(p) for p, _ in tree_items(params)]
+    return names, float(lg), float(lc), grad_rel_errors(gg, gc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_cuda_recurrent_gradients_match_cpu(cuda, arch):
+    """mamba2-2.7b and zamba2-1.2b at full width, 2 layers: every
+    gradient leaf on the card within GRAD_REL_BAR_SSM of the CPU's (bf16
+    rounding at random weights moves these leaves more than attention's:
+    testing/tolerance.py), the loss within 1e-3 relative; the SSD
+    backward kernel launched once a Mamba2 layer."""
+    from repro_torch.kernels.ssd_scan.ops import SSD_BACKWARD_KERNEL
+    from repro_torch.testing import GRAD_REL_BAR_SSM
+    n0 = SSD_BACKWARD_KERNEL.launches
+    names, lg, lc, errs = _card_vs_cpu_recurrent(cuda, arch)
+    assert SSD_BACKWARD_KERNEL.launches - n0 == 2
+    assert abs(lg - lc) <= 1e-3 * abs(lc)
+    bad = {n: e for n, e in zip(names, errs) if not e <= GRAD_REL_BAR_SSM}
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+def test_cuda_gradient_check_catches_a_missing_ssd_backward(cuda,
+                                                            monkeypatch):
+    """The check above fails with the SSD op's gradients zeroed on the
+    card: B and C reach the loss through the scan alone, so bc_proj is
+    off by about 1."""
+    from repro_torch.testing import GRAD_REL_BAR_SSM
+    names, _, _, errs = _card_vs_cpu_recurrent(cuda, "mamba2-2.7b",
+                                               monkeypatch, zero_ssd=True)
+    bc = [e for n, e in zip(names, errs) if n.endswith("bc_proj")]
+    assert len(bc) == 1 and bc[0] > 0.5 > GRAD_REL_BAR_SSM
+
+
+def _rel_norm(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+SSD_BWD_CASES = [
+    # (b, s, h, p, n, chunk, init, dstate): the reduced configs (ragged);
+    # zamba2-1.2b (ragged, no initial state); mamba2-2.7b's shape
+    (2, 45, 16, 32, 16, 16, True, True),
+    (1, 777, 64, 64, 64, 256, False, True),
+    (2, 1024, 80, 64, 128, 256, True, True),
+    (2, 1024, 80, 64, 128, 256, False, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init,dstate", SSD_BWD_CASES)
+def test_cuda_ssd_backward_vs_plain(cuda, b, s, h, p, n, chunk, init,
+                                    dstate):
+    """The backward kernel against ``ssd_backward_reference`` on the same
+    inputs (long memory): the bf16 gradients (dx, dB, dC) within 1e-2 in
+    relative norm, the f32 ones (ddt, da, dinit) within 1e-3; one counted
+    launch a call; two calls bit-identical."""
+    from repro_torch.kernels.ssd_scan.ops import (SSD_BACKWARD_KERNEL,
+                                                  ssd_scan_backward)
+    from repro_torch.kernels.ssd_scan.ref import ssd_backward_reference
+    x, dt, a, bm, cm, st = _ssd_case(cuda, s + h, b, s, h, p, n, init,
+                                     (0.99, 1.0))
+    g = torch.Generator(device=cuda).manual_seed(s)
+    dy = torch.randn(b, s, h, p, generator=g, device=cuda).bfloat16()
+    ds = torch.randn(b, h, p, n, generator=g, device=cuda) if dstate \
+        else None
+    n0 = SSD_BACKWARD_KERNEL.launches
+    got = ssd_scan_backward(x, dt, a, bm, cm, st, dy, ds, chunk=chunk)
+    again = ssd_scan_backward(x, dt, a, bm, cm, st, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SSD_BACKWARD_KERNEL.launches == n0 + 2
+    want = ssd_backward_reference(x, dt, a, bm, cm, st, dy, ds, chunk=chunk)
+    for name, gt, ag, w in zip(("dx", "ddt", "da", "dB", "dC", "dinit"),
+                               got, again, want):
+        if w is None:
+            assert gt is None and ag is None
+            continue
+        assert gt.dtype == w.dtype and gt.shape == w.shape, name
+        assert torch.equal(gt, ag), name
+        assert torch.isfinite(gt).all(), name
+        bar = 1e-2 if gt.dtype == torch.bfloat16 else 1e-3
+        assert _rel_norm(gt, w) <= bar, (name, _rel_norm(gt, w))
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_backward_padded_rows_are_zero(cuda):
+    """Rows as the op pads them (x, B, C = 0, dt = 0, a = 1) with no
+    output gradient: the kernel's dx, ddt, dB and dC there are exactly 0,
+    and ssd_scan under autograd at S = 777 gives the gradients of the
+    padded call's first 777 rows."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_backward
+    cfg = get_config("zamba2-1.2b")
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x, dt, a, bm, cm, st = _ssd_case(cuda, 5, 1, 1024, h, p, n, True)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dy = torch.randn(1, 1024, h, p, generator=g, device=cuda).bfloat16()
+    ds = torch.randn(1, h, p, n, generator=g, device=cuda)
+    for t in (x, dt, bm, cm, dy):
+        t[:, 777:] = 0
+    a[:, 777:] = 1.0
+    got = ssd_scan_backward(x, dt, a, bm, cm, st, dy, ds)
+    for t in (got[0], got[1], got[3], got[4]):
+        assert torch.equal(t[:, 777:], torch.zeros_like(t[:, 777:]))
+    ins = [t[:, :777].contiguous().requires_grad_() for t in
+           (x.float(), dt, a, bm.float(), cm.float())]
+    xs, dts, as_, bs, cs = ins
+    y, fin = ssd_scan(xs.bfloat16(), dts, as_, bs.bfloat16(), cs.bfloat16(),
+                      st)
+    grads = torch.autograd.grad((y.float() * dy[:, :777].float()).sum()
+                                + (fin * ds).sum(), ins)
+    for name, gt, w in zip(("dx", "ddt", "da", "dB", "dC"), grads, got):
+        assert torch.equal(gt, w[:, :777].to(gt.dtype)), name

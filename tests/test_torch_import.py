@@ -47,9 +47,11 @@ def test_every_module_imports_with_jax_blocked():
         "DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL\n"
         "from repro_torch.kernels.flash_attention.kernel import "
         "FLASH_PREFILL_KERNEL\n"
-        "from repro_torch.kernels.ssd_scan.kernel import SSD_SCAN_KERNEL\n"
+        "from repro_torch.kernels.ssd_scan.kernel import SSD_SCAN_KERNEL, "
+        "SSD_BACKWARD_KERNEL\n"
         "for k in (GITTINS_KERNEL, PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL,\n"
-        "          SSD_SCAN_KERNEL, DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL):\n"
+        "          SSD_SCAN_KERNEL, DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL,\n"
+        "          SSD_BACKWARD_KERNEL):\n"
         "    assert k._lib is None, k.symbol\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -4,8 +4,9 @@ reference (repro.sharding, repro.serving.sharded).
 
 The rule tables, the per-tensor byte rows and the memory estimate must
 equal the reference's.  The engine matrix of tests/test_sharded_serving.py
-runs for the dense family (qwen2-1.5b) and the MoE family (olmoe-1b-7b,
-experts sharded), with the reference's head and expert overrides: every
+runs for the dense family (qwen2-1.5b), the MoE family (olmoe-1b-7b,
+experts sharded), the SSM family (mamba2-2.7b) and the hybrid family
+(zamba2-1.2b), with the reference's head and expert overrides: every
 shard sits on the CPU through an
 explicit ``devices=["cpu"] * tp`` (the reference's own tp > 1 cells need
 XLA host devices, which this suite does not set up), so the port's
@@ -15,7 +16,8 @@ efficient mode within ``assert_tokens_close`` (bit-identical at tp = 1).
 The reference's matrix samples at temperature 0.7; the port's Gumbel
 draws are not the reference's threefry draws (ROADMAP, Port conventions),
 so the port is held to the reference on greedy streams and to its own
-no-mesh engine on sampled ones.
+no-mesh engine on sampled ones.  The reference's engine starts its conv
+cache in f32 for the recurrent families (tests/test_torch_engine.py, R4).
 """
 
 import functools
@@ -48,6 +50,7 @@ from repro_torch.sharding.partitioning import (decode_rule_table,
                                                decode_rules,
                                                shard_bytes_table)
 from repro_torch.testing import assert_tokens_close
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 # one intra-op thread: the suite runs files in parallel workers
 torch.set_num_threads(1)
@@ -59,7 +62,9 @@ ARCH = "qwen2-1.5b"
 OV = (("n_heads", 8), ("n_kv_heads", 8))
 OV6 = (("n_heads", 6), ("n_kv_heads", 6))
 FAMILIES = {"dense": (ARCH, OV),
-            "moe": ("olmoe-1b-7b", OV + (("n_experts", 8),))}
+            "moe": ("olmoe-1b-7b", OV + (("n_experts", 8),)),
+            "ssm": ("mamba2-2.7b", OV),
+            "hybrid": ("zamba2-1.2b", OV)}
 WIDTHS = [1, 2, 4]
 
 
@@ -101,6 +106,9 @@ def _run(pkg, *, tp=None, parallel="exact", step_mode="fused",
         preemption_mode=pmode, prefill_chunk=chunk, seed=0,
         step_mode=step_mode,
         params=jax_params if ref else params_from_numpy(tree, "cpu"), **kw)
+    if ref and "ssm" in eng._cache:
+        eng._cache["ssm"]["conv"] = eng._cache["ssm"]["conv"].astype(
+            jnp.float32)
     rng = np.random.default_rng(7)
     reqs = []
     for i in range(3):
@@ -276,6 +284,33 @@ def _expert_report(eng, fam, tp):
         assert moe["router"].shape[-1] == 8
 
 
+def _ssm_report(eng, fam, tp, *, sharded):
+    """The recurrent families' plan: the SSM reported sharded (efficient)
+    or replicated (exact); under the efficient plan each shard holds its
+    H / tp Mamba2 heads (in_proj_x, conv_w, out_proj cut, bc_proj whole)
+    and their slot state, under the exact plan one whole state on the
+    first device shared by every shard's entry."""
+    report = eng.sharding_report()
+    if fam not in ("ssm", "hybrid"):
+        assert report["ssm"] == "n/a"
+        return
+    assert report["ssm"] == ("sharded" if sharded else "replicated")
+    assert eng.plan.ssm_sharded == sharded
+    cfg = eng.model.cfg
+    h, di = cfg.ssm_heads, cfg.d_inner
+    div = tp if sharded else 1
+    for shard, cache in zip(eng.params, eng._cache):
+        ssm = shard["layers"]["ssm"]
+        assert ssm["in_proj_x"].shape[-1] == di // div
+        assert ssm["conv_w"].shape[-1] == di // div
+        assert ssm["out_proj"].shape[1] == di // div
+        assert ssm["bc_proj"].shape[-1] == 2 * cfg.ssm_state
+        assert cache["ssm"]["ssd"].shape[2] == h // div
+        assert cache["ssm"]["conv"].shape[3] == di // div
+        if not sharded:
+            assert cache["ssm"] is eng._cache[0]["ssm"]
+
+
 @pytest.mark.parametrize("tp", WIDTHS)
 @pytest.mark.parametrize("pmode", ["swap", "recompute"])
 @pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
@@ -296,8 +331,10 @@ def test_exact_mesh_matches_reference(fam, step_mode, pmode, tp):
     assert report["devices"] == tp and report["tp"] == tp
     assert report["attention"] == "sharded"
     _expert_report(eng, fam, tp)
+    _ssm_report(eng, fam, tp, sharded=False)
     assert len(eng._cache) == tp
-    assert eng._cache[0]["k"].shape[3] == 8 // tp
+    if "k" in eng._cache[0]:
+        assert eng._cache[0]["k"].shape[3] == 8 // tp
     if step_mode == "fused":
         assert eng.metrics.fused_steps > 0
 
@@ -334,6 +371,7 @@ def test_efficient_mesh_within_tolerance(fam, step_mode, pmode, tp):
     assert report["attention"] == "sharded"
     assert report["vocab"] == "sharded" and report["mlp"] == "sharded"
     _expert_report(eng, fam, tp)
+    _ssm_report(eng, fam, tp, sharded=True)
     if tp > 1:
         assert report["param_bytes_per_device"] < report["param_bytes"]
         assert report["replicated_bytes"] < 0.05 * report["param_bytes"]
@@ -388,6 +426,69 @@ def test_mesh_swap_equals_recompute(fam, parallel):
                  arch=arch, ov=ov)
     assert a == b
     assert es.metrics.swap_outs > 0 and er.metrics.preemptions > 0
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+@pytest.mark.parametrize("parallel", ["exact", "efficient"])
+@pytest.mark.parametrize("fam", ["ssm", "hybrid"])
+def test_recurrent_plan_freezes_inactive_rows_and_copies_payloads(
+        fam, parallel, tp):
+    """The plan's decode step on random per-slot state: a row marked
+    inactive keeps every bit of its state in every shard; the active rows'
+    logits and state equal the step without a mesh (exact) or within
+    1e-4 on f32 weights (efficient: the heads' partial out projections
+    summed).  A slot's
+    gathered payload is a full-head copy, never a view: writing the live
+    state leaves it, and writing it back restores the state."""
+    arch, ov = FAMILIES[fam]
+    cfg = get_config(arch, reduced=True).with_overrides(**dict(ov))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    params = tree_unflatten(params, [t.float() for t in tree_leaves(params)])
+    plan = ShardingPlan.build(model, _cpu_mesh(tp), parallel=parallel)
+    g = torch.Generator().manual_seed(1)
+    cache = model.init_paged_cache(9, 8, 2, device="cpu",
+                                   conv_dtype=torch.float32)
+    for t in tree_leaves(cache):
+        t.copy_(torch.randn(t.shape, generator=g).to(t.dtype))
+    token = torch.tensor([[5], [9]])
+    cl = torch.tensor([3, 4])
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    active = torch.tensor([True, False])
+    want_cache = tree_unflatten(cache, [t.clone() for t in
+                                        tree_leaves(cache)])
+    want, _ = model.decode_step_paged(params, token, want_cache, cl, tables,
+                                      page_size=8, active=active)
+    shards = plan.place_cache(cache)
+    before = plan.gather_state(shards, 1)
+    with plan.context():
+        got, _ = model.decode_step_paged(plan.place_params(params), token,
+                                         shards, cl, tables, page_size=8,
+                                         active=active)
+    if isinstance(got, list):
+        got = plan.all_gather(got, -1)
+    after = plan.gather_state(shards, 1)
+    for name in ("ssd", "conv"):
+        assert torch.equal(after[name], before[name]), name
+        new = plan.gather_state(shards, 0)[name]
+        ref = want_cache["ssm"][name][:, 0]
+        if parallel == "exact":
+            assert torch.equal(new, ref), name
+        else:
+            torch.testing.assert_close(new, ref, rtol=1e-4, atol=1e-5)
+    if parallel == "exact":
+        assert torch.equal(got[0], want[0])
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    payload = plan.gather_state(shards, 0)
+    kept = {k: v.clone() for k, v in payload.items()}
+    for c in shards:
+        for t in c["ssm"].values():
+            t.zero_()
+    assert all(torch.equal(payload[k], kept[k]) for k in kept)
+    plan.write_state(shards, 0, payload)
+    assert all(torch.equal(plan.gather_state(shards, 0)[k], kept[k])
+               for k in kept)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "internvl2-76b"])
@@ -475,6 +576,18 @@ def test_launcher_serves_tensor_parallel_on_cpu():
     assert engine.metrics.completed == 3 and engine.tp == 2
     assert engine.sharding_report()["vocab"] == "sharded"
     assert engine.preflight is not None
+
+
+@pytest.mark.parametrize("parallel", ["exact", "efficient"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_launcher_serves_recurrent_families_tensor_parallel_on_cpu(
+        arch, parallel):
+    from repro_torch.launch.serve import main
+    engine, reqs = main(["--device", "cpu", "--arch", arch, "--tp", "2",
+                         "--parallel", parallel, "--n-requests", "3"])
+    assert engine.metrics.completed == 3 and engine.tp == 2
+    assert engine.sharding_report()["ssm"] == (
+        "sharded" if parallel == "efficient" else "replicated")
 
 
 def test_launcher_tp_needs_that_many_cards():

@@ -11,9 +11,10 @@ bf16 weights at the bar of tests/test_models_consistency.py (rtol 5e-2,
 atol 2e-2), and is held to the port's own invariants besides.  On the
 CPU the flash op under autograd runs ``FlashAttentionFunction`` with the
 plain versions in place of the kernels, so these tests exercise the
-card's saved tensors and GQA reduction; the SSD scan's and the decode
-ops' plain versions stay differentiable here (the refusal on the card is
-tested by patching the device check).
+card's saved tensors and GQA reduction, and so does the SSD scan under
+``SSDScanFunction`` (``ssd_backward_reference``); the decode ops' plain
+versions stay differentiable here (their refusal on the card is tested by
+patching the device check).
 """
 
 import os
@@ -622,16 +623,29 @@ def _decode_calls(q):
                                                       cl)}
 
 
+def _graph_nodes(t):
+    """The names of every autograd node below ``t``."""
+    seen, todo = [], [t.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is not None and node.name() not in seen:
+            seen.append(node.name())
+            todo.extend(f for f, _ in node.next_functions)
+    return seen
+
+
 def test_ops_without_backward_refuse_autograd_on_the_card(monkeypatch):
-    """The SSD scan and the decode ops raise NotImplementedError under
-    autograd on the card (the device check patched so that it runs here),
-    the scan naming its queue item and the decode ops saying they are
+    """The decode ops raise NotImplementedError under autograd on the card
+    (the device check patched so that it runs here), saying they are
     serving-only, never returning a detached tensor; with grad disabled or
-    nothing requiring it they run."""
+    nothing requiring it they run.  The SSD scan has its backward kernel:
+    with the same device check patched, its outputs carry a gradient
+    through SSDScanFunction."""
     monkeypatch.setattr(grad_guard, "on_card", lambda t: True)
-    with pytest.raises(NotImplementedError, match=re.escape(
-            grad_guard.BACKWARD_ITEM)):
-        ssd_scan(*_ssd_inputs(True), chunk=8)
+    y, state = ssd_scan(*_ssd_inputs(True), chunk=8)
+    for out in (y, state):
+        assert out.grad_fn is not None
+        assert "SSDScanFunctionBackward" in _graph_nodes(out)
     q = torch.zeros(2, 1, 64, requires_grad=True)
     for name, call in _decode_calls(q).items():
         with pytest.raises(NotImplementedError, match=name) as err:
@@ -639,12 +653,13 @@ def test_ops_without_backward_refuse_autograd_on_the_card(monkeypatch):
         assert grad_guard.SERVING_ONLY in str(err.value)
         assert "Queue A" not in str(err.value)
     with torch.no_grad():
-        ssd_scan(*_ssd_inputs(True), chunk=8)
+        y, _ = ssd_scan(*_ssd_inputs(True), chunk=8)
+        assert y.grad_fn is None
         for call in _decode_calls(q).values():
             call()
-    ssd_scan(*_ssd_inputs(False), chunk=8)
-    assert "SSD scan backward kernel (Mamba2 and zamba2 training on the " \
-        "card)" in grad_guard.BACKWARD_ITEM
+    y, _ = ssd_scan(*_ssd_inputs(False), chunk=8)
+    assert y.grad_fn is None
+    assert not hasattr(grad_guard, "BACKWARD_ITEM")
 
 
 def test_ops_without_backward_stay_differentiable_on_cpu():

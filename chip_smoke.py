@@ -197,7 +197,10 @@ Phases:
      ``attn_check`` on each of dq, dk and dv; two calls bit-identical;
      the LSE instance's O bit-identical to the serving instance's and its
      LSE within LSE_TOL of the plain version's; each timed (device ms)
-     beside its bound and, at the three model shapes, SDPA's backward;
+     in turns with the kernel it replaced (``tools/flash_variants/
+     bwd_mma_sync.cu``, built beside the package), beside its bound and
+     SDPA's backward (causal at the three model shapes, an explicit
+     boolean mask of the same positions at the other three);
      (b) llama3.2-1b at full width and depth trained TRAIN's 20 steps at B
      8 x S 512 through ``make_train_step`` (seed 0, bf16 weights, f32
      moments, lr 3e-3 on launch/train.py's schedule): every loss finite,
@@ -215,10 +218,12 @@ Phases:
      zamba2-1.2b's shapes, with and without an initial state and a
      final-state gradient, S 777), on the forward's saved tensors through
      ``SSDScanFunction``, each gradient within BF16_TOL, two calls
-     bit-identical, each timed beside its bound (and at the training shape
-     B 8 x S 1024); (e) TRAIN_RECURRENT: zamba2-1.2b (20 steps) and
-     mamba2-2.7b (5 steps) at full width and depth, B 8 x S 1024, each
-     first with its gradients at full depth with the SSD backward kernel
+     bit-identical, each timed in turns with the kernel it replaced
+     (``tools/ssd_variants/bwd_scalar.cu``) beside its bound (and at the
+     training shape B 8 x S 1024); (e) TRAIN_RECURRENT: zamba2-1.2b (20
+     steps) and mamba2-2.7b (5 steps) at full width and depth, B 8 x S
+     1024, each first with its gradients at full depth with the SSD
+     backward kernel
      held to those with its plain version on the card
      (``ssd_plain_check``, SSD_PLAIN_GRAD_BAR) and, cut to
      GRAD_CUT_LAYERS, to the CPU's (``grad_check``, GRAD_REL_BAR_SSM),
@@ -480,8 +485,45 @@ def build_parent_ssd() -> None:
         from tools import ssd_variants
     except ImportError:
         return
-    scan, log = ssd_variants.build(["scalar"])["scalar"]
-    PARENT_SSD.update(scan=scan, log=log)
+    built = ssd_variants.build(["scalar", "bwd_scalar"])
+    PARENT_SSD.update(scan=built["scalar"][0], log=built["scalar"][1],
+                      backward=built["bwd_scalar"][0],
+                      backward_log=built["bwd_scalar"][1])
+
+
+# the flash backward kernel this one replaced (tools/flash_variants/
+# bwd_mma_sync.cu), built beside the package and timed in phase 6c (a);
+# empty where the checkout has no tools/flash_bwd_variants.py
+PARENT_FLASH_BWD: dict = {}
+
+
+def build_parent_flash_bwd() -> None:
+    try:
+        from tools import flash_bwd_variants
+    except ImportError:
+        return
+    backward, log = flash_bwd_variants.build(["bwd_mma_sync"])["bwd_mma_sync"]
+    PARENT_FLASH_BWD.update(backward=backward, log=log)
+
+
+def in_turns(fns: dict, **kw) -> dict:
+    """Device ms of each of ``fns`` (name: a call), timed in turns (each
+    in order, then in reverse) and averaged, so that a clock or power
+    drift during the timing falls on all alike."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        times[name].append(device_ms(fns[name], **kw))
+    return {name: sum(t) / len(t) for name, t in times.items()}
+
+
+def versus_parent(times: dict) -> str:
+    """The parent's time from ``in_turns``' times, and whether the kernel
+    beat it."""
+    parent = times.get("parent")
+    if parent is None:
+        return "parent's kernel not built"
+    faster = " (faster)" if times["kernel"] < parent else ""
+    return f"parent's kernel {parent:.4f} ms{faster}"
 
 
 # the Gittins kernel this one replaced (tools/gittins_variants/warp_row.cu),
@@ -507,7 +549,8 @@ def build_parent_gittins() -> None:
 
 def print_ptxas(log: str) -> None:
     """Each kernel's name (and template arguments), registers and spills
-    from an nvcc build's ptxas -v report."""
+    from an nvcc build's ptxas -v report, and any line where ptxas
+    serialized a kernel's wgmma ("Potential Performance Loss")."""
     for line in log.splitlines():
         entry = "Compiling entry" in line and re.search(
             r"\d+([a-z_]+kernel)(I(\w*?)EEv)?", line)
@@ -517,7 +560,7 @@ def print_ptxas(log: str) -> None:
             if args:
                 name += f"<{', '.join(args)}>"
             print(f"  ptxas: {name}")
-        elif "Used" in line or "spill" in line:
+        elif "Used" in line or "spill" in line or "Potential" in line:
             print(f"  ptxas: {line.strip()}")
 
 
@@ -2769,31 +2812,42 @@ def bwd_case(spec, dev, gen, q_scale=1.0):
     return q, k, v, dout, pos, kv_pos
 
 
-def bwd_bytes_flops(q, k, pos, kv_pos, causal, window):
-    """Bytes the backward must move (q, k, v, out, dout, lse, positions
-    read; dq, dk, dv written) and the operations this data needs: five
-    products of 2 dh a visible (query, key) pair a head."""
+def visible_mask(pos, kv_pos, causal, window):
+    """(Sq, Sk) bool: key j visible to query i, the kernels' rule."""
     qp, kp = pos.long()[:, None], kv_pos.long()[None, :]
     mask = kp >= 0
     if causal:
         mask = mask & (qp >= kp)
     if window > 0:
         mask = mask & (qp - kp < window)
+    return mask
+
+
+def bwd_bytes_flops(q, k, pos, kv_pos, causal, window):
+    """Bytes the backward must move (q, k, v, out, dout, lse, positions
+    read; dq, dk, dv written) and the operations this data needs: five
+    products of 2 dh a visible (query, key) pair a head."""
+    mask = visible_mask(pos, kv_pos, causal, window)
     b, sq, h, dh = q.shape
     n_bytes = (4 * q.numel() + 4 * k.numel()) * 2 + b * h * sq * 4 \
         + (pos.numel() + kv_pos.numel()) * 4
     return n_bytes, 10.0 * float(mask.sum()) * b * h * dh
 
 
-def sdpa_backward_ms(q, k, v, dout, causal) -> tuple[float, float]:
-    """SDPA's backward (is_causal, enable_gqa) on the same inputs: device
-    ms of its forward and backward minus its forward (an autograd backward
-    runs on its forward's stream, so the two are captured together)."""
+def sdpa_backward_ms(q, k, v, dout, causal, mask=None
+                     ) -> tuple[float, float]:
+    """SDPA's backward (enable_gqa; is_causal, or with ``mask`` an explicit
+    boolean (Sq, Sk) attn_mask) on the same inputs: device ms of its
+    forward and backward minus its forward (an autograd backward runs on
+    its forward's stream, so the two are captured together)."""
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dot = dout.transpose(1, 2).contiguous()
 
     def fwd():
+        if mask is not None:
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
 
@@ -2812,7 +2866,9 @@ def phase_train_kernels(dev, gen) -> dict:
     the LSE instance's O bit-identical to the serving instance's (where the
     serving op takes the prefill kernel) and its LSE within LSE_TOL of the
     plain version's; two backward calls bit-identical; the flat draw timed
-    beside SDPA's backward and the bound.  Returns the kernel's row."""
+    in turns with the parent's kernel, beside SDPA's backward and the
+    bound.  Returns the kernel's row (each shape's times under
+    "instances")."""
     row = {"name": "flash_attention_backward", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:73 "
@@ -2820,7 +2876,7 @@ def phase_train_kernels(dev, gen) -> dict:
                        "takes by XLA autodiff of "
                        "src/repro/models/attention.py:59 gqa_attention: no "
                        "Pallas backward)",
-           "max_abs_err": 0.0}
+           "max_abs_err": 0.0, "instances": {}}
     for spec in BWD_CASES:
         label, b, sq, h, kvh, dh, causal, window, s_past, start = spec
         shape = (f"B {b}, Sq {sq}, H{h}/KV{kvh}, dh {dh}"
@@ -2854,20 +2910,35 @@ def phase_train_kernels(dev, gen) -> dict:
                 row["max_abs_err"] = max(row["max_abs_err"], attn_check(
                     f"flash backward {label} {draw} {name} ({shape})", g, w))
             if draw == "flat":
-                ms = device_ms(lambda: flash_attention_backward(
-                    q, k, v, pos, kv_pos, out, lse, dout, **kw))
+                fns = {"kernel": lambda: flash_attention_backward(
+                    q, k, v, pos, kv_pos, out, lse, dout, **kw)}
+                parent = PARENT_FLASH_BWD.get("backward")
+                if parent:
+                    fns["parent"] = lambda: parent(q, k, v, pos, kv_pos, out,
+                                                   lse, dout, **kw)
+                times = in_turns(fns)
+                ms = times["kernel"]
                 bnd, by = bound_ms(*bwd_bytes_flops(q, k, pos, kv_pos,
                                                     causal, window),
                                    BF16_FLOPS)
                 text = (f"  flash backward {label}: kernel {ms:.4f} ms "
-                        f"(deterministic), bound {bnd:.5f} ms ({by})")
+                        f"(deterministic), {versus_parent(times)}, bound "
+                        f"{bnd:.5f} ms ({by})")
+                # the timed shapes' masks are causal alone; the others as
+                # an explicit boolean mask of the same positions
+                mask = None if label in BWD_TIMED else visible_mask(
+                    pos, kv_pos, causal, window)
+                lib, lib_fb = sdpa_backward_ms(q, k, v, dout, causal, mask)
+                text += (f", SDPA backward {lib:.4f} ms (forward + "
+                         f"backward {lib_fb:.4f}"
+                         f"{', boolean mask' if mask is not None else ''})")
                 if label in BWD_TIMED:
-                    lib, lib_fb = sdpa_backward_ms(q, k, v, dout, causal)
                     fwd_ms = device_ms(lambda: flash_attention_lse(
                         q, k, v, pos, kv_pos, **kw))
-                    text += (f", SDPA backward {lib:.4f} ms (forward + "
-                             f"backward {lib_fb:.4f}); the LSE forward "
-                             f"{fwd_ms:.4f} ms")
+                    text += f"; the LSE forward {fwd_ms:.4f} ms"
+                row["instances"][label] = {
+                    "ms": ms, "parent_ms": times.get("parent"),
+                    "bound_ms": bnd, "bound_by": by, "library_ms": lib}
                 if label == BWD_TIMED[0]:
                     row["plain_ms"] = cuda_ms(
                         lambda: attention_backward_reference(
@@ -2914,14 +2985,27 @@ def ssd_bwd_bytes_flops(x, bm, init: bool, dstate: bool, q: int):
     return n_bytes, flops
 
 
+def ssd_backward_calls(x, dt, a, bm, cm, st, dy, ds, chunk) -> dict:
+    """The SSD backward kernel's call and, where it was built, the
+    parent's (tools/ssd_variants/bwd_scalar.cu) on the same inputs."""
+    fns = {"kernel": lambda: ssd_scan_backward(x, dt, a, bm, cm, st, dy, ds,
+                                               chunk=chunk)}
+    parent = PARENT_SSD.get("backward")
+    if parent:
+        fns["parent"] = lambda: parent(x, dt, a, bm, cm, st, dy, ds,
+                                       chunk=chunk)
+    return fns
+
+
 def phase_train_ssd_kernels(dev, gen) -> dict:
     """Phase 6c (a'): the SSD backward kernel (``csrc/ssd_scan_bwd.cu``)
     against its plain version (``ssd_backward_reference``, f32) at
     SSD_BWD_CASES, on the forward's own saved tensors: the scan runs under
     autograd (``SSDScanFunction``, long memory) and its backward through
     ``torch.autograd.grad``; each gradient within BF16_TOL (``check``),
-    two backward calls bit-identical; each case timed (device ms) beside
-    its bound, no library call computing it.  Returns the kernel's row."""
+    two backward calls bit-identical; each case timed (device ms) in turns
+    with the parent's kernel, beside its bound, no library call computing
+    it.  Returns the kernel's row."""
     row = {"name": "ssd_scan_backward", "route": "cuda",
            "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
            "replaces": "src/repro/kernels/ssd_scan/kernel.py:64 (the "
@@ -2972,14 +3056,16 @@ def phase_train_ssd_kernels(dev, gen) -> dict:
                 f"ssd backward {label} {name} ({shape})", g, w, BF16_TOL))
         xd, dtd, ad, bd, cd = (t.detach() for t in (x, dt, a, bm, cm))
         std = None if st is None else st.detach()
-        ms = device_ms(lambda: ssd_scan_backward(xd, dtd, ad, bd, cd, std,
-                                                 dy, ds, chunk=q))
+        times = in_turns(ssd_backward_calls(xd, dtd, ad, bd, cd, std, dy, ds,
+                                            q))
+        ms = times["kernel"]
         bnd, by = bound_ms(*ssd_bwd_bytes_flops(xd, bd, init, with_ds, q),
                            BF16_FLOPS)
         text = (f"  ssd backward {label} ({shape}): kernel {ms:.4f} ms "
-                f"(deterministic), bound {bnd:.5f} ms ({by}), no library "
-                f"call")
-        inst = {"ms": ms, "bound_ms": bnd, "bound_by": by}
+                f"(deterministic), {versus_parent(times)}, bound "
+                f"{bnd:.5f} ms ({by}), no library call")
+        inst = {"ms": ms, "parent_ms": times.get("parent"), "bound_ms": bnd,
+                "bound_by": by}
         if label == SSD_BWD_CASES[0][0]:
             row["plain_ms"] = cuda_ms(lambda: ssd_backward_reference(
                 xd, dtd, ad, bd, cd, std, dy, ds, chunk=q), iters=3)
@@ -2996,16 +3082,18 @@ def phase_train_ssd_kernels(dev, gen) -> dict:
         x, dt, a, bm, cm = (torch.cat([c[i] for c in case])
                             for i in range(5))
         dy = torch.randn(8, 1024, h, p, generator=gen, device=dev).bfloat16()
-        ms = device_ms(lambda: ssd_scan_backward(x, dt, a, bm, cm, None, dy),
-                       iters=5)
+        times = in_turns(ssd_backward_calls(x, dt, a, bm, cm, None, dy, None,
+                                            cfg.ssm_chunk), iters=5)
+        ms = times["kernel"]
         fwd = device_ms(lambda: ssd_scan(x, dt, a, bm, cm), iters=5)
         bnd, by = bound_ms(*ssd_bwd_bytes_flops(x, bm, False, False,
                                                 cfg.ssm_chunk), BF16_FLOPS)
         print(f"  ssd backward {arch} training shape (B 8, S 1024): kernel "
-              f"{ms:.4f} ms, bound {bnd:.5f} ms ({by}); the forward "
-              f"{fwd:.4f} ms")
+              f"{ms:.4f} ms, {versus_parent(times)}, bound {bnd:.5f} ms "
+              f"({by}); the forward {fwd:.4f} ms")
         row["instances"][f"{arch} B 8 x S 1024"] = {
-            "ms": ms, "bound_ms": bnd, "bound_by": by, "forward_ms": fwd}
+            "ms": ms, "parent_ms": times.get("parent"), "bound_ms": bnd,
+            "bound_by": by, "forward_ms": fwd}
         del x, dt, a, bm, cm, dy, case
     torch.cuda.empty_cache()
     return row
@@ -3407,7 +3495,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     parent_builds = [BuildThread(target=f) for f in
-                     (build_parent_ssd, build_parent_gittins)]
+                     (build_parent_ssd, build_parent_gittins,
+                      build_parent_flash_bwd)]
     for t in parent_builds:
         t.start()          # their nvcc beside the package's
     built = build_all()
@@ -3421,6 +3510,13 @@ def main() -> int:
     if "log" in PARENT_SSD:
         print("  the parent's SSD kernel (tools/ssd_variants/scalar.cu):")
         print_ptxas(PARENT_SSD["log"])
+        print("  the parent's SSD backward kernel "
+              "(tools/ssd_variants/bwd_scalar.cu):")
+        print_ptxas(PARENT_SSD["backward_log"])
+    if "log" in PARENT_FLASH_BWD:
+        print("  the parent's flash backward kernel "
+              "(tools/flash_variants/bwd_mma_sync.cu):")
+        print_ptxas(PARENT_FLASH_BWD["log"])
     if "log" in PARENT_GITTINS:
         print("  the parent's Gittins kernel "
               "(tools/gittins_variants/warp_row.cu):")

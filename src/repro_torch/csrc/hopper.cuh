@@ -73,6 +73,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 4 bytes global -> shared, zero-filled where src_bytes is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

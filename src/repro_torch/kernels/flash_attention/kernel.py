@@ -40,8 +40,10 @@ FLASH_SPLIT_KERNEL = CudaKernel(
     [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _p])
 
 # flash_attention_backward(q, k, v, out, dout, lse, qpos, kpos, dq, dk, dv,
-#                          dsum, B, Sq, Sk, H, KV, dh, causal, window, scale,
-#                          stream): three kernels (D, dK/dV, dQ), one call
+#                          dsum, part, B, Sq, Sk, H, KV, dh, causal, window,
+#                          scale, stream): three kernels (D, dK/dV, dQ; with
+#                          the head split's partials a fourth sums them),
+#                          one call
 FLASH_BACKWARD_KERNEL = CudaKernel(
     "flash_attention_bwd", "flash_attention_backward",
-    [_p] * 12 + [_i] * 8 + [_f, _p])
+    [_p] * 13 + [_i] * 8 + [_f, _p])

@@ -17,7 +17,9 @@ through ``FlashAttentionFunction`` instead: its forward is one launch of
 the prefill kernel's training instance, ``FLASH_PREFILL_LSE_KERNEL``
 (which also writes each row's log-sum-exp; never the key split), and its
 backward one call of ``FLASH_BACKWARD_KERNEL`` (``csrc/
-flash_attention_bwd.cu``: D, then dK/dV, then dQ, counted as one launch).
+flash_attention_bwd.cu``: D, then dK/dV (its heads split over two blocks
+on a small grid, ``backward_head_split``, and the halves summed), then
+dQ, counted as one launch).
 On the CPU the same Function runs the plain versions
 (``attention_reference(return_lse=True)``,
 ``attention_backward_reference``), so only the kernels differ.  A build
@@ -34,13 +36,17 @@ from .kernel import (FLASH_BACKWARD_KERNEL, FLASH_PREFILL_KERNEL,
 from .ref import attention_backward_reference, attention_reference
 
 __all__ = ["flash_attention", "flash_attention_lse", "flash_attention_backward",
-           "FlashAttentionFunction", "flash_key_ranges",
+           "FlashAttentionFunction", "flash_key_ranges", "backward_head_split",
            "FLASH_PREFILL_KERNEL", "FLASH_PREFILL_LSE_KERNEL",
            "FLASH_SPLIT_KERNEL", "FLASH_BACKWARD_KERNEL", "SPLIT_MAX_SQ"]
 
 HEAD_DIMS = (64, 128, 192)    # the CUDA kernels' head dims
 # the key split: at most this many queries (bidirectional, no window)
 SPLIT_MAX_SQ = 16
+# the backward's dK/dV pass splits its query heads below this many blocks
+# (two an SM of the H100's 132: a smaller causal grid waits on its longest
+# key tile)
+HEAD_SPLIT_BELOW = 264
 
 
 def flash_key_ranges(sq: int, sk: int, *, causal: bool = False,
@@ -54,6 +60,15 @@ def flash_key_ranges(sq: int, sk: int, *, causal: bool = False,
     if sq > SPLIT_MAX_SQ or causal or window > 0:
         return 0
     return split_kv_sub_splits(sk)
+
+
+def backward_head_split(b: int, sk: int, h: int, kvh: int) -> bool:
+    """Whether the backward kernel's dK/dV pass splits each kv head's query
+    heads over two blocks (f32 partials, summed after the pass in a fixed
+    order): where its grid of (64-row key tile, kv head, batch row) blocks
+    is under HEAD_SPLIT_BELOW and the heads split evenly.  A function of
+    the shapes alone, never of the card."""
+    return (h // kvh) % 2 == 0 and -(-sk // 64) * kvh * b < HEAD_SPLIT_BELOW
 
 
 def _check(q, k, v, positions, kv_positions):
@@ -196,12 +211,17 @@ def flash_attention_backward(q, k, v, positions, kv_positions, out, lse,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    part = (torch.empty((2, 2, b, sk, kvh, dh), dtype=torch.float32,
+                        device=dev)
+            if backward_head_split(b, sk, h, kvh) else None)
     FLASH_BACKWARD_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                           positions.data_ptr(), kv_positions.data_ptr(),
                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                          dsum.data_ptr(), b, sq, sk, h, kvh, dh,
-                          int(causal), int(window), dh ** -0.5,
+                          dsum.data_ptr(),
+                          None if part is None else part.data_ptr(), b, sq,
+                          sk, h, kvh, dh, int(causal), int(window),
+                          dh ** -0.5,
                           torch.cuda.current_stream(dev).cuda_stream)
     FLASH_BACKWARD_KERNEL.launches += 1
     return dq, dk, dv

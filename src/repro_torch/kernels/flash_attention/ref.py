@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the flash kernels: the prefill forward, the
 function of ``repro/models/attention.py::gqa_attention`` with explicit
 query and key positions (and, for training, its log-sum-exp), and its
-backward, which the reference takes by XLA autodiff of that function.
-Used by the tests and by CPU runs."""
+backward, which the reference takes by XLA autodiff of that function, and
+that backward as ``csrc/flash_attention_bwd.cu`` computes it
+(``attention_backward_passes_reference``: P and dS as two bf16 parts each
+in the value products).  Used by the tests and by CPU runs."""
 
 from __future__ import annotations
 
@@ -11,9 +13,11 @@ import torch.nn.functional as F
 
 from ..bucketing import pow2_bucket
 
-__all__ = ["attention_reference", "attention_backward_reference"]
+__all__ = ["attention_reference", "attention_backward_reference",
+           "attention_backward_passes_reference"]
 
 _NEG = -1e30
+_LOG2E = 1.4426950408889634
 
 
 def _padded_keys(k, v, kv_positions):
@@ -106,5 +110,50 @@ def attention_backward_reference(q, k, v, positions, kv_positions, out, lse,
     ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
     dq = torch.einsum("bkrqs,bskd->bqkrd", ds, k.float()) * scale
     dk = torch.einsum("bkrqs,bqkrd->bskd", ds, qg) * scale
+    return (dq.reshape(b, sq, h, dh).to(q.dtype), dk[:, :sk].to(k.dtype),
+            dv[:, :sk].to(v.dtype))
+
+
+def _two_parts(t):
+    """t as the sum of its two bf16 parts, hi + lo (exact in f32): the
+    value that the kernel's two products of those parts take."""
+    hi = t.bfloat16().float()
+    return hi + (t - hi).bfloat16().float()
+
+
+def attention_backward_passes_reference(q, k, v, positions, kv_positions,
+                                        out, lse, dout, *,
+                                        causal: bool = True,
+                                        window: int = 0):
+    """The gradients (dq, dk, dv) as ``csrc/flash_attention_bwd.cu``
+    computes them, step by step in f32 from the inputs' values: D =
+    rowsum(dO * O); the scores s of each visible (query, key) pair, P =
+    exp2(s scale log2 e - lse log2 e) (0 where masked), dP = dO V^T, dS =
+    P (dP - D) in f32; then the value products take P and dS as two bf16
+    parts each (hi + lo, to ~2^-16), as the kernel's wgmma A operands: dV
+    = (P_hi + P_lo)^T dO, dK = (dS_hi + dS_lo)^T Q scale, dQ = (dS_hi +
+    dS_lo) K scale, f32 sums.  The kernel
+    sums its 64-row tiles in its own fixed order; these f32 sums run in
+    torch's, which differs only in f32 rounding.  Returns each in its
+    input's dtype."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    k, v, kv_positions = _padded_keys(k, v, kv_positions)
+    rep = h // kvh
+    scale = dh ** -0.5
+    qg = q.float().reshape(b, sq, kvh, rep, dh)
+    mask = _visible(positions, kv_positions, causal, window)
+    s = torch.einsum("bqkrd,bskd->bkrqs", qg, k.float())      # (B,KV,r,Sq,Sk)
+    lse2 = lse.float().reshape(b, kvh, rep, sq, 1) * _LOG2E
+    p = torch.where(mask, torch.exp2(s * (scale * _LOG2E) - lse2),
+                    torch.zeros_like(s))
+    do = dout.float().reshape(b, sq, kvh, rep, dh)
+    d = (do * out.float().reshape(b, sq, kvh, rep, dh)).sum(-1)
+    dp = torch.einsum("bqkrd,bskd->bkrqs", do, v.float())
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    p1, ds1 = (_two_parts(t) for t in (p, ds))
+    dv = torch.einsum("bkrqs,bqkrd->bskd", p1, do)
+    dk = torch.einsum("bkrqs,bqkrd->bskd", ds1, qg) * scale
+    dq = torch.einsum("bkrqs,bskd->bqkrd", ds1, k.float()) * scale
     return (dq.reshape(b, sq, h, dh).to(q.dtype), dk[:, :sk].to(k.dtype),
             dv[:, :sk].to(v.dtype))

@@ -20,7 +20,8 @@ SSD_SCAN_KERNEL = CudaKernel(
     "ssd_scan", "ssd_scan", [_p] * 12 + [_i] * 6 + [_p])
 
 # ssd_scan_backward(x, dt, a, bm, cm, init_state, dy, dstate, dx, ddt, da,
-#                   dbm, dcm, dinit, cum, st, dst, cb, pb, pc, B, S, H, P,
-#                   N, q, stream): six launches, counted as one call
+#                   dbm, dcm, dinit, cd, gt, own, parts, last, rows, pairs,
+#                   B, S, H, P, N, q, stream): seven launches, counted as
+#                   one call
 SSD_BACKWARD_KERNEL = CudaKernel(
-    "ssd_scan_bwd", "ssd_scan_backward", [_p] * 20 + [_i] * 6 + [_p])
+    "ssd_scan_bwd", "ssd_scan_backward", [_p] * 21 + [_i] * 6 + [_p])

@@ -12,10 +12,11 @@ is allocated here, and the call counts as one launch.
 Under autograd (grad enabled and an input requiring grad) the padded scan
 goes through ``SSDScanFunction``: its forward is the same kernel call,
 saving the padded inputs, and its backward one call of
-``SSD_BACKWARD_KERNEL`` (``csrc/ssd_scan_bwd.cu``), which recomputes the
-chunk states in f32 rather than keeping the forward's.  The padding and
-the cut stay outside the Function, so autograd takes their gradients.
-On the CPU the same Function runs the plain versions
+``SSD_BACKWARD_KERNEL`` (``csrc/ssd_scan_bwd.cu``: seven launches on the
+tensor cores, their scratch allocated here, counted as one), which
+recomputes the chunk states in f32 rather than keeping the forward's.
+The padding and the cut stay outside the Function, so autograd takes
+their gradients.  On the CPU the same Function runs the plain versions
 (``ssd_chunked_reference``, ``ssd_backward_reference``).  A build or
 launch error raises; nothing falls back.
 """
@@ -131,9 +132,9 @@ def ssd_scan_backward(x, dt, a_decay, bmat, cmat, init_state, dy,
     inputs for the output gradients ``dy`` (B,S,H,P) in y's dtype and
     ``dstate`` (B,H,P,N) f32 or None (zeros), each in its input's dtype;
     dinit None without ``init_state``.  On CUDA one call of the backward
-    kernel (f32 inside; deterministic: no atomics, two calls bit-identical),
-    on the CPU ``ssd_backward_reference``; padded to whole chunks as the
-    forward is."""
+    kernel (tensor-core products, each f32 factor in two bf16 parts;
+    deterministic: no atomics, two calls bit-identical), on the CPU
+    ``ssd_backward_reference``; padded to whole chunks as the forward is."""
     dev = x.device
     if dev.type == "cpu":
         return ssd_backward_reference(x, dt, a_decay, bmat, cmat, init_state,
@@ -159,13 +160,7 @@ def ssd_scan_backward(x, dt, a_decay, bmat, cmat, init_state, dy,
     dx, ddt, da, dbm, dcm = (torch.empty_like(t) for t in
                              (x, dt, a_decay, bmat, cmat))
     dinit = None if init_state is None else torch.empty_like(init_state)
-    f32 = dict(dtype=torch.float32, device=dev)
-    scratch = (torch.empty((b, nc, h, q), **f32),          # cum
-               torch.empty((b, nc, h, p, n), **f32),       # states
-               torch.empty((b, nc, h, p, n), **f32),       # state gradients
-               torch.empty((b, nc, q, q), **f32),          # C.B^T
-               torch.empty((b, nc, h, q, n), **f32),       # dB per head
-               torch.empty((b, nc, h, q, n), **f32))       # dC per head
+    scratch = _backward_scratch(b, nc, h, p, n, q, dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
     SSD_BACKWARD_KERNEL(*(ptr(t) for t in (
         x, dt, a_decay, bmat, cmat, init_state, dy, dstate, dx, ddt, da,
@@ -199,6 +194,28 @@ class SSDScanFunction(torch.autograd.Function):
         grads = ssd_scan_backward(x, dt, a_decay, bmat, cmat, init_state,
                                   dy, dstate, chunk=ctx.q)
         return (*grads, None)
+
+
+def _backward_scratch(b, nc, h, p, n, q, dev):
+    """The backward kernel's scratch, qp = q rounded up to TILE and nt =
+    qp / TILE tiles: cum and dt of each (chunk, head) (B, nc, H, 2, qp);
+    G^T = B C^T of each chunk (B, nc, qp, qp); each chunk's own state and
+    own state gradient (B, nc, H, 2, P, N); the state carried in and the
+    state gradient leaving, in bf16 parts (B, nc, H, 2, STATE_PARTS, P, N);
+    exp(cum_last) <dS_out, S> (B, nc, H); dcum's terms by row (B, nc, H,
+    3 + nt, qp); dG's products with C and B by tile pair (B, nc, 2,
+    nt (nt + 1) / 2, TILE, N).  All f32 but the parts."""
+    qp = -(-q // TILE) * TILE
+    nt = qp // TILE
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((b, nc, h, 2, qp), **f32),
+            torch.empty((b, nc, qp, qp), **f32),
+            torch.empty((b, nc, h, 2, p, n), **f32),
+            torch.empty((b, nc, h, 2, STATE_PARTS, p, n),
+                        dtype=torch.bfloat16, device=dev),
+            torch.empty((b, nc, h), **f32),
+            torch.empty((b, nc, h, 3 + nt, qp), **f32),
+            torch.empty((b, nc, 2, nt * (nt + 1) // 2, TILE, n), **f32))
 
 
 def _scratch(b, nc, h, p, n, q, dev):

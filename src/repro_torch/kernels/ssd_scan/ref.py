@@ -12,6 +12,9 @@ its four passes, its 64-row tiles and the bf16 parts it takes of each
 f32 factor, so that the precision of that design is tested on the CPU.
 ``ssd_backward_reference`` is the chunked scan's backward written out in
 f32 (no autograd): the plain version of ``csrc/ssd_scan_bwd.cu``.
+``ssd_backward_passes_reference`` computes that backward as the kernel's
+passes do: the same terms, each f32 factor of a tensor-core product
+rounded to its bf16 parts.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ssd_chunked_reference", "ssd_sequential_reference",
-           "ssd_passes_reference", "ssd_backward_reference"]
+           "ssd_passes_reference", "ssd_backward_reference",
+           "ssd_backward_passes_reference"]
 
 TILE = 64     # the kernel's tile rows
 
@@ -292,3 +296,108 @@ def ssd_backward_reference(x, dt, a_decay, bmat, cmat, init_state, dy,
             whole(grads["a"], a_decay), whole(grads["b"], bmat),
             whole(grads["c"], cmat),
             None if init_state is None else d_out.to(init_state.dtype))
+
+
+def _parts_sum(t, parts: int):
+    """t as the sum of its ``parts`` bf16 parts (exact in f32): the value
+    that the kernel's products of those parts, one a part, take."""
+    return sum(_bf16_parts(t, parts))
+
+
+def ssd_backward_passes_reference(x, dt, a_decay, bmat, cmat, init_state,
+                                  dy, dstate=None, chunk: int = 256,
+                                  parts: int = 2):
+    """The gradients of ``ssd_backward_reference`` as ``csrc/
+    ssd_scan_bwd.cu`` computes them, pass by pass, in f32 with each f32
+    factor of a tensor-core product rounded to its ``parts`` bf16 parts
+    (the kernel's kParts); the same inputs and outputs.
+
+    (1) cum, f_j = dt_j g_j and e_i = exp(cum_i); each chunk's own state
+    x^T (B_j f_j) and own state gradient dy^T (C_i e_i), B_j f_j and C_i e_i
+    in parts; (3) the state carried into each chunk and the gradient of the
+    state leaving it, chunk by chunk in f32, each kept in parts, and
+    exp(cum_last) <dS_out, S> (S in parts); (4) dxdt_j = g_j (dS_out B_j) +
+    W^T dy with W in parts, dW = (dy x^T) dt_j exact, the row and column
+    sums of dW W, gdg_j = g_j dt_j <x_j, dS_out B_j>; (5) dG summed over
+    the heads, in parts, times B (dC's part) and C (dB's part); (6) dB's
+    row term sum_h g_j dt_j (x_j dS_out) and dC's sum_h e_i (dy_i S), and
+    e_i <C_i, dy_i S>; (7) dcum, its reverse cumsum, da.  The kernel's
+    sums run in its tiles' fixed order, these in torch's: they differ
+    only in f32 rounding.  Padded rows as the forward's."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    f = [t.float() for t in (x, dt, a_decay, bmat, cmat, dy)]
+    if pad:
+        f = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad),
+                   value=1.0 if i == 2 else 0.0) for i, t in enumerate(f)]
+    xc, dtc, ac, bc, cc, dyc = (
+        t.reshape(b, nc, q, *t.shape[2:]).movedim(1, 0) for t in f)
+    dev = x.device
+    # (1)
+    cum = torch.cumsum(torch.log(torch.clamp(ac, min=1e-20)), dim=2)
+    last = cum[:, :, -1]                                    # (nc, B, H)
+    g = torch.exp(last[:, :, None] - cum)                   # (nc,B,q,H)
+    e_in = torch.exp(cum)
+    own = torch.einsum("cbjhp,cbjhn->cbhpn", xc, _parts_sum(
+        bc[:, :, :, None, :] * (dtc * g)[..., None], parts))
+    own_d = torch.einsum("cbihp,cbihn->cbhpn", dyc, _parts_sum(
+        cc[:, :, :, None, :] * e_in[..., None], parts))
+    # (3)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev) \
+        if init_state is None else init_state.float()
+    carried = []
+    for c in range(nc):
+        carried.append(_parts_sum(state, parts))
+        state = state * torch.exp(last[c])[..., None, None] + own[c]
+    grad = torch.zeros_like(state) if dstate is None else dstate.float()
+    d_out, extra = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        d_out[c] = _parts_sum(grad, parts)
+        extra[c] = torch.exp(last[c]) * (grad * carried[c]).sum((-1, -2))
+        grad = grad * torch.exp(last[c])[..., None, None] + own_d[c]
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+    grads = {k: [None] * nc for k in ("x", "dt", "a", "b", "c")}
+    for c in range(nc):
+        xq, dtq, dyq, bq, cq = xc[c], dtc[c], dyc[c], bc[c], cc[c]
+        seg = cum[c][:, :, None, :] - cum[c][:, None, :, :]   # (B,i,j,H)
+        e_mat = torch.exp(torch.where(causal[None, :, :, None], seg,
+                                      torch.full((), -torch.inf,
+                                                 device=dev)))
+        w = torch.einsum("bin,bjn->bij", cq, bq)[..., None] * e_mat
+        # (4)
+        row = torch.einsum("bjn,bhpn->bjhp", bq, d_out[c])
+        gdg = g[c] * dtq * (xq * row).sum(-1)
+        dxdt = g[c][..., None] * row + torch.einsum(
+            "bijh,bihp->bjhp", _parts_sum(w, parts), dyq)
+        d_w = torch.einsum("bihp,bjhp->bijh", dyq, xq) * dtq[:, None]
+        d_seg = d_w * w
+        # (5)
+        d_g = _parts_sum((d_w * e_mat).sum(-1), parts)         # (B,i,j)
+        # (6)
+        t_b = torch.einsum("bjhp,bhpn->bjhn", xq, d_out[c])
+        t_c = torch.einsum("bihp,bhpn->bihn", dyq, carried[c])
+        grads["b"][c] = torch.einsum("bij,bin->bjn", d_g, cq) \
+            + torch.einsum("bjh,bjhn->bjn", g[c] * dtq, t_b)
+        grads["c"][c] = torch.einsum("bij,bjn->bin", d_g, bq) \
+            + torch.einsum("bih,bihn->bin", e_in[c], t_c)
+        # (7)
+        dcum = d_seg.sum(2) - d_seg.sum(1) - gdg \
+            + e_in[c] * torch.einsum("bin,bihn->bih", cq, t_c)
+        dcum[:, -1] += gdg.sum(1) + extra[c]
+        dla = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        grads["a"][c] = torch.where(ac[c] > 1e-20, dla / ac[c],
+                                    torch.zeros((), device=dev))
+        grads["x"][c] = dxdt * dtq[..., None]
+        grads["dt"][c] = (dxdt * xq).sum(-1)
+
+    def whole(ts, like):
+        t = torch.stack(ts, dim=1)
+        return t.reshape(b, nc * q, *t.shape[3:])[:, :s].to(like.dtype)
+
+    return (whole(grads["x"], x), whole(grads["dt"], dt),
+            whole(grads["a"], a_decay), whole(grads["b"], bmat),
+            whole(grads["c"], cmat),
+            None if init_state is None else grad.to(init_state.dtype))

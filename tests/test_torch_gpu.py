@@ -1680,6 +1680,10 @@ def _bwd_inputs(cuda, b, sq, h, kvh, dh, seed, s_past=0, start=0):
     (96, 6, 2, True, 0, 0, 0),        # GQA, a ragged tile
     (64, 4, 1, True, 32, 128, 77),    # MQA, masked prefix rows, window
     (8, 4, 4, False, 0, 40, 40),      # bidirectional, few queries
+    (100, 12, 1, True, 0, 0, 0),      # GQA 12 (nemotron's), Sq = Sk ragged
+    (70, 8, 2, True, 0, 45, 30),      # GQA 4, Sq and Sk = 115 ragged,
+                                      # masked prefix rows
+    (130, 4, 4, True, 64, 0, 0),      # MHA, a window, three query tiles
 ])
 def test_cuda_flash_backward_vs_plain(cuda, dh, sq, h, kvh, causal, window,
                                       s_past, start):
@@ -1714,6 +1718,25 @@ def test_cuda_flash_backward_vs_plain(cuda, dh, sq, h, kvh, causal, window,
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         _attn_close(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,h,kvh", [(64, 32, 8), (128, 12, 2),
+                                      (192, 24, 2)])
+def test_cuda_flash_backward_bit_identical(cuda, dh, h, kvh):
+    """Two backward calls at a training shape (B 2 x S 512, causal) give
+    the same bits, with other work on the card between them: no atomics,
+    every sum in one fixed order."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_backward, flash_attention_lse)
+    q, k, v, dout, pos, kv_pos = _bwd_inputs(cuda, 2, 512, h, kvh, dh, dh)
+    out, lse = flash_attention_lse(q, k, v, pos, kv_pos)
+    first = flash_attention_backward(q, k, v, pos, kv_pos, out, lse, dout)
+    torch.randn(4096, 4096, device=cuda).sum()   # other work between
+    again = flash_attention_backward(q, k, v, pos, kv_pos, out, lse, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu
@@ -1896,6 +1919,14 @@ SSD_BWD_CASES = [
     (1, 777, 64, 64, 64, 256, False, True),
     (2, 1024, 80, 64, 128, 256, True, True),
     (2, 1024, 80, 64, 128, 256, False, False),
+    # the reduced configs without either state; mamba2's (P, N) with S
+    # ragged and no initial state; zamba2's with an initial state and no
+    # final-state gradient; a chunk of 150 rows (S under the chunk: tiles
+    # past the chunk's rows within its last 64-row tile)
+    (1, 50, 16, 32, 16, 16, False, False),
+    (1, 300, 80, 64, 128, 256, False, True),
+    (2, 512, 64, 64, 64, 256, True, False),
+    (1, 150, 16, 64, 64, 256, True, True),
 ]
 
 
@@ -1932,6 +1963,30 @@ def test_cuda_ssd_backward_vs_plain(cuda, b, s, h, p, n, chunk, init,
         assert torch.isfinite(gt).all(), name
         bar = 1e-2 if gt.dtype == torch.bfloat16 else 1e-3
         assert _rel_norm(gt, w) <= bar, (name, _rel_norm(gt, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_cuda_ssd_backward_bit_identical(cuda, arch):
+    """Two backward calls at the training shape's length (B 2 x S 1024,
+    an initial state and a final-state gradient) give the same bits, with
+    other work on the card between them: no atomics, the heads' sums of dG
+    and the row terms in head order."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_backward
+    cfg = get_config(arch)
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x, dt, a, bm, cm, st = _ssd_case(cuda, 17, 2, 1024, h, p, n, True,
+                                     (0.99, 1.0))
+    g = torch.Generator(device=cuda).manual_seed(18)
+    dy = torch.randn(2, 1024, h, p, generator=g, device=cuda).bfloat16()
+    ds = torch.randn(2, h, p, n, generator=g, device=cuda)
+    first = ssd_scan_backward(x, dt, a, bm, cm, st, dy, ds)
+    torch.randn(4096, 4096, device=cuda).sum()   # other work between
+    again = ssd_scan_backward(x, dt, a, bm, cm, st, dy, ds)
+    torch.cuda.synchronize()
+    for name, u, w in zip(("dx", "ddt", "da", "dB", "dC", "dinit"), first,
+                          again):
+        assert torch.equal(u, w), name
 
 
 @pytest.mark.gpu

@@ -48,7 +48,8 @@ from repro_torch.kernels.flash_attention.ops import (FLASH_PREFILL_KERNEL,
                                                      flash_key_ranges)
 from repro_torch.kernels.flash_attention.ops import _check as _check_flash
 from repro_torch.kernels.flash_attention.ref import (
-    attention_backward_reference, attention_reference)
+    attention_backward_passes_reference, attention_backward_reference,
+    attention_reference)
 from repro_torch.kernels.gittins.ops import (GITTINS_KERNEL,
                                              gittins_attained)
 from repro_torch.models.attention import (combine_lse_partials,
@@ -827,6 +828,52 @@ def test_attention_backward_reference_vs_autograd_and_jax_vjp(case):
                                    err_msg=name)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32_TOL,
                                    err_msg=name)
+
+
+# the backward kernel's arithmetic against the exact formula: P and dS
+# enter its value products as two bf16 parts each, ~2^-17 relative a
+# term, which leaves the gradients ~3e-6 off in relative norm (one part
+# each left them ~1.7e-3 off); the bar is 1e-4
+PASSES_BAR = 1e-4
+
+
+def _rel_norm(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 3.0], ids=["flat", "peaked"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_attention_backward_passes_reference_vs_exact_and_jax_vjp(case,
+                                                                   q_scale):
+    """attention_backward_passes_reference (the kernel's arithmetic: P
+    by exp2, P and dS in two bf16 parts for the value products) against
+    the exact
+    plain backward and against jax.vjp of the reference's gqa_attention,
+    within PASSES_BAR in relative norm, on flat and peaked scores; the
+    ragged tiles, the window, the masked prefix and the bidirectional
+    case included."""
+    q, k, v, dout, pos, kv_pos, kw = _bwd_case(case, sum(case[:5]) + 1)
+    q = (q * q_scale).astype(np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, dout))
+    tpos, tkv = torch.from_numpy(pos), torch.from_numpy(kv_pos)
+    out, lse = attention_reference(tq, tk, tv, tpos, tkv, return_lse=True,
+                                   **kw)
+    got = attention_backward_passes_reference(tq, tk, tv, tpos, tkv, out,
+                                              lse, tdo, **kw)
+    exact = attention_backward_reference(tq, tk, tv, tpos, tkv, out, lse,
+                                         tdo, **kw)
+    _, vjp = jax.vjp(lambda a, b_, c: jax_gqa(
+        a, b_, c, positions=jnp.asarray(pos),
+        kv_positions=jnp.asarray(kv_pos), **kw),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    for name, g, e, w in zip(("dq", "dk", "dv"), got, exact, want):
+        assert g.shape == e.shape and g.dtype == e.dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_norm(g.numpy(), e.numpy()) <= PASSES_BAR, name
+        assert _rel_norm(g.numpy(), np.asarray(w)) <= PASSES_BAR, name
 
 
 def test_attention_reference_lse():

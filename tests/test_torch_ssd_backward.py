@@ -23,7 +23,8 @@ import torch
 
 from repro.kernels.ssd_scan.ref import ssd_reference
 from repro_torch.kernels.ssd_scan.ops import SSDScanFunction, ssd_scan
-from repro_torch.kernels.ssd_scan.ref import (ssd_backward_reference,
+from repro_torch.kernels.ssd_scan.ref import (ssd_backward_passes_reference,
+                                              ssd_backward_reference,
                                               ssd_chunked_reference)
 from test_torch_training import _sequential_ssd
 
@@ -138,6 +139,54 @@ def test_backward_matches_jax_sequential_oracle(shape, init, decay):
     _hold(got, want, "ssd_backward_reference")
     _hold(_autograd(ins, dy, dstate, chunk, fn=ssd_scan), want,
           "SSDScanFunction")
+
+
+@pytest.mark.parametrize("decay", sorted(DECAYS))
+@pytest.mark.parametrize("init", [False, True], ids=["no_init", "init"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_passes_reference_matches_plain_and_jax_oracle(shape, init, decay):
+    """ssd_backward_passes_reference (the kernel's passes, every f32
+    factor of a product in two bf16 parts: ~2^-17 relative a term, ~3e-6
+    in relative norm) against ssd_backward_reference and against jax.grad
+    of the reference's sequential scan, within BAR; ragged S and S under
+    the chunk included."""
+    *ins, dy, dstate = _inputs(shape, decay, init, seed=7)
+    chunk = shape[-1]
+    got = ssd_backward_passes_reference(*_t(ins), torch.from_numpy(dy),
+                                        torch.from_numpy(dstate),
+                                        chunk=chunk)
+    exact = ssd_backward_reference(*_t(ins), torch.from_numpy(dy),
+                                   torch.from_numpy(dstate), chunk=chunk)
+    _hold(got, exact, "ssd_backward_passes_reference vs plain")
+    want = list(_jax_sequential(ins, dy, dstate))
+    if not init:
+        want[5] = None
+    _hold(got, want, "ssd_backward_passes_reference vs jax")
+
+
+def test_passes_reference_padded_rows_get_zero_gradients():
+    """The passes reference on rows padded as the engine pads them: dx,
+    ddt, dB and dC exactly zero there, the valid rows within BAR of the
+    unpadded call's."""
+    shape = (2, 40, 2, 8, 4, 16)
+    *ins, dy, dstate = _inputs(shape, "long", True, seed=8)
+    s = 29
+    padded = [t.copy() for t in ins[:5]] + [ins[5]]
+    for i, t in enumerate(padded[:5]):
+        t[:, s:] = 1.0 if i == 2 else 0.0
+    dyp = dy.copy()
+    dyp[:, s:] = 0.0
+    got = ssd_backward_passes_reference(*_t(padded), torch.from_numpy(dyp),
+                                        torch.from_numpy(dstate), chunk=16)
+    for name, g in zip(NAMES[:5], got[:5]):
+        if name != "da":
+            assert torch.equal(g[:, s:], torch.zeros_like(g[:, s:])), name
+    short = ssd_backward_reference(
+        *_t([t[:, :s] for t in ins[:5]] + [ins[5]]),
+        torch.from_numpy(dy[:, :s]), torch.from_numpy(dstate), chunk=16)
+    for name, g, w in zip(NAMES, got, short):
+        g = g[:, :s] if name != "dinit" else g
+        assert _rel(g, w) <= BAR, name
 
 
 @pytest.mark.parametrize("decay", sorted(DECAYS))

@@ -71,11 +71,18 @@ Phases:
      captured and a steady decode call's host ms).  Every request must
      finish, the scheduler must preempt and swap, the streams must agree
      under the tolerance contract, and every kernel of the model's path
-     must have launched; llama3.2-1b and mamba2-2.7b are served fused
-     once more without graphs (graphs=False), and llama3.2-1b at
-     temperature 0.8 with and without graphs, each eager drive held
-     token-identical, launch for launch, to its graphed twin (these
-     drives' launches are not summed into phase 7's);
+     must have launched, each as often as the path calls it (the
+     prefill's flash and SSD launches included); the prefill chunks and
+     the recurrent families' whole prefills run as CUDA graphs too
+     (``prefill_compile_count``: keys, graphs and first-call and capture
+     seconds printed), each drive ends with a third wave (wave 0's
+     prompts again, 8 tokens each) that must capture no new prefill
+     graph, and TTFT p50 is printed wave by wave; every model is served
+     once more in both step modes without graphs (graphs=False), and
+     llama3.2-1b at temperature 0.8 with and without graphs, each eager
+     drive held token-identical (its third wave too), launch for launch,
+     to its graphed twin (these drives' launches are not summed into
+     phase 7's);
      then nemotron-4-340b and granite-34b at full width cut to 2 layers
      (head dim 192 and three head groups; MQA and six head groups), fused
      only, the same mix: every request must finish, the scheduler must
@@ -229,7 +236,13 @@ Phases:
      GRAD_CUT_LAYERS, to the CPU's (``grad_check``, GRAD_REL_BAR_SSM),
      the SSD and flash launches exact (forwards twice a layer under
      remat, one backward a layer), the loss falling, s/step, tokens/s,
-     peak GiB and the model-FLOP share printed;
+     peak GiB and the model-FLOP share printed; every training drive's
+     model-FLOP share by ``roofline.model_flops`` over HW["peak_flops"];
+  6d. the dry-run on the meta device (no card): ``roofline.HW`` beside
+     the card's own total_memory, ``dryrun.min_tp_report`` at the card's
+     budget for MIN_TP_ARCHS, and ``dryrun.run_case`` of llama3.2-1b at
+     the four shapes on the single-pod production mesh, its roofline
+     terms on HW's peaks;
   7. print one JSON line of per-kernel results (launches summed over
      every serve and generate drive, the front door's, the simulator's
      and the training drives'; the flash row counts the flash op's entry
@@ -258,7 +271,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import InputShape, get_config  # noqa: E402
 from repro_torch.core import (CudaPriorityBackend, Scheduler,  # noqa: E402
                               make_policy)
 from repro_torch.kernels.build import build_all  # noqa: E402
@@ -288,7 +301,9 @@ from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_backward_reference, ssd_chunked_reference, ssd_sequential_reference)
 from repro_torch.data import lm_batches  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.roofline import HW, model_flops  # noqa: E402
 from repro_torch.launch.train import schedule_for as train_schedule  # noqa: E402,E501
 import repro_torch.models.moe as moe_module  # noqa: E402
 import repro_torch.models.transformer as transformer_module  # noqa: E402
@@ -318,10 +333,8 @@ from repro_torch.tree import (  # noqa: E402
 # the flash op's key split for a few bidirectional queries (None over an
 # older package, timed with --kernels)
 FLASH_SPLIT_KERNEL = getattr(flash_kernel, "FLASH_SPLIT_KERNEL", None)
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
-# FLOP/s, f32 FLOP/s outside the tensor cores
-HBM_BPS = 3.35e12
-BF16_FLOPS = 989e12
+# H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet, dense);
+# the HBM rate and the bf16 tensor peak are roofline.HW's
 F32_FLOPS = 67e12
 BF16_TOL = 2e-2          # bf16 kernel vs plain version (tests/test_kernels.py)
 # attention kernels: BF16_TOL, but the absolute part never above this
@@ -611,7 +624,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound_ms(n_bytes: float, flops: float, peak_flops: float):
-    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_bytes = n_bytes / HW["hbm_bw"] * 1e3
     t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -718,7 +731,7 @@ def phase_decode(cfgs, dev, gen) -> dict:
         q, kp, vp, tables, cl), iters=5)
     lib_ms = paged_sdpa_ms(q, kp, vp, tables, cl)
     bnd, by = bound_ms(*paged_bytes_flops(q, kp.shape[2], tables, cl),
-                       BF16_FLOPS)
+                       HW["peak_flops"])
     print(f"  paged decode {cfg.name}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, SDPA on gathered cache {lib_ms:.4f} ms, bound "
           f"{bnd:.5f} ms ({by})")
@@ -782,7 +795,7 @@ def phase_flash(cfgs, dev, gen) -> dict:
     n_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2 \
         + (pos.numel() + kv_pos.numel()) * 4
     flops = 4.0 * pairs * h * dh
-    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    bnd, by = bound_ms(n_bytes, flops, HW["peak_flops"])
     print(f"  flash prefill {cfg.name} (C=512, S_past=512): kernel {ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
           f"{bnd:.5f} ms ({by})")
@@ -865,7 +878,8 @@ def phase_dense_decode(dev, gen) -> dict:
         q, k, v, cl, window = inputs[name]
         ms = device_ms(lambda: decode_attention_op(q, k, v, cl, window=window))
         lib_ms = dense_decode_sdpa_ms(q, k, v, cl)
-        bnd, by = bound_ms(*dense_decode_bytes_flops(q, k, cl), BF16_FLOPS)
+        bnd, by = bound_ms(*dense_decode_bytes_flops(q, k, cl),
+                           HW["peak_flops"])
         print(f"  dense decode {name}: kernel {ms:.4f} ms, SDPA with a "
               f"boolean mask {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
     q, k, v, cl, _ = inputs["seamless-m4t-medium"]
@@ -874,7 +888,7 @@ def phase_dense_decode(dev, gen) -> dict:
                        iters=5)
     lib_ms = dense_decode_sdpa_ms(q, k, v, cl)
     n_bytes, flops = dense_decode_bytes_flops(q, k, cl)
-    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    bnd, by = bound_ms(n_bytes, flops, HW["peak_flops"])
     print(f"  dense decode seamless-m4t-medium: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, SDPA with a boolean mask {lib_ms:.4f} ms, "
           f"bound {bnd:.5f} ms ({by}; {n_bytes / 1e6:.2f} MB)")
@@ -922,7 +936,7 @@ def phase_flash_noncausal(dev, gen) -> float:
                                   for x in (q, k, v))
                     bnd, by = bound_ms(
                         (2 * q.numel() + k.numel() + v.numel()) * 2,
-                        4.0 * b * s_enc * h * dh, BF16_FLOPS)
+                        4.0 * b * s_enc * h * dh, HW["peak_flops"])
                     lib = (f", SDPA "
                            f"{device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=5):.4f} ms, "
                            f"bound {bnd:.5f} ms ({by})")
@@ -943,7 +957,7 @@ def phase_flash_noncausal(dev, gen) -> float:
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     flops = 4.0 * s_enc * s_enc * h * dh
-    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    bnd, by = bound_ms(n_bytes, flops, HW["peak_flops"])
     print(f"  flash {cfg.name} encoder self-attention (B 1, S {s_enc}): "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
           f"ms, bound {bnd:.5f} ms ({by})")
@@ -1024,8 +1038,9 @@ def phase_ssd(dev, gen) -> dict:
         # are not the function's work)
         pairs = (s // q) * q * (q + 1) / 2
         flops = b * (pairs * 2 * n + h * (pairs * 2 * p + 2 * s * 2 * p * n))
-        bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
-        t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+        bnd, by = bound_ms(n_bytes, flops, HW["peak_flops"])
+        t_bytes = n_bytes / HW["hbm_bw"] * 1e3
+        t_ops = flops / HW["peak_flops"] * 1e3
         print(f"  ssd scan ({arch}, S={s}, H {h}, P {p}, N {n}): kernel "
               f"{ms:.4f} ms, parent's kernel "
               f"{'not built' if parent_ms is None else f'{parent_ms:.4f} ms'}"
@@ -1073,7 +1088,7 @@ def phase_flash_dh128(dev, gen) -> float:
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 \
         + (pos.numel() + kv_pos.numel()) * 4
     bnd, by = bound_ms(n_bytes, 4.0 * float(mask.sum()) * h * dh,
-                       BF16_FLOPS)
+                       HW["peak_flops"])
     print(f"  flash prefill {cfg.name} (C={c}, S_past={s_past}): kernel "
           f"{ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bnd:.5f} ms ({by})")
     return err
@@ -1181,7 +1196,7 @@ def phase_lse(dev, gen) -> dict:
         q, kp, vp, bt, cls), iters=5)
     lib_name, lib_ms = lse_library_ms(q, kp, vp, bt, cls)
     n_bytes, flops = lse_bytes_flops(q, kp.shape[2], bt, cls)
-    bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    bnd, by = bound_ms(n_bytes, flops, HW["peak_flops"])
     print(f"  paged lse {TP_ARCH} stripe 0 of 4 (B 8, 32 pages): kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, "
           f"bound {bnd:.5f} ms ({by}; {n_bytes / 1e6:.2f} MB)")
@@ -1259,7 +1274,8 @@ def hold_paged_shape(cfg, dev, gen, rows: dict, *, plain: bool = False):
                 q, kp, vp, tables, cl))
             lib = paged_sdpa_ms(q, kp, vp, tables, cl)
             bnd, by = bound_ms(*paged_bytes_flops(q, cfg.n_kv_heads,
-                                                  tables, cl), BF16_FLOPS)
+                                                  tables, cl),
+                               HW["peak_flops"])
             pl = ""
             if plain:
                 pms = cuda_ms(lambda: decode_attention_paged_reference(
@@ -1297,7 +1313,7 @@ def hold_flash_shape(cfg, dev, gen, rows: dict, *, plain: bool = False):
             n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 \
                 + (pos.numel() + kv_pos.numel()) * 4
             bnd, by = bound_ms(n_bytes, 4.0 * float(mask.sum()) * h * dh,
-                               BF16_FLOPS)
+                               HW["peak_flops"])
             pl = ""
             if plain:
                 pms = cuda_ms(lambda: attention_reference(q, k, v, pos,
@@ -1340,7 +1356,7 @@ def phase_moe_heads(dev, gen, rows: dict) -> None:
                 q, k, v, cl), iters=5)
             lib = dense_decode_sdpa_ms(q, k, v, cl)
             bnd, by = bound_ms(*dense_decode_bytes_flops(q, k, cl),
-                               BF16_FLOPS)
+                               HW["peak_flops"])
             print(f"  dense decode {cfg.name}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, SDPA with a boolean mask {lib:.4f} "
                   f"ms, bound {bnd:.5f} ms ({by})")
@@ -1387,7 +1403,7 @@ def phase_wide_heads(dev, gen, rows: dict, kernels_only: bool) -> None:
             ms = device_ms(lambda: decode_attention_op(q, k, v, cl))
             lib = dense_decode_sdpa_ms(q, k, v, cl)
             bnd, by = bound_ms(*dense_decode_bytes_flops(q, k, cl),
-                               BF16_FLOPS)
+                               HW["peak_flops"])
             print(f"  dense decode nemotron-4-340b: kernel {ms:.4f} ms, SDPA "
                   f"with a boolean mask {lib:.4f} ms, bound {bnd:.5f} ms "
                   f"({by})")
@@ -1415,7 +1431,7 @@ def phase_wide_heads(dev, gen, rows: dict, kernels_only: bool) -> None:
                     q, kp, vp, bt, cls))
                 lib_name, lib = lse_library_ms(q, kp, vp, bt, cls)
                 bnd, by = bound_ms(*lse_bytes_flops(q, kvh, bt, cls),
-                                   BF16_FLOPS)
+                                   HW["peak_flops"])
                 print(f"  paged lse {cfg.name} stripe 0 of 4: kernel "
                       f"{ms:.4f} ms, {lib_name} {lib:.4f} ms, bound "
                       f"{bnd:.5f} ms ({by})")
@@ -1497,20 +1513,52 @@ def serve(cfg, params, dev, step_mode: str, *, n_slots=8, max_seq_len=2048,
 def graph_report(engine) -> str:
     """The fused keys against their bound, the graphs captured (and the
     host seconds of the keys' first calls: the eager step and its
-    capture), and the host ms of a steady-state decode call (staging,
-    replay or the eager step, copy back, wait; calls after each key's
-    first)."""
+    capture), the host ms of a steady-state decode call (staging, replay
+    or the eager step, copy back, wait; calls after each key's first),
+    and the prefill steps' keys, graphs, first-call seconds and steady
+    host ms."""
     runners = list(engine._fused_runners.values())
     if engine._orchestrated_runner is not None:
         runners.append(engine._orchestrated_runner)
     calls = sum(r.calls - 1 for r in runners)
     ms = sum(r.steady_s for r in runners) * 1e3 / max(calls, 1)
+    pre = engine.prefill_report()
+    pre_steady = pre["calls"] - len(pre["keys"])
     return (f"{'graphs' if engine.graphs else 'eager'}: fused keys "
             f"{engine.fused_compile_count} / max_fused_compiles() "
             f"{engine.max_fused_compiles()}, graphs captured "
             f"{engine.graphs_captured} (first calls and captures "
             f"{engine._step_graphs.first_s:.3f} s), {calls} steady calls "
-            f"at {ms:.3f} host ms")
+            f"at {ms:.3f} host ms; prefill keys "
+            f"{engine.prefill_compile_count}, prefill graphs {pre['graphs']}"
+            f" (first calls and captures {pre['first_s']:.3f} s), "
+            f"{pre_steady} steady prefill calls at "
+            f"{pre['steady_s'] * 1e3 / max(pre_steady, 1):.3f} host ms")
+
+
+def replay_wave(engine, reqs, steps: int = 8) -> tuple[list, dict]:
+    """A third wave on a drive's engine once its two waves are done: the
+    first wave's prompts again (new ids, ``steps`` new tokens each), whose
+    prefill keys the first wave made.  Returns (its requests, the prefill
+    report's growth: new keys and new graphs)."""
+    before = engine.prefill_report()
+    wave = [ServeRequest(f"w2r{i}", r.prompt, list(r.prompt_tokens),
+                         max_new_tokens=steps, temperature=r.temperature,
+                         eos_token=r.eos_token) for i, r in enumerate(reqs[:8])]
+    engine.submit_batch(wave)
+    engine.run_until_done()
+    after = engine.prefill_report()
+    if any(r.state != RequestState.FINISHED for r in wave):
+        raise SystemExit("FAIL replay wave: unfinished requests")
+    return wave, {"keys": len(after["keys"]) - len(before["keys"]),
+                  "graphs": after["graphs"] - before["graphs"]}
+
+
+def wave_ttft(reqs) -> str:
+    """TTFT p50 of each wave of 8 requests."""
+    return ", ".join(
+        f"wave {w} {np.median([r.ttft for r in reqs[8 * w:8 * w + 8]]):.4f} s"
+        for w in range(len(reqs) // 8))
 
 
 def hold_eager(label: str, got, launches, want, want_launches) -> None:
@@ -1564,10 +1612,12 @@ def phase_serve(cfg, dev, params=None) -> tuple[dict, tuple, dict]:
         params = build_model(cfg).init(
             torch.Generator(device=dev).manual_seed(0))
     kernels = path_kernels(cfg)
-    attention = cfg.family in ("dense", "moe", "vlm")
     step_bytes = step_weight_bytes(cfg)
     drives = [("fused", True, 0.0), ("orchestrated", True, 0.0)]
-    if cfg.name in EAGER_HELD:
+    if cfg.name in SERVED:
+        # the prefill steps graphed too: both modes held to eager twins
+        drives += [("fused", False, 0.0), ("orchestrated", False, 0.0)]
+    elif cfg.name in EAGER_HELD:
         drives.append(("fused", False, 0.0))
     if cfg.name in SAMPLED_HELD:
         drives += [("fused", True, SAMPLED_T), ("fused", False, SAMPLED_T)]
@@ -1580,8 +1630,10 @@ def phase_serve(cfg, dev, params=None) -> tuple[dict, tuple, dict]:
         torch.cuda.reset_peak_memory_stats()
         engine, reqs, secs, backend = serve(cfg, params, dev, mode,
                                             graphs=graphs, temperature=temp)
+        replay, grew = replay_wave(engine, reqs)
         launches[label] = {k.symbol: k.launches for k in kernels}
         streams[label] = [r.output_tokens for r in reqs]
+        streams[label + ", replay"] = [r.output_tokens for r in replay]
         m = engine.metrics.summary(reqs)
         gen_tokens = sum(r.generated for r in reqs)
         ttft = np.array([r.ttft for r in reqs])
@@ -1595,9 +1647,21 @@ def phase_serve(cfg, dev, params=None) -> tuple[dict, tuple, dict]:
               f"{m['prefill_chunks']}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
               f"launches {launches[label]}")
+        print(f"    TTFT p50 {wave_ttft(reqs + replay)} (wave 2: wave 0's "
+              f"prompts again, {len(replay[0].output_tokens)} tokens each); "
+              f"wave 2 made {grew['keys']} new prefill keys, captured "
+              f"{grew['graphs']} new prefill graphs (held 0)")
+        if grew["graphs"]:
+            raise SystemExit(f"FAIL serve[{label}]: the replayed wave "
+                             f"captured {grew['graphs']} new prefill graphs")
+        if engine._step_graphs.enabled and engine.prefill_report()[
+                "graphs"] != engine.prefill_compile_count:
+            raise SystemExit(f"FAIL serve[{label}]: prefill keys "
+                             f"{engine.prefill_compile_count}, graphs "
+                             f"{engine.prefill_report()['graphs']}")
         print(f"    {graph_report(engine)}; a decode step's weights "
               f"{step_bytes / 1e9:.3f} GB, byte bound "
-              f"{step_bytes / HBM_BPS * 1e3:.3f} ms")
+              f"{step_bytes / HW['hbm_bw'] * 1e3:.3f} ms")
         if engine._slot_state:
             per = swap_bytes(engine)
             print(f"    recurrent state per swap payload {per / 1e6:.1f} MB; "
@@ -1615,15 +1679,19 @@ def phase_serve(cfg, dev, params=None) -> tuple[dict, tuple, dict]:
         if missing:
             raise SystemExit(f"FAIL serve[{label}]: kernels never launched "
                              f"on the main path: {missing}")
-        if attention:
-            want = tp_launches(cfg, engine, m)
-            if {k: launches[label].get(k, 0) for k in want} != want:
-                raise SystemExit(f"FAIL serve[{label}]: launches "
-                                 f"{launches[label]}, the path calls {want}")
+        # every family: the prefill launches (flash, SSD) included
+        want = tp_launches(cfg, engine, m)
+        if {k: launches[label].get(k, 0) for k in want} != want:
+            raise SystemExit(f"FAIL serve[{label}]: launches "
+                             f"{launches[label]}, the path calls {want}")
+        print(f"    launches as the path calls them (held): {want}")
         if not graphs:
             twin = label.replace("eager", "graphs")
-            hold_eager(f"serve[{label}]", streams[label], launches[label],
-                       streams[twin], launches[twin])
+            hold_eager(f"serve[{label}]",
+                       streams[label] + streams[label + ", replay"],
+                       launches[label],
+                       streams[twin] + streams[twin + ", replay"],
+                       launches[twin])
         del engine
         torch.cuda.empty_cache()
     fused, orch = streams["fused, graphs"], streams["orchestrated, graphs"]
@@ -1678,7 +1746,7 @@ def phase_serve_wide(cfg, params, dev, eager: bool = False) -> dict:
           f"launches {launches}")
     print(f"    {graph_report(engine)}; a decode step's weights "
           f"{step_bytes / 1e9:.3f} GB, byte bound "
-          f"{step_bytes / HBM_BPS * 1e3:.3f} ms")
+          f"{step_bytes / HW['hbm_bw'] * 1e3:.3f} ms")
     if m["preemptions"] == 0 or m["swap_outs"] == 0:
         raise SystemExit(f"FAIL serve {cfg.name}: the scheduler did not "
                          "preempt and swap")
@@ -2715,6 +2783,36 @@ def phase_simulator(dev) -> dict:
     return {GITTINS_KERNEL.symbol: GITTINS_KERNEL.launches}
 
 
+def phase_dryrun() -> None:
+    """Phase 6d: the roofline figures, the serving min-tp ladders at the
+    card's budget and llama3.2-1b's dry-run on meta (see the docstring)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"  roofline.HW {HW}; this card's total_memory {total} "
+          f"({'equal to' if total == HW['hbm_bytes'] else 'NOT'} "
+          f"HW['hbm_bytes'])")
+    t0 = time.perf_counter()
+    dryrun.print_min_tp(dryrun.min_tp_report())
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        rec = dryrun.run_case("llama3.2-1b", shape, False)
+        r, mem = rec["roofline"], rec["memory"]
+        print(f"  dry-run llama3.2-1b {shape} ({rec['mode']}, "
+              f"{rec['n_chips']} devices on meta): FLOPs/device "
+              f"{rec['flops_per_chip']:.4e} (counted "
+              f"{rec['hlo_flops_per_chip']:.4e}, model "
+              f"{rec['model_flops_per_chip']:.4e}), bytes/device "
+              f"{rec['bytes_per_chip']:.4e}, collective floor "
+              f"{rec['collective_bytes_per_chip']:.4e}; compute "
+              f"{r['compute_s']:.4e} s, memory {r['memory_s']:.4e} s, "
+              f"collective {r['collective_s']:.4e} s, dominant "
+              f"{r['dominant']}; arguments {mem['argument_bytes'] / 2**30:.3f}"
+              f" GiB, temp (upper bound) {mem['temp_bytes'] / 2**30:.3f} GiB,"
+              f" pass {rec['compile_s']} s")
+        if rec["flops_per_chip"] < rec["model_flops_per_chip"]:
+            raise SystemExit(f"FAIL dry-run {shape}: FLOPs/device under the "
+                             "model's")
+    print(f"  phase 6d took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_trace(cfg, dev) -> None:
     """Device busy share of a graphed and an eager fused serve drive, each
     from a torch.profiler trace of the card's activity, and the largest
@@ -2920,7 +3018,7 @@ def phase_train_kernels(dev, gen) -> dict:
                 ms = times["kernel"]
                 bnd, by = bound_ms(*bwd_bytes_flops(q, k, pos, kv_pos,
                                                     causal, window),
-                                   BF16_FLOPS)
+                                   HW["peak_flops"])
                 text = (f"  flash backward {label}: kernel {ms:.4f} ms "
                         f"(deterministic), {versus_parent(times)}, bound "
                         f"{bnd:.5f} ms ({by})")
@@ -3060,7 +3158,7 @@ def phase_train_ssd_kernels(dev, gen) -> dict:
                                             q))
         ms = times["kernel"]
         bnd, by = bound_ms(*ssd_bwd_bytes_flops(xd, bd, init, with_ds, q),
-                           BF16_FLOPS)
+                           HW["peak_flops"])
         text = (f"  ssd backward {label} ({shape}): kernel {ms:.4f} ms "
                 f"(deterministic), {versus_parent(times)}, bound "
                 f"{bnd:.5f} ms ({by}), no library call")
@@ -3087,7 +3185,8 @@ def phase_train_ssd_kernels(dev, gen) -> dict:
         ms = times["kernel"]
         fwd = device_ms(lambda: ssd_scan(x, dt, a, bm, cm), iters=5)
         bnd, by = bound_ms(*ssd_bwd_bytes_flops(x, bm, False, False,
-                                                cfg.ssm_chunk), BF16_FLOPS)
+                                                cfg.ssm_chunk),
+                           HW["peak_flops"])
         print(f"  ssd backward {arch} training shape (B 8, S 1024): kernel "
               f"{ms:.4f} ms, {versus_parent(times)}, bound {bnd:.5f} ms "
               f"({by}); the forward {fwd:.4f} ms")
@@ -3143,6 +3242,16 @@ def hold_train_counts(label, cfg, microbatches: int) -> dict:
 def train_batches(cfg, dev, batch, seq, seed=0):
     for b in lm_batches(cfg.vocab_size, batch, seq, seed=seed):
         yield {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def flop_share(cfg, batch: int, seq: int, step_s: float) -> str:
+    """A training drive's model-FLOP share: ``roofline.model_flops`` (6 N
+    T, N the active parameters) per second over HW["peak_flops"]."""
+    mf = model_flops(cfg, InputShape("drive", seq, batch, "train"), 1)
+    return (f"model-FLOP share {mf / step_s / HW['peak_flops'] * 100:.2f}% "
+            f"(roofline.model_flops {mf / 1e12:.3f} T a step over "
+            f"{step_s:.4f} s, of HW peak_flops "
+            f"{HW['peak_flops'] / 1e12:g} TFLOP/s)")
 
 
 def train_drive(label, cfg, params, dev, *, steps, batch, seq, lr):
@@ -3295,7 +3404,7 @@ def phase_train(dev) -> dict:
     against the CPU's (``grad_check``), then TRAIN's steps at
     B x S, the loss finite and falling by TRAIN["min_drop"], exact flash
     launches, s/step, tokens/s, peak GiB and the model-FLOP share of
-    BF16_FLOPS printed, then the params and state round-tripped through
+    HW["peak_flops"] printed, then the params and state round-tripped through
     save_checkpoint / load_checkpoint bit for bit; (c), (d) TRAIN_WIDE at
     full width cut to 2 layers, each at its learning rate: qwen2-1.5b (qkv
     biases, dh 128) and its grad accumulation 2 against 1, olmoe-1b-7b
@@ -3342,8 +3451,9 @@ def phase_train(dev) -> dict:
           f"step {times[0]:.3f} s, then {step_s:.4f} s/step (median), "
           f"{b * s / step_s:.1f} tokens/s, peak {peak:.3f} GiB; model "
           f"FLOPs a step 6 N T + 6 L B H dh S^2 = {flops / 1e12:.2f} T, "
-          f"{flops / step_s / BF16_FLOPS * 100:.2f}% of {BF16_FLOPS / 1e12:g} "
-          f"TFLOP/s")
+          f"{flops / step_s / HW['peak_flops'] * 100:.2f}% of "
+          f"{HW['peak_flops'] / 1e12:g} TFLOP/s")
+    print(f"  {cfg.name}: {flop_share(cfg, b, s, step_s)}")
     CKPT_PATH.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     save_checkpoint(str(CKPT_PATH), params, state, step=steps)
@@ -3372,10 +3482,13 @@ def phase_train(dev) -> dict:
         if wcfg.family == "moe":
             add(grad_check(wcfg, params, dev))
         # train_drive returns new tensors: params stays the initial weights
-        _, _, losses, auxes, _, launches = train_drive(
+        _, _, losses, auxes, times, launches = train_drive(
             wcfg.name, wcfg, params, dev, steps=wsteps, batch=b, seq=s,
             lr=wlr)
         add(launches)
+        step_s = float(np.median(times[1:]))
+        print(f"  {wcfg.name}: {step_s:.4f} s/step (median), "
+              f"{flop_share(wcfg, b, s, step_s)}")
         if not losses[-1] < losses[0]:
             raise SystemExit(f"FAIL {wcfg.name} training: the loss did not "
                              f"fall ({losses})")
@@ -3432,8 +3545,10 @@ def phase_train(dev) -> dict:
               f"(median), {rb * rs / step_s:.1f} tokens/s, peak {peak:.3f} "
               f"GiB; model FLOPs a step 6 N T"
               f"{' + 6 G B H dh S^2' if groups else ''} = "
-              f"{flops / 1e12:.2f} T, {flops / step_s / BF16_FLOPS * 100:.2f}"
-              f"% of {BF16_FLOPS / 1e12:g} TFLOP/s")
+              f"{flops / 1e12:.2f} T, "
+              f"{flops / step_s / HW['peak_flops'] * 100:.2f}% of "
+              f"{HW['peak_flops'] / 1e12:g} TFLOP/s")
+        print(f"  {rcfg.name}: {flop_share(rcfg, rb, rs, step_s)}")
         del params
         torch.cuda.empty_cache()
     return total
@@ -3493,7 +3608,10 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda}")
     print(smi.splitlines()[0])
 
-    t0 = time.perf_counter()
+    t0 = start = time.perf_counter()
+
+    def stamp(done: str) -> None:
+        print(f"  [{done} done at {time.perf_counter() - start:.1f} s]")
     parent_builds = [BuildThread(target=f) for f in
                      (build_parent_ssd, build_parent_gittins,
                       build_parent_flash_bwd)]
@@ -3542,6 +3660,7 @@ def main() -> int:
     rows.append(phase_lse(dev, gen))
     phase_wide_heads(dev, gen, {r["name"]: r for r in rows}, kernels_only)
     phase_moe_heads(dev, gen, {r["name"]: r for r in rows})
+    stamp("phase 3")
     if kernels_only:
         print("phase 6: gittins kernel (no serve drive: main-path shape "
               "taken as (8, 8))")
@@ -3579,6 +3698,7 @@ def main() -> int:
                 launches[sym] = launches.get(sym, 0) + n
         del params
         torch.cuda.empty_cache()
+        stamp(f"phase 4 ({arch})")
     shared = {}   # nemotron's weights, for its phase-5 drive too
     for arch, cut in WIDE:
         cfg = get_config(arch).with_overrides(**cut)
@@ -3601,6 +3721,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     for sym, n in phase_serve_tp(dev).items():
         launches[sym] = launches.get(sym, 0) + n
+    stamp("phase 4b")
     cfg = get_config(FRONT_ARCH)
     print(f"phase 4c: the front door, {cfg.name} at full width "
           f"({cfg.n_layers} layers) behind the Gateway with prefix sharing")
@@ -3620,7 +3741,9 @@ def main() -> int:
                                      **kw).items():
             launches[sym] = launches.get(sym, 0) + n
         torch.cuda.empty_cache()
+    stamp("phase 5")
     got, shp = phase_moe(dev)
+    stamp("phase 4d")
     for sym, n in got.items():
         launches[sym] = launches.get(sym, 0) + n
     if shp[0] * shp[1] > shape[0] * shape[1]:
@@ -3632,6 +3755,7 @@ def main() -> int:
     for sym, n in phase_simulator(dev).items():
         launches[sym] = launches.get(sym, 0) + n
     print(f"  phase 6b took {time.perf_counter() - t6b:.1f} s")
+    stamp("phase 6b")
     print("phase 6c (a): the flash backward kernel vs its plain version")
     t6c = time.perf_counter()
     rows.append(phase_train_kernels(dev, gen))
@@ -3640,6 +3764,10 @@ def main() -> int:
     for sym, n in phase_train(dev).items():
         launches[sym] = launches.get(sym, 0) + n
     print(f"  phase 6c took {time.perf_counter() - t6c:.1f} s")
+    print("phase 6d: the dry-run and the roofline on H100 peaks (meta "
+          "device)")
+    phase_dryrun()
+    stamp("phase 6d")
     symbols = {"gittins_attained": GITTINS_KERNEL.symbol,
                "decode_attention_paged": PAGED_DECODE_KERNEL.symbol,
                "flash_attention_prefill": FLASH_PREFILL_KERNEL.symbol,

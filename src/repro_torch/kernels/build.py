@@ -15,6 +15,10 @@ path arithmetic, so the CPU tests can import every module.
 ``launches_withheld`` takes back the launches counted while a CUDA graph
 is captured (a capture launches nothing), so that whoever replays the
 graph can add them at each replay.
+
+``shape_pass`` is the dry-run's switch: inside it the kernel ops take
+their plain versions on meta tensors, for shapes (``plain_here``);
+outside it a meta tensor is refused as any device without a kernel is.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "CudaKernel", "build_all", "build",
-           "launches_withheld"]
+           "launches_withheld", "shape_pass", "plain_here"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -157,3 +161,25 @@ def launches_withheld():
             if k.launches != n0:
                 counted[k] = k.launches - n0
             k.launches = n0
+
+
+_shape_pass = threading.local()
+
+
+@contextlib.contextmanager
+def shape_pass():
+    """Inside, the kernel ops run their plain versions on meta tensors
+    (the dry-run's shape pass, ``launch.dryrun``)."""
+    prev = getattr(_shape_pass, "on", False)
+    _shape_pass.on = True
+    try:
+        yield
+    finally:
+        _shape_pass.on = prev
+
+
+def plain_here(device) -> bool:
+    """Whether a kernel op on ``device`` runs its plain version: on the
+    CPU, and on meta inside ``shape_pass``."""
+    return device.type == "cpu" or (device.type == "meta" and getattr(
+        _shape_pass, "on", False))

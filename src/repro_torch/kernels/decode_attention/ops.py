@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..bucketing import pow2_bucket
+from ..build import plain_here
 from ..grad_guard import refuse_backward
 from .kernel import DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL
 from .ref import (decode_attention_dense_reference,
@@ -168,7 +169,7 @@ def decode_attention_paged_op(q, k_pool, v_pool, block_tables, cache_len, *,
     block_tables = _pad_tables(block_tables)
     pb = block_tables.shape[1]
     dev = q.device
-    if dev.type == "cpu":
+    if plain_here(dev):
         return decode_attention_paged_reference(
             q, k_pool, v_pool, block_tables, cache_len, window=window)
     if dev.type != "cuda":
@@ -211,7 +212,7 @@ def decode_attention_paged_lse_op(q, k_pool, v_pool, block_tables,
     refuse_backward("decode_attention_paged_lse", q, k_pool, v_pool)
     block_tables = _pad_tables(block_tables)
     dev = q.device
-    if dev.type == "cpu":
+    if plain_here(dev):
         return decode_attention_paged_lse_reference(
             q, k_pool, v_pool, block_tables, cache_len, window=window)
     if dev.type != "cuda":
@@ -283,7 +284,7 @@ def decode_attention_op(q, k_cache, v_cache, cache_len, *,
     signature."""
     refuse_backward("decode_attention", q, k_cache, v_cache)
     dev = q.device
-    if dev.type == "cpu":
+    if plain_here(dev):
         return decode_attention_dense_reference(q, k_cache, v_cache,
                                                 cache_len, window=window)
     if dev.type != "cuda":

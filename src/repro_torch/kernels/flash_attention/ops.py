@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..build import plain_here
 from ..decode_attention.ops import SPLIT_UNITS, split_kv_sub_splits
 from .kernel import (FLASH_BACKWARD_KERNEL, FLASH_PREFILL_KERNEL,
                      FLASH_PREFILL_LSE_KERNEL, FLASH_SPLIT_KERNEL)
@@ -118,7 +119,7 @@ def flash_attention(q, k, v, positions, kv_positions, *, causal: bool = True,
         return FlashAttentionFunction.apply(q, k, v, positions, kv_positions,
                                             causal, window)
     dev = q.device
-    if dev.type == "cpu":
+    if plain_here(dev):
         return attention_reference(q, k, v, positions, kv_positions,
                                    causal=causal, window=window)
     if dev.type != "cuda":
@@ -162,7 +163,7 @@ def flash_attention_lse(q, k, v, positions, kv_positions, *,
     key split), whose ``out`` is bit-identical to the serving instance's;
     on the CPU ``attention_reference(return_lse=True)``."""
     dev = q.device
-    if dev.type == "cpu":
+    if plain_here(dev):
         return attention_reference(q, k, v, positions, kv_positions,
                                    causal=causal, window=window,
                                    return_lse=True)
@@ -190,7 +191,7 @@ def flash_attention_backward(q, k, v, positions, kv_positions, out, lse,
     (bf16 in and out, f32 accumulators; deterministic: no atomics), on the
     CPU ``attention_backward_reference``."""
     dev = q.device
-    if dev.type == "cpu":
+    if plain_here(dev):
         return attention_backward_reference(q, k, v, positions, kv_positions,
                                             out, lse, dout, causal=causal,
                                             window=window)

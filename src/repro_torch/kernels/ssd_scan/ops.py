@@ -17,8 +17,10 @@ tensor cores, their scratch allocated here, counted as one), which
 recomputes the chunk states in f32 rather than keeping the forward's.
 The padding and the cut stay outside the Function, so autograd takes
 their gradients.  On the CPU the same Function runs the plain versions
-(``ssd_chunked_reference``, ``ssd_backward_reference``).  A build or
-launch error raises; nothing falls back.
+(``ssd_chunked_reference``, ``ssd_backward_reference``).  On the meta
+device inside ``build.shape_pass`` (the dry-run) the scan is
+``ssd_chunked_batched_reference``, differentiated by autograd.  A build
+or launch error raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..build import plain_here
 from .kernel import SSD_BACKWARD_KERNEL, SSD_SCAN_KERNEL
-from .ref import ssd_backward_reference, ssd_chunked_reference
+from .ref import (ssd_backward_reference, ssd_chunked_batched_reference,
+                  ssd_chunked_reference)
 
 __all__ = ["ssd_scan", "ssd_scan_backward", "SSDScanFunction",
            "SSD_SCAN_KERNEL", "SSD_BACKWARD_KERNEL"]
@@ -93,6 +97,9 @@ def ssd_scan(x, dt, a_decay, bmat, cmat, init_state=None, *,
     goes through ``SSDScanFunction`` (the backward kernel on the card)."""
     s = x.shape[1]
     q = min(chunk, s)
+    if x.device.type == "meta" and plain_here(x.device):
+        return ssd_chunked_batched_reference(x, dt, a_decay, bmat, cmat,
+                                             init_state, chunk=q)
     ts = _whole_chunks(q, x, dt, a_decay, bmat, cmat) + (init_state,)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in ts):

@@ -4,6 +4,10 @@ tests, and held against the CUDA kernel on the card.
 ``ssd_chunked_reference`` is the torch form of
 ``repro/models/ssm.py::ssd_chunked`` (chunked state-space duality: a
 quadratic intra-chunk term plus a carried (H, P, N) state).
+``ssd_chunked_batched_reference`` is the same arithmetic with every
+chunk's own terms computed at once and only the carried state stepped
+chunk by chunk: the plain version the dry-run's shape pass takes on the
+meta device, where each op costs the same whatever its size.
 ``ssd_sequential_reference`` is the step-by-step recurrence of
 ``repro/kernels/ssd_scan/ref.py``, deliberately another algorithm, so
 that agreement checks the math and not a transcription.
@@ -22,7 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ssd_chunked_reference", "ssd_sequential_reference",
+__all__ = ["ssd_chunked_reference", "ssd_chunked_batched_reference",
+           "ssd_sequential_reference",
            "ssd_passes_reference", "ssd_backward_reference",
            "ssd_backward_passes_reference"]
 
@@ -81,6 +86,56 @@ def ssd_chunked_reference(x, dt, a_decay, bmat, cmat, init_state=None,
         state = state * total[:, :, None, None] + dstate
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(b, n_chunks * q, h, p)[:, :s]
+    return y.to(x.dtype), state
+
+
+def ssd_chunked_batched_reference(x, dt, a_decay, bmat, cmat,
+                                  init_state=None, chunk: int = 256):
+    """``ssd_chunked_reference`` with the chunk loop taken out of
+    everything but the carried state: the same inputs, outputs and terms,
+    each chunk's (B, q, q, H) decay matrix, scores, own state and y terms
+    computed for all chunks in one op each."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        a_decay = F.pad(a_decay, (0, 0, 0, pad), value=1.0)
+        bmat = F.pad(bmat, (0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, pad))
+
+    def chunkify(t):                    # (B, n_chunks, q, ...)
+        return t.reshape(b, nc, q, *t.shape[2:])
+
+    xc, dtc, ac = chunkify(x), chunkify(dt), chunkify(a_decay)
+    bc, cc = chunkify(bmat).float(), chunkify(cmat).float()
+    la = torch.log(torch.clamp(ac.float(), min=1e-20))           # (B,c,q,H)
+    cum = torch.cumsum(la, dim=2)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B,c,q,q,H)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                   device=x.device))
+    lmat = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                                 torch.full((), -torch.inf,
+                                            device=x.device)))
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    w = scores[..., None] * lmat
+    xdt = xc.float() * dtc.float()[..., None]                    # (B,c,q,H,P)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xdt)
+    decay_out = torch.exp(cum[:, :, -1:, :] - cum)
+    own = torch.einsum("bcjn,bcjhp,bcjh->bchpn", bc, xdt, decay_out)
+    total = torch.exp(cum[:, :, -1, :])                          # (B,c,H)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) \
+        if init_state is None else init_state.float()
+    carried = []
+    for ci in range(nc):
+        carried.append(state)
+        state = state * total[:, ci, :, None, None] + own[:, ci]
+    y_inter = torch.einsum("bcin,bchpn,bcih->bcihp", cc,
+                           torch.stack(carried, dim=1), torch.exp(cum))
+    y = (y_intra + y_inter).reshape(b, nc * q, h, p)[:, :s]
     return y.to(x.dtype), state
 
 

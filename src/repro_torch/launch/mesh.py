@@ -1,5 +1,6 @@
-"""The device mesh of tensor-parallel serving (the port of
-``repro.launch.mesh.make_local_mesh``).
+"""Device meshes (the port of ``repro.launch.mesh``): the local mesh of
+tensor-parallel serving and training, and the production meshes of the
+dry-run.
 
 The port's serving plan is single-controller, as the reference's is: one
 host loop, one scheduler and one KV manager drive every shard, and the
@@ -11,19 +12,21 @@ lists that device several times: the counterpart of the reference's
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_local_mesh"]
+__all__ = ["Mesh", "make_production_mesh", "make_local_mesh"]
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """A (data, model) grid of torch devices."""
+    """A grid of torch devices, one axis per name: (data, model), or
+    (pod, data, model) for the multi-pod production mesh."""
 
-    devices: np.ndarray             # (data, model) object array
+    devices: np.ndarray             # object array, one dim per axis name
     axis_names: tuple = ("data", "model")
 
     @property
@@ -33,6 +36,23 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes, for arithmetic and shape passes
+    only: (data 16, model 16) = 256 devices, or (pod 2, data 16, model 16)
+    = 512 with ``multi_pod``.  Every entry is ``torch.device("meta")``, so
+    nothing can be placed on it and no card is touched.
+
+    On H100s a 16-wide model axis spans two 8-card NVLink nodes; the
+    dry-run still prices every collective at NVLink bandwidth
+    (``roofline.HW["link_bw"]``), so its collective term is optimistic for
+    this axis.  That is a stated limit of the dry-run."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    grid = np.empty(math.prod(shape), dtype=object)
+    grid[:] = [torch.device("meta")] * grid.size
+    return Mesh(grid.reshape(shape), axes)
 
 
 def _normalize(device) -> torch.device:

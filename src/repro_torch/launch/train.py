@@ -1,14 +1,13 @@
 """Training launcher of the port: the train loop of ``repro.launch.train``
-on one device, the card by default (``--device cpu`` for a reduced run on
-the CPU).  The same flags as the reference's plus ``--device``, the same
-warmup and schedule, and the same progress lines.  On the card the
-attention's gradients come from the hand-written flash backward kernel;
-the layers run under ``cfg.remat``.
-
-The reference places the parameters on its local mesh by the training
-rule set (``rules_for(cfg, "train", mesh)``); the port trains on one
-device only: the training rule sets wait for ROADMAP Queue A 11 and
-training across cards for Queue A 15 (NCCL processes).
+on the local mesh of one device, the card by default (``--device cpu`` for
+a reduced run on the CPU).  The same flags as the reference's plus
+``--device``, the same warmup and schedule, and the same progress lines.
+The parameters are placed by the training rule set (``rules_for(cfg,
+"train", mesh)``) as the reference places them; on the 1x1 mesh that is
+the one device, and a mesh axis wider than 1 raises (training across
+cards is ROADMAP Queue A 15).  On the card the attention's gradients come
+from the hand-written flash backward kernel; the layers run under
+``cfg.remat``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --full --steps 20 --batch 8 --seq 512
@@ -25,8 +24,11 @@ import torch
 from ..configs import ARCH_IDS, get_config
 from ..data import lm_batches
 from ..models import build_model
+from ..sharding import named_shardings, resolve_specs, rules_for
+from ..tree import tree_map
 from ..training import (AdamW, make_lr_schedule, make_train_step,
                         save_checkpoint)
+from .mesh import make_local_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,12 +50,30 @@ def schedule_for(steps: int):
     return make_lr_schedule(warmup=max(2, steps // 10), total=steps)
 
 
+def place_params(params, shardings):
+    """``params`` on the devices of their ``NamedSharding`` leaves: every
+    leaf whole on the mesh's one device.  A spec naming a mesh axis wider
+    than 1 raises: cutting a parameter over cards is Queue A 15."""
+    def put(p, sh):
+        wide = sh.wide()
+        if wide:
+            raise NotImplementedError(
+                f"parameter spec {sh.spec} names mesh axes of size > 1 "
+                f"({wide}): training across cards is ROADMAP Queue A 15")
+        return p.to(sh.devices.flat[0])
+    return tree_map(put, params, shardings)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     dev = torch.device(args.device)
     cfg = get_config(args.arch, reduced=not args.full)
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    mesh = make_local_mesh(devices=[dev])
+    shardings = named_shardings(mesh, resolve_specs(
+        model.param_specs(), rules_for(cfg, "train", mesh)))
+    params = place_params(
+        model.init(torch.Generator(device=dev).manual_seed(0)), shardings)
     opt = AdamW(learning_rate=args.lr, moment_dtype=cfg.moment_dtype)
     state = opt.init(params)
     step_fn = make_train_step(model, opt, schedule_for(args.steps))

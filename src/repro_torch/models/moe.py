@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..sharding.context import constrain_expert_buf
 from .layers import ParamSpec, mlp, mlp_template
 
 __all__ = ["moe_template", "moe_ffn", "moe_route", "moe_combine",
@@ -143,8 +144,9 @@ def moe_ffn(params, x, cfg, *, decode: bool = False):
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     buf, row, w, aux = moe_route(params, xf, cfg, decode=decode)
-    out_buf = expert_mlp(params, buf, cfg.activation,
-                         expert_group(cfg.n_experts))
+    buf, = constrain_expert_buf(buf)
+    out_buf, = constrain_expert_buf(expert_mlp(
+        params, buf, cfg.activation, expert_group(cfg.n_experts)))
     out = moe_combine(out_buf, row, w, B * S, cfg.experts_per_token)
     if cfg.n_shared_experts > 0:
         out = out + mlp(params["shared"], xf, cfg.activation)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.ssd_scan.ops import ssd_scan
+from ..sharding.context import constrain_inner, constrain_ssm_state
 from .layers import ParamSpec
 
 __all__ = ["ssm_template", "ssd_chunked", "ssd_decode_step", "mamba2_block",
@@ -148,16 +149,17 @@ def mamba2_heads(params, u, cfg, bmat, cmat, dt, a_decay, d_skip,
     shard's partial sum, new_state {"ssd", "conv"})."""
     b, s, _ = u.shape
     p = cfg.ssm_head_dim
-    xin = u @ params["in_proj_x"]                              # (B,S,DI)
-    z = u @ params["in_proj_z"]
+    xin = constrain_inner(u @ params["in_proj_x"])             # (B,S,DI)
+    z = constrain_inner(u @ params["in_proj_z"])
     conv_tail = None if state is None else state["conv"]
     xc, new_tail = _causal_conv(xin, params["conv_w"], conv_tail,
                                 lengths=lengths)
     xc = _silu(xc)
     x_heads = xc.reshape(b, s, -1, p)
-    init = None if state is None else state["ssd"]
+    init = None if state is None else constrain_ssm_state(state["ssd"])
     y, final = ssd_chunked(x_heads, dt, a_decay, bmat, cmat,
                            init_state=init, chunk=cfg.ssm_chunk)
+    final = constrain_ssm_state(final)
     y = y + x_heads * d_skip[None, None, :, None].to(y.dtype)
     y = y.reshape(b, s, -1) * _silu(z)
     out = y @ params["out_proj"]

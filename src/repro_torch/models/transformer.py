@@ -26,8 +26,9 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.context import (attn_split_count, constrain_attn_split,
-                                constrain_expert_buf, constrain_kv_heads,
+from ..sharding.context import (attn_split_count, constrain_activations,
+                                constrain_attn_split, constrain_expert_buf,
+                                constrain_heads, constrain_kv_heads,
                                 constrain_q_heads, gather_model,
                                 serving_plan)
 from .attention import decode_attention, decode_attention_paged, \
@@ -176,18 +177,21 @@ def remat_call(remat: bool, fn, *args):
 
 def _dense_block_seq(cfg, lp, h, positions, window):
     """One attention + FFN block over a sequence; returns (h, k, v, aux)
-    (aux None for an MLP block)."""
+    (aux None for an MLP block).  The training hooks of
+    ``sharding.context`` run where the reference's do."""
+    h = constrain_activations(h)
     q, k, v = _qkv(cfg, lp["attn"], rms_norm(lp["ln1"], h, cfg.norm_eps),
                    positions)
-    o = gqa_attention(q, k, v, causal=True, window=window,
+    o = gqa_attention(constrain_heads(q), k, v, causal=True, window=window,
                       positions=positions)
-    h = h + _wo_proj(lp["attn"], o)
+    h = h + _wo_proj(lp["attn"], constrain_heads(o))
     f, aux = _ffn(cfg, lp, rms_norm(lp["ln2"], h, cfg.norm_eps),
                   decode=False)
     return h + f, k, v, aux
 
 
 def _ssm_block_seq(cfg, lp, h, lengths):
+    h = constrain_activations(h)
     out, state = mamba2_block(lp["ssm"], rms_norm(lp["ln"], h, cfg.norm_eps),
                               cfg, None, lengths=lengths)
     return h + out, state
@@ -521,6 +525,7 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, tokens, past_k, past_v,
     window = _window(cfg)
     ks, vs = [], []
     for i, lp in enumerate(_attn_layers(cfg, params)):
+        h = constrain_activations(h)
         q, k, v = _qkv(cfg, lp["attn"],
                        rms_norm(lp["ln1"], h, cfg.norm_eps), positions)
         kf = torch.cat([past_k[i].to(k.dtype), k], dim=1)

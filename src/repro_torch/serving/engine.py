@@ -28,16 +28,23 @@ length / EOS bookkeeping stay on the device, and the host gets one
 ``step_mode="orchestrated"`` ships logits to the host every token and
 samples with numpy, as the reference's parity oracle does.
 
-On the card both decode steps run as CUDA graphs (``serving.step_graphs``),
-as the reference runs them as jitted XLA programs: one graph per shape key,
-(lane bucket, table bucket, ``decode_steps``, all-greedy) for the fused
-step and (``n_slots``, pages a slot) for the orchestrated one, each
-captured after its key's first, eager call.  ``fused_compile_count`` counts
-the fused keys and ``max_fused_compiles()`` bounds them, as the
-reference's jit cache.  ``graphs=False`` runs the same steps eagerly, the
-counterpart of the reference under ``jax.disable_jit()``; on a CPU device
-there are no graphs.  Prefill, swaps, ``Model.decode_step`` and the
-scheduler's Gittins refresh stay outside the graphs.
+On the card both decode steps and both prefill steps run as CUDA graphs
+(``serving.step_graphs``), as the reference runs them as jitted XLA
+programs: one graph per shape key, (lane bucket, table bucket,
+``decode_steps``, all-greedy) for the fused step, (``n_slots``, pages a
+slot) for the orchestrated one, (chunk bucket, prefix bucket) for a
+prefill chunk and the pow2 bucket of the context for the recurrent
+families' whole prefill, each captured after its key's first, eager call.
+The prefill graphs hold the prefix gather, the model's chunk or forward
+and the scatter into the pool (and, for the recurrent families, the write
+of the slot's state); the chunk's tokens, its start, the slot and the pool
+indices are graph inputs.  ``fused_compile_count`` and
+``prefill_compile_count`` count the keys, as the reference's jit caches;
+``max_fused_compiles()`` bounds the fused ones.  ``graphs=False`` runs the
+same steps eagerly, the counterpart of the reference under
+``jax.disable_jit()``; on a CPU device there are no graphs.  Swaps,
+``Model.decode_step`` and the scheduler's Gittins refresh stay outside the
+graphs.
 
 KV memory is a paged pool: (L, n_pages, page, KV, dh) bf16 tensors shared
 by the batch (G group layers for the hybrid), a per-slot block table
@@ -264,6 +271,8 @@ class ServingEngine:
         self._step_graphs = StepGraphs(self.device, self.graphs)
         self._fused_runners: dict[tuple, StepRunner] = {}
         self._orchestrated_runner: StepRunner | None = None
+        # ("chunk", cpad, past_pad) and ("atomic", spad) prefill keys
+        self._prefill_runners: dict[tuple, StepRunner] = {}
 
     def _preflight_memory(self) -> None:
         """Refuse to build an engine that cannot fit one shard on one
@@ -642,59 +651,94 @@ class ServingEngine:
         if self._sharing:
             self.kv.register_prefix(r.request_id, r.prompt_tokens)
 
+    def _prefill_runner(self, key: tuple, inputs: dict) -> StepRunner:
+        runner = self._prefill_runners.get(key)
+        if runner is None:
+            runner = self._prefill_runners[key] = StepRunner(
+                self._step_graphs, inputs)
+        return runner
+
     def _prefill_chunk_step(self, r: ServeRequest, take: int) -> None:
         """Advance one Sarathi chunk: run [prefill_pos, prefill_pos+take)
-        against the pool-resident prefix, scatter the chunk's KV."""
+        against the pool-resident prefix, scatter the chunk's KV.  One
+        runner per (chunk bucket, prefix bucket), the reference's jit key;
+        the start rides as a device scalar, so one graph serves every
+        start of its key."""
         ctx = r.prompt_tokens + r.output_tokens
         s0, s1 = r.prefill_pos, r.prefill_pos + take
         cpad = _pad_len(take)
+        past_pad = _pad_len(s0) if s0 else 0   # no prefix: an empty gather
         toks = np.zeros((1, cpad), np.int64)
         toks[0, :take] = ctx[s0:s1]
-        # no prefix yet: an empty gather, (L, 1, 0, KV, dh)
-        idx = self._to_dev(self._phys_positions(
-            r, 0, s0, _pad_len(s0) if s0 else 0))
-        past_k, past_v = self._gather(idx)
-        with self._ctx():
-            k_c, v_c = self.model.prefill_chunk(
-                self.params, self._to_dev(toks), past_k, past_v, s0)
-        self._scatter(k_c, v_c,
-                      self._to_dev(self._phys_positions(r, s0, s1, cpad)))
+        runner = self._prefill_runner(("chunk", cpad, past_pad), {
+            "tokens": ((1, cpad), torch.int64),
+            "past": ((past_pad,), torch.int64),
+            "out": ((cpad,), torch.int64),
+            "start": ((), torch.int64)})
+        runner(self._chunk_body, tokens=toks,
+               past=self._phys_positions(r, 0, s0, past_pad),
+               out=self._phys_positions(r, s0, s1, cpad),
+               start=np.asarray(s0))
         r.prefill_pos = s1
         self.metrics.prefill_chunks += 1
         self.metrics.prefill_tokens += take  # tokens actually computed
         if s1 >= len(ctx):
             self._finalize_prefill(r, ctx)
 
+    def _chunk_body(self, x: dict) -> None:
+        """A prefill chunk on its runner's static inputs: the prefix
+        gather, the chunk and the scatter of its KV into the pool."""
+        past_k, past_v = self._gather(x["past"])
+        with self._ctx():
+            k_c, v_c = self.model.prefill_chunk(
+                self.params, x["tokens"], past_k, past_v, x["start"])
+        self._scatter(k_c, v_c, x["out"])
+
     def _prefill_atomic(self, r: ServeRequest) -> None:
         """Whole-context prefill for the recurrent families (their state
-        cannot replay a chunk), padded to a pow2 bucket.  The true length
-        rides along as ``lengths``, which gives the pad positions dt = 0,
-        so the state equals an unpadded run's.  The slot's recurrent state
-        is written in place; the hybrid's KV is scattered into the pool for
-        valid positions only (pad positions land in scratch)."""
+        cannot replay a chunk), padded to a pow2 bucket, one runner per
+        bucket.  The true length rides along as ``lengths``, which gives
+        the pad positions dt = 0, so the state equals an unpadded run's.
+        The slot's recurrent state is written in place; the hybrid's KV is
+        scattered into the pool for valid positions only (pad positions
+        land in scratch)."""
         ctx = r.prompt_tokens + r.output_tokens
         n = len(ctx)
         spad = _pad_len(n, quantum=32)
         toks = np.zeros((1, spad), np.int64)
         toks[0, :n] = ctx
-        with self._ctx():
-            _, cache = self.model.prefill(
-                self.params, {"tokens": self._to_dev(toks),
-                              "lengths": self._to_dev(np.asarray([n]))})
+        inputs = {"tokens": ((1, spad), torch.int64),
+                  "lengths": ((1,), torch.int64),
+                  "slot": ((), torch.int64)}
+        arrays = {"tokens": toks, "lengths": np.asarray([n]),
+                  "slot": np.asarray(r.slot)}
         if self._has_kv:
-            self._scatter(cache["k"], cache["v"], self._to_dev(
-                self._phys_positions(r, 0, n, spad)))
-        if self._sharded:
-            # the full-head state, each shard taking its heads
-            self.plan.write_state(self._cache, r.slot, {
-                name: t[:, 0] for name, t in cache["ssm"].items()})
-        else:
-            for name, t in self._cache["ssm"].items():
-                t[:, r.slot] = cache["ssm"][name][:, 0].to(t.dtype)
+            inputs["phys"] = ((spad,), torch.int64)
+            arrays["phys"] = self._phys_positions(r, 0, n, spad)
+        self._prefill_runner(("atomic", spad), inputs)(self._atomic_body,
+                                                       **arrays)
         r.prefill_pos = n
         self.metrics.prefill_chunks += 1
         self.metrics.prefill_tokens += n
         self._finalize_prefill(r, ctx)
+
+    def _atomic_body(self, x: dict) -> None:
+        """The recurrent families' prefill on its runner's static inputs:
+        the forward, the hybrid's KV scatter and the write of the slot's
+        state (the slot a device scalar)."""
+        with self._ctx():
+            _, cache = self.model.prefill(
+                self.params, {"tokens": x["tokens"], "lengths": x["lengths"]})
+        if self._has_kv:
+            self._scatter(cache["k"], cache["v"], x["phys"])
+        if self._sharded:
+            # the full-head state, each shard taking its heads
+            self.plan.write_state(self._cache, x["slot"], {
+                name: t[:, 0] for name, t in cache["ssm"].items()})
+        else:
+            for name, t in self._cache["ssm"].items():
+                t.index_copy_(1, x["slot"].view(1),
+                              cache["ssm"][name][:, :1].to(t.dtype))
 
     def _run_prefills(self) -> None:
         """Advance every prefilling slot under the step's token budget:
@@ -1094,8 +1138,27 @@ class ServingEngine:
             * n_steps_variants * 2
 
     @property
+    def prefill_compile_count(self) -> int:
+        """Distinct shape keys the prefill steps have run, chunks and whole
+        prefills together: the graphs captured for them on the card with
+        graphs on, the keys seen elsewhere.  The counterpart of the
+        reference's ``_chunk_fn`` and ``_prefill_fn`` jit cache sizes."""
+        return len(self._prefill_runners)
+
+    def prefill_report(self) -> dict:
+        """Keys, graphs captured and host seconds of the prefill steps:
+        ``first_s`` sums each key's first call (its eager run and, on the
+        card, its capture), ``steady_s`` the calls after it."""
+        runners = self._prefill_runners.values()
+        return {"keys": sorted(self._prefill_runners),
+                "graphs": sum(r.captured for r in runners),
+                "calls": sum(r.calls for r in runners),
+                "first_s": sum(r.first_s for r in runners),
+                "steady_s": sum(r.steady_s for r in runners)}
+
+    @property
     def graphs_captured(self) -> int:
-        """CUDA graphs this engine has captured (both decode steps)."""
+        """CUDA graphs this engine has captured (decode and prefill)."""
         return self._step_graphs.captured
 
     # ------------------------------------------------------------ reports

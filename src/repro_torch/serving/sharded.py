@@ -296,11 +296,14 @@ class ShardingPlan:
     def write_state(self, caches, slot: int, state: dict) -> None:
         """Write a full-head slot state ({"ssd": (L, H, P, N), "conv": (L,
         K-1, DI)}, on any device) into every shard's state, in place, each
-        shard taking its heads."""
+        shard taking its heads.  ``slot`` is an int or a 0-dim index
+        tensor (the engine's prefill graphs take it as an input)."""
         for s in self.ssm_owners:
             for name, t in caches[s]["ssm"].items():
-                t[:, slot] = self._ssm_cut(name, state[name], s).to(
-                    t.device, t.dtype)
+                t.index_copy_(
+                    1, torch.as_tensor(slot, device=t.device).view(1),
+                    self._ssm_cut(name, state[name], s).to(
+                        t.device, t.dtype).unsqueeze(1))
 
     # -------------------------------------------------------- collectives
 

@@ -1,15 +1,16 @@
-"""The serving engine's decode steps as CUDA graphs, one per shape key.
+"""The serving engine's steps as CUDA graphs, one per shape key.
 
-The counterpart of the reference's jitted, donated decode steps
-(``repro.serving.engine``: ``decode_step`` and ``fused_steps``, one XLA
-program per static shape).  A ``StepRunner`` owns one shape key of one
-engine step:
+The counterpart of the reference's jitted steps (``repro.serving.engine``:
+the donated ``decode_step`` and ``fused_steps``, and the prefill and
+chunk steps, one XLA program per static shape).  A ``StepRunner`` owns
+one shape key of one engine step:
 
   * static device inputs, packed into one byte buffer, and a pinned host
     staging buffer of the same layout, so that a call makes one
     host-to-device copy of every input;
   * a static device output and a pinned host copy of it, so that a call
-    makes one device-to-host copy of the result;
+    makes one device-to-host copy of the result (none for a step that
+    returns None: the prefill steps write only the pool and the state);
   * on the card, the CUDA graph of the step.  The first call runs the
     step eagerly on the static inputs (the real step: it also builds and
     loads the kernels, their first attribute calls and the cuBLAS
@@ -91,12 +92,12 @@ class StepGraphs:
 
 
 class StepRunner:
-    """One shape key of a decode step (see the module docstring).
+    """One shape key of an engine step (see the module docstring).
 
     ``inputs`` maps each input's name to its (shape, dtype); ``step``
     (given at each call, so that the runner holds no reference to its
     caller) takes the dict of static device inputs and returns the
-    step's result, which is copied into the static output."""
+    step's result, which is copied into the static output, or None."""
 
     def __init__(self, graphs: StepGraphs, inputs: dict):
         self._graphs = graphs
@@ -123,19 +124,21 @@ class StepRunner:
         self._launches: dict = {}
         self._done = torch.cuda.Event() if dev.type == "cuda" else None
         self.calls = 0
-        # host seconds of the calls after the first (stage, replay or the
+        # host seconds of the first call (the eager step and, on the card,
+        # the capture), and of the calls after it (stage, replay or the
         # eager step, copy back, wait): the steady-state cost of a call
+        self.first_s = 0.0
         self.steady_s = 0.0
 
     @property
     def captured(self) -> bool:
         return self._graph is not None
 
-    def __call__(self, step: Callable[[dict], torch.Tensor],
-                 **arrays: np.ndarray) -> np.ndarray:
+    def __call__(self, step: Callable[[dict], torch.Tensor | None],
+                 **arrays: np.ndarray) -> np.ndarray | None:
         """Stage ``arrays`` (every input, by name), run the step and
         return its result in pinned host memory: a view that the next
-        call overwrites."""
+        call overwrites (None for a step without a result)."""
         if arrays.keys() != self._staged.keys():
             raise ValueError(f"StepRunner: inputs {sorted(arrays)}, "
                              f"expected {sorted(self._staged)}")
@@ -153,16 +156,21 @@ class StepRunner:
             self._graphs.first_s += time.perf_counter() - t1
         else:
             self._write(step(self.inputs))
-        self._host_out.copy_(self._out, non_blocking=True)
+        if self._out is not None:
+            self._host_out.copy_(self._out, non_blocking=True)
         if self._done is not None:
             self._done.record()
             self._done.synchronize()
         if self.calls:
             self.steady_s += time.perf_counter() - t0
+        else:
+            self.first_s = time.perf_counter() - t0
         self.calls += 1
-        return self._host_out.numpy()
+        return None if self._out is None else self._host_out.numpy()
 
-    def _write(self, result: torch.Tensor) -> None:
+    def _write(self, result: torch.Tensor | None) -> None:
+        if result is None:
+            return
         if self._out is None:
             self._out = torch.empty_like(result)
             self._host_out = torch.empty(
@@ -181,6 +189,9 @@ class StepRunner:
         graph = torch.cuda.CUDAGraph()
         with launches_withheld() as counted, _collection_paused():
             with torch.cuda.graph(graph, pool=g.pool, stream=g.stream):
-                self._out.copy_(step(self.inputs))
+                result = step(self.inputs)
+                if self._out is not None:
+                    self._out.copy_(result)
+                del result
         self._graph, self._launches = graph, counted
         g.captured += 1

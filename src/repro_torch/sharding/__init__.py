@@ -1,13 +1,18 @@
-"""Sharding rules and serving hooks for tensor-parallel serving (the
-serving half of ``repro.sharding``)."""
+"""Sharding rules and activation / serving hooks (the port of
+``repro.sharding``)."""
 
-from .context import (attn_split_count, gather_model, serving_plan,
+from .context import (activation_sharding, attn_split_count,
+                      constrain_activations, gather_model, serving_plan,
                       serving_sharding)
-from .partitioning import (decode_rule_table, decode_rules, megatron_axes,
-                           paged_kv_pool_spec, resolve_specs,
-                           shard_bytes_table)
+from .partitioning import (NamedSharding, batch_axes, decode_rule_table,
+                           decode_rules, kv_cache_spec, logits_spec,
+                           megatron_axes, named_shardings,
+                           paged_kv_pool_spec, resolve_specs, rules_for,
+                           shard_bytes_table, ssm_state_spec)
 
-__all__ = ["attn_split_count", "decode_rule_table", "decode_rules",
-           "gather_model", "megatron_axes", "paged_kv_pool_spec",
-           "resolve_specs", "serving_plan", "serving_sharding",
-           "shard_bytes_table"]
+__all__ = ["NamedSharding", "activation_sharding", "attn_split_count",
+           "batch_axes", "constrain_activations", "decode_rule_table",
+           "decode_rules", "gather_model", "kv_cache_spec", "logits_spec",
+           "megatron_axes", "named_shardings", "paged_kv_pool_spec",
+           "resolve_specs", "rules_for", "serving_plan", "serving_sharding",
+           "shard_bytes_table", "ssm_state_spec"]

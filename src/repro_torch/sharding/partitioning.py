@@ -1,27 +1,38 @@
-"""Logical-axis -> mesh-axis resolution for tensor-parallel serving (the
-serving half of ``repro.sharding.partitioning``).
+"""Logical-axis -> mesh-axis resolution per architecture and mode (the
+port of ``repro.sharding.partitioning``).
 
 Parameters are declared with logical axes (``models.layers.ParamSpec``);
-this module maps them onto the ``"model"`` axis of a mesh.  The port has
-no GSPMD: a resolved spec is a tuple of mesh-axis names (or None) per
-dim, and ``serving.sharded.ShardingPlan`` cuts the weights and the KV
-pool by it and writes out the collectives.  Everything here is pure
-arithmetic over configs and templates: no device is touched.
+this module maps them onto the axes of a mesh.  The port has no GSPMD: a
+resolved spec is a tuple of mesh-axis names (or None, or a tuple of
+names) per dim, entry for entry the reference's ``PartitionSpec``.  Three
+rule sets, as the reference's:
 
-The dry-run and training rule sets (``rules_for``, ``kv_cache_spec``,
-``ssm_state_spec``, ``logits_spec``) are ROADMAP Queue A 11 and A 13.
+  * train:     tensor parallel over 'model' (FSDP configs also store the
+               'embed' weight dim over 'data', or ('pod', 'data'));
+  * serve:     tensor parallel over 'model', weights replicated over 'data';
+  * serve_big: like serve, with 'embed' over 'data' too (2-D weight storage
+               for the models whose weights exceed one device at 16-way);
+
+plus the serving-decode rules (``decode_rule_table``) that
+``serving.sharded.ShardingPlan`` cuts the weights and the KV pool by,
+writing out the collectives itself.  Everything here is pure arithmetic
+over configs, templates and a mesh's ``axis_names`` and ``shape``: no
+device is touched.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
 from ..tree import tree_items
 
-__all__ = ["MEGATRON_AXES", "megatron_axes", "decode_rule_table",
-           "decode_rules", "paged_kv_pool_spec", "resolve_specs",
+__all__ = ["MEGATRON_AXES", "megatron_axes", "batch_axes", "rules_for",
+           "decode_rule_table", "decode_rules", "paged_kv_pool_spec",
+           "resolve_specs", "pspec", "kv_cache_spec", "ssm_state_spec",
+           "logits_spec", "NamedSharding", "named_shardings",
            "shard_bytes_table"]
 
 # The Megatron axis table: every logical parameter axis that tensor
@@ -40,6 +51,39 @@ def megatron_axes(axis: str = "model") -> dict:
                                "ssm_inner", "embed", "layers", None)}
     for a in MEGATRON_AXES:
         rules[a] = axis
+    return rules
+
+
+def batch_axes(mesh, global_batch: int | None = None):
+    """Mesh axes the global batch shards over: ('pod', 'data') or
+    ('data',) where the mesh has them, ('data',) alone when the batch does
+    not divide both, None when it divides neither (batch-1 long-context
+    decode)."""
+    ax = [a for a in ("pod", "data") if a in tuple(mesh.axis_names)]
+    if not ax:
+        return None
+    if global_batch is not None:
+        size = math.prod(mesh.shape[a] for a in ax)
+        if global_batch % size != 0:
+            if global_batch % mesh.shape["data"] == 0:
+                return ("data",)
+            return None
+    return tuple(ax)
+
+
+def rules_for(cfg, mode: str, mesh) -> dict:
+    """The logical-axis -> mesh-axis map of ``mode`` ('train', 'serve' or
+    'serve_big'): the Megatron axes over 'model' ('kv' replicated when the
+    config has fewer kv heads than ``model_parallel``), and 'embed' over
+    the data axes for FSDP training and for serve_big."""
+    has_pod = "pod" in tuple(mesh.axis_names)
+    rules = megatron_axes("model")
+    if cfg.n_kv_heads < cfg.model_parallel:
+        rules["kv"] = None
+    if mode == "train" and cfg.fsdp:
+        rules["embed"] = ("pod", "data") if has_pod else "data"
+    if mode == "serve_big":
+        rules["embed"] = "data"
     return rules
 
 
@@ -155,6 +199,75 @@ def resolve_specs(spec_tree, rules: dict):
         axes = leaf.axes if _is_spec(leaf) else leaf
         _set(out, path, tuple(rules.get(a) for a in (axes or ())))
     return out
+
+
+def pspec(*entries) -> tuple:
+    """A spec tuple normalised as the reference's ``PartitionSpec``: a
+    one-name tuple becomes the name, an empty one None."""
+    def norm(e):
+        if isinstance(e, (tuple, list)):
+            return None if not e else e[0] if len(e) == 1 else tuple(e)
+        return e
+    return tuple(norm(e) for e in entries)
+
+
+def kv_cache_spec(cfg, mode: str, mesh,
+                  global_batch: int | None = None) -> tuple:
+    """Spec of a (layers, batch, seq, kv_heads, head_dim) cache: the batch
+    over ``batch_axes``; the kv heads over 'model' when the config has at
+    least ``model_parallel`` of them, else the sequence (the flash-decode
+    LSE combine)."""
+    b_ax = batch_axes(mesh, global_batch)
+    if cfg.n_kv_heads >= cfg.model_parallel:
+        return pspec(None, b_ax, None, "model", None)
+    return pspec(None, b_ax, "model", None, None)
+
+
+def ssm_state_spec(cfg, mode: str, mesh,
+                   global_batch: int | None = None) -> dict:
+    """Specs of the Mamba2 state {ssd: (L, B, H, P, N), conv: (L, B, K-1,
+    DI)}: heads, and the conv tail's inner dim, over 'model'."""
+    b_ax = batch_axes(mesh, global_batch)
+    return {"ssd": pspec(None, b_ax, "model", None, None),
+            "conv": pspec(None, b_ax, None, "model")}
+
+
+def logits_spec(mesh, mode: str, global_batch: int | None = None) -> tuple:
+    """Spec of (batch, vocab) logits: batch over ``batch_axes``, vocab over
+    'model'."""
+    return pspec(batch_axes(mesh, global_batch), "model")
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A resolved spec on a mesh (the reference's ``NamedSharding``):
+    ``spec`` names a mesh axis (or axes, or None) per dim, ``devices`` is
+    the mesh's grid of devices."""
+
+    mesh: object
+    spec: tuple
+
+    @property
+    def devices(self):
+        return self.mesh.devices
+
+    def axis_size(self, entry) -> int:
+        """Shards along a dim whose spec entry is ``entry``."""
+        names = () if entry is None else \
+            (entry,) if isinstance(entry, str) else tuple(entry)
+        return math.prod(self.mesh.shape[a] for a in names)
+
+    def wide(self) -> list:
+        """The spec's entries that cut a dim over more than one device."""
+        return [e for e in self.spec if self.axis_size(e) > 1]
+
+
+def named_shardings(mesh, spec_tree):
+    """A tree of resolved specs (tuples; dicts of them) -> the same tree of
+    ``NamedSharding`` on ``mesh``."""
+    if isinstance(spec_tree, dict):
+        return {k: named_shardings(mesh, v) for k, v in spec_tree.items()}
+    return NamedSharding(mesh, tuple(spec_tree))
 
 
 def _spec_str(spec: tuple) -> str:

@@ -1262,7 +1262,8 @@ def _hold_graphed_to_eager(cuda, cfg, params, **kw):
     assert got == want
     assert launches == want_launches
     assert eager.graphs_captured == 0
-    runners = list(eng._fused_runners.values())
+    runners = list(eng._fused_runners.values()) \
+        + list(eng._prefill_runners.values())
     if eng._orchestrated_runner is not None:
         runners.append(eng._orchestrated_runner)
     assert all(r.captured for r in runners)
@@ -1270,6 +1271,7 @@ def _hold_graphed_to_eager(cuda, cfg, params, **kw):
     assert sum(r.calls for r in runners) > len(runners)     # replays ran
     assert eng.fused_compile_count == eager.fused_compile_count \
         <= eng.max_fused_compiles()
+    assert sorted(eng._prefill_runners) == sorted(eager._prefill_runners)
     return eng
 
 
@@ -1344,6 +1346,57 @@ def test_cuda_graphed_decode_equals_eager_under_ssm_plans(cuda, arch,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-2.7b",
+                                  "zamba2-1.2b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
+def test_cuda_prefill_graphs_equal_eager_and_replay(cuda, arch, step_mode):
+    """The prefill chunks (the flash kernel, the MoE FFN, the pool
+    scatter) and the recurrent families' whole prefills (the SSD scan,
+    the slot's state write) replayed from CUDA graphs give the eager
+    streams and launch counts; a second wave of the same prompts captures
+    no new prefill graph and replays the first wave's tokens."""
+    cfg = get_config(arch, reduced=True)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    chunked = build_model(cfg).supports_chunked_prefill
+    out = {}
+    for graphs in (False, True):
+        before = [k.launches for k in ENGINE_KERNELS]
+        eng = port_serving.ServingEngine(
+            model=build_model(cfg),
+            scheduler=port_core.Scheduler(policy="fcfs",
+                                          priority_backend="cuda"),
+            n_slots=3, max_seq_len=128, block_size=8,
+            prefill_chunk=16 if chunked else None, step_mode=step_mode,
+            params=params, device=cuda, graphs=graphs)
+        rng = np.random.default_rng(9)
+        prompts = [[int(t) for t in rng.integers(3, cfg.vocab_size, n)]
+                   for n in (9, 40, 70, 23)]
+        waves, graphs_after = [], []
+        for tag in ("a", "b"):
+            reqs = [port_serving.ServeRequest(
+                f"{tag}{i}", f"{tag}{i}", list(p), max_new_tokens=5,
+                temperature=0.0, eos_token=-1) for i, p in enumerate(prompts)]
+            eng.submit_batch(reqs)
+            eng.run_until_done(max_steps=2000)
+            waves.append([r.output_tokens for r in reqs])
+            graphs_after.append(eng.prefill_report()["graphs"])
+        torch.cuda.synchronize()
+        out[graphs] = (eng, waves, graphs_after,
+                       [k.launches - n for k, n in zip(ENGINE_KERNELS,
+                                                       before)])
+    eager, want, _, want_launches = out[False]
+    eng, got, graphs_after, launches = out[True]
+    assert got == want
+    assert got[1] == got[0]
+    assert launches == want_launches
+    assert eng.prefill_compile_count == eager.prefill_compile_count > 1
+    assert graphs_after[0] == graphs_after[1] == eng.prefill_compile_count
+    assert all(r.captured and r.calls > 1
+               for r in eng._prefill_runners.values())
+
+
+@pytest.mark.gpu
 def test_cuda_compile_bound_under_churn(cuda):
     """tests/test_torch_graphs.py's wide churn workload on the card: one
     graph a fused key, within ``max_fused_compiles()``, and a second wave
@@ -1373,9 +1426,12 @@ def test_cuda_compile_bound_under_churn(cuda):
                 eos_token=-1, arrival=float(i) * 1e-3))
         eng.submit_batch(reqs)
         eng.run_until_done(max_steps=8000)
-        counts.append((eng.fused_compile_count, eng.graphs_captured))
+        counts.append((eng.fused_compile_count, eng.prefill_compile_count,
+                       eng.graphs_captured))
     assert counts[0] == counts[1]
-    assert 1 < counts[0][0] == counts[0][1] <= eng.max_fused_compiles()
+    fused, prefill, graphs = counts[0]
+    assert 1 < fused <= eng.max_fused_compiles()
+    assert fused + prefill == graphs
 
 
 @pytest.mark.gpu
@@ -1640,14 +1696,16 @@ def test_cuda_captures_pause_the_collector(cuda, llama_params):
         n_slots=2, max_seq_len=96, prefill_chunk=16, seed=0,
         params=llama_params, device=cuda)
     seen = []
-    body = eng._fused_body
 
-    def watched(x, **kw):
-        if torch.cuda.is_current_stream_capturing():
-            seen.append(gc.isenabled())
-        return body(x, **kw)
+    def watch(body):
+        def watched(x, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                seen.append(gc.isenabled())
+            return body(x, **kw)
+        return watched
 
-    eng._fused_body = watched
+    eng._fused_body = watch(eng._fused_body)
+    eng._chunk_body = watch(eng._chunk_body)
     rng = np.random.default_rng(3)
     eng.submit_batch([port_serving.ServeRequest(
         f"r{i}", "p", [int(t) for t in rng.integers(3, cfg.vocab_size, 12)],

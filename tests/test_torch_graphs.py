@@ -1,10 +1,10 @@
-"""The engine's decode steps on their step runners (repro_torch.serving.
-step_graphs), and the fused step's compile bound, on the CPU.
+"""The engine's decode and prefill steps on their step runners
+(repro_torch.serving.step_graphs), and the compile bounds, on the CPU.
 
-On the card each shape key of the fused and orchestrated steps is a CUDA
-graph (tests/test_torch_gpu.py holds graphed against eager there); on the
-CPU the same runner runs the step eagerly on the same static buffers.
-Held here:
+On the card each shape key of the fused, orchestrated, chunk and whole
+prefill steps is a CUDA graph (tests/test_torch_gpu.py holds graphed
+against eager there); on the CPU the same runner runs the step eagerly on
+the same static buffers.  Held here:
 
   * the compile bound, mirroring tests/test_decode_hot_loop.py's churn
     test: the fused keys stay within ``max_fused_compiles()``, a second
@@ -19,7 +19,11 @@ Held here:
     changes no stream;
   * a plan whose shards sit on more than one card refuses graphs before
     anything is allocated;
-  * the launch counts a capture makes are withheld and handed back.
+  * the launch counts a capture makes are withheld and handed back;
+  * the prefill keys: one per pow2 bucket of a recurrent context (the
+    mirror of tests/test_decode_hot_loop.py's bucket test), and chunk and
+    whole-prefill key counts equal to the reference jit's ``_chunk_fn``
+    and ``_prefill_fn`` cache sizes on the same workloads.
 """
 
 import jax
@@ -163,7 +167,7 @@ def test_max_fused_compiles_is_the_ladder_product(arch, n_slots, max_seq_len,
 class FreshTensors:
     """The path the runners replaced: every call copies its inputs to
     fresh device tensors and brings the step's result back with
-    ``.cpu()``."""
+    ``.cpu()`` (the prefill steps have none)."""
 
     def __init__(self, graphs, inputs):
         self.dtypes = {name: dtype for name, (_, dtype) in inputs.items()}
@@ -172,7 +176,8 @@ class FreshTensors:
     def __call__(self, step, **arrays):
         x = {name: torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, self.dtypes[name]) for name, a in arrays.items()}
-        return step(x).cpu().numpy()
+        out = step(x)
+        return None if out is None else out.cpu().numpy()
 
 
 def _requests(vocab, n, temperature):
@@ -265,7 +270,8 @@ def test_recurrent_runner_token_identical_to_replaced_path(monkeypatch,
 
 def _garble(eng, rng):
     """Random bytes into every buffer of every runner of ``eng``."""
-    runners = list(eng._fused_runners.values())
+    runners = list(eng._fused_runners.values()) \
+        + list(eng._prefill_runners.values())
     if eng._orchestrated_runner is not None:
         runners.append(eng._orchestrated_runner)
     for r in runners:
@@ -367,3 +373,69 @@ def test_launches_withheld_hands_back_what_a_capture_counted():
             k1.launches += 5
             raise RuntimeError("capture failed")
     assert k1.launches == n1 and counted[k1] == 5
+
+
+# ------------------------------------------ the prefill steps' compile keys
+
+def _prefill_workload(pkg, arch: str, lengths, **kw):
+    """Greedy requests of ``lengths`` prompt tokens (3 new each) through
+    ``pkg``'s engine on the shared f32 weights; returns the engine."""
+    from torch_parity import engine
+    core, serving, _, get_cfg, _ = pkg
+    cfg = get_cfg(arch, reduced=True)
+    rng = np.random.default_rng(5)
+    eng = engine(pkg, arch, scheduler=core.Scheduler(
+        policy=core.make_policy("fcfs")), max_seq_len=128, seed=0, **kw)
+    reqs = [serving.ServeRequest(
+        f"q{i}", f"q{i}", [int(t) for t in rng.integers(3, cfg.vocab_size,
+                                                         n)],
+        max_new_tokens=3, temperature=0.0, eos_token=-1,
+        arrival=float(i) * 1e-3) for i, n in enumerate(lengths)]
+    eng.submit_batch(reqs)
+    eng.run_until_done(max_steps=4000)
+    assert all(r.state == serving.RequestState.FINISHED for r in reqs)
+    return eng, [r.output_tokens for r in reqs]
+
+
+@pytest.mark.parametrize("graphs", [False, True])
+def test_recurrent_prefill_compiles_per_bucket_not_per_length(graphs):
+    """The mirror of tests/test_decode_hot_loop.py's bucket test: four
+    recurrent prompts in one 32-bucket make one prefill key."""
+    from torch_parity import PORT
+    eng, _ = _prefill_workload(PORT, "mamba2-2.7b", (7, 9, 12, 14),
+                               n_slots=2, graphs=graphs)
+    assert eng.prefill_compile_count == 1
+    assert sorted(eng._prefill_runners) == [("atomic", 32)]
+    assert eng.graphs_captured == 0          # the CPU: no graphs
+
+
+@pytest.mark.parametrize("arch,lengths,kw", [
+    ("llama3.2-1b", (20, 37, 58, 90, 75, 33),
+     dict(n_slots=3, prefill_chunk=16, max_tokens_per_step=24)),
+    ("llama3.2-1b", (5, 70, 120), dict(n_slots=2, prefill_chunk=64)),
+    ("mamba2-2.7b", (7, 30, 33, 60, 90, 14), dict(n_slots=2)),
+    ("zamba2-1.2b", (7, 40, 70), dict(n_slots=2)),
+])
+def test_prefill_keys_equal_reference_jit_caches(arch, lengths, kw):
+    """The port's chunk keys (chunk bucket, prefix bucket) and whole
+    prefill keys (pow2 bucket of the context) equal the reference jit's
+    cache sizes of ``_chunk_fn`` and ``_prefill_fn`` on the same workload,
+    with the same streams."""
+    from torch_parity import PORT, REF
+    ref, ref_streams = _prefill_workload(REF, arch, lengths, **kw)
+    eng, streams = _prefill_workload(PORT, arch, lengths, **kw)
+    size = getattr(ref._chunk_fn, "_cache_size", None)
+    if size is None:
+        pytest.skip("this jax exposes no jit cache-size counter")
+    assert streams == ref_streams
+    keys = sorted(eng._prefill_runners)
+    chunk = [k for k in keys if k[0] == "chunk"]
+    atomic = [k for k in keys if k[0] == "atomic"]
+    assert len(chunk) == ref._chunk_fn._cache_size()
+    assert len(atomic) == ref._prefill_fn._cache_size()
+    assert eng.prefill_compile_count == len(keys) > 0
+    if chunk:
+        assert len({k[2] for k in chunk}) > 1     # several prefix buckets
+    report = eng.prefill_report()
+    assert report["keys"] == keys and report["graphs"] == 0
+    assert report["calls"] == eng.metrics.prefill_chunks

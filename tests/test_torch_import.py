@@ -95,6 +95,21 @@ def test_module_names_mirror_the_reference():
         assert name.replace("repro_torch", "repro", 1) in ref, name
 
 
+REF_MODULES = sorted(
+    p.relative_to(ROOT / "src").with_suffix("").as_posix()
+    .replace("/", ".").removesuffix(".__init__")
+    for p in (ROOT / "src" / "repro").rglob("*.py"))
+
+
+@pytest.mark.parametrize("name", REF_MODULES)
+def test_every_reference_module_has_a_twin(name):
+    """The reverse direction: ``repro.X`` has its counterpart
+    ``repro_torch.X``, a module of the same path (the port's own additions
+    above stay allowed one way only)."""
+    twin = name.replace("repro", "repro_torch", 1)
+    assert twin in MODULES, f"{name} has no twin {twin}"
+
+
 def test_smoke_script_fails_without_a_card_or_the_package(tmp_path):
     """chip_smoke.py exits non-zero and prints no result line where
     there is no card, and where it stands alone without the package."""

@@ -24,7 +24,7 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-from chip_smoke import (BF16_FLOPS, bound_ms, decode_case,  # noqa: E402
+from chip_smoke import (HW, bound_ms, decode_case,  # noqa: E402
                         dense_decode_bytes_flops, dense_decode_case,
                         device_ms, lse_bytes_flops, lse_case,
                         paged_bytes_flops, stripe)
@@ -144,7 +144,7 @@ def main() -> int:
         else:
             want = decode_attention_dense_reference(*case, window=1)
             n_bytes, flops = dense_decode_bytes_flops(q, case[1], case[3])
-        bnd, _ = bound_ms(n_bytes, flops, BF16_FLOPS)
+        bnd, _ = bound_ms(n_bytes, flops, HW["peak_flops"])
         row = []
         for units in args.units:
             got = launch(kind, case, units)

@@ -58,7 +58,14 @@ Phases:
      decode and flash kernels at olmoe-1b-7b's (H16/KV16, dh 128) and
      internvl2-76b's (H64/KV8, dh 128) serving shapes and the dense decode
      at olmoe's, flat and peaked, each timed beside its plain version,
-     its library call and its bound.  Kernels and library
+     its library call and its bound; then the sampling kernel (the fused
+     step's threefry categorical, ``csrc/categorical.cu``) against its
+     plain version at 1, 16 and 64 lanes over 50304, 128256 and 151936
+     columns (every fourth lane greedy), a qwen2 tp-4 vocab shard at its
+     offset and the main path's 8 sampled lanes over 128256: tokens equal
+     on every lane but a near tie of the plain scores (counted, printed),
+     each timed beside its plain version and its bound (INT32 operations
+     or bytes).  Kernels and library
      calls are timed on the device (``device_ms``: calls captured in a
      CUDA graph and replayed), plain versions eagerly (``cuda_ms``);
   4. serve at full width, from random weights of a seed, llama3.2-1b,
@@ -79,10 +86,13 @@ Phases:
      prompts again, 8 tokens each) that must capture no new prefill
      graph, and TTFT p50 is printed wave by wave; every model is served
      once more in both step modes without graphs (graphs=False), and
-     llama3.2-1b at temperature 0.8 with and without graphs, each eager
+     llama3.2-1b with every request at the paper's temperature 0.6 with
+     and without graphs (the fused step's draws through the sampling
+     kernel, one launch a decode iteration, held; its tok/s printed
+     beside the greedy graphed drive's), each eager
      drive held token-identical (its third wave too), launch for launch,
      to its graphed twin (these drives' launches are not summed into
-     phase 7's);
+     phase 7's, but for the graphed sampled drive's sampling launches);
      then nemotron-4-340b and granite-34b at full width cut to 2 layers
      (head dim 192 and three head groups; MQA and six head groups), fused
      only, the same mix: every request must finish, the scheduler must
@@ -208,7 +218,9 @@ Phases:
      bwd_mma_sync.cu``, built beside the package), beside its bound and
      SDPA's backward (causal at the three model shapes, an explicit
      boolean mask of the same positions at the other three);
-     (b) llama3.2-1b at full width and depth trained TRAIN's 20 steps at B
+     (b) llama3.2-1b's gradients at full width and depth on the card
+     against the CPU's (``grad_check``, GRAD_REL_BAR), then trained
+     TRAIN's 20 steps at B
      8 x S 512 through ``make_train_step`` (seed 0, bf16 weights, f32
      moments, lr 3e-3 on launch/train.py's schedule): every loss finite,
      the last at least 0.2 below the first, the flash launches exact (two
@@ -238,6 +250,11 @@ Phases:
      remat, one backward a layer), the loss falling, s/step, tokens/s,
      peak GiB and the model-FLOP share printed; every training drive's
      model-FLOP share by ``roofline.model_flops`` over HW["peak_flops"];
+     the CPU's side of every ``grad_check`` (llama3.2-1b at full depth,
+     olmoe-1b-7b, zamba2-1.2b and mamba2-2.7b cut) is computed on a
+     low-priority host thread (``HostGradients``) from the kernels' build
+     on, on the weights the card's side draws (held bit-identical), so
+     that it overlaps phases 2-6b;
   6d. the dry-run on the meta device (no card): ``roofline.HW`` beside
      the card's own total_memory, ``dryrun.min_tp_report`` at the card's
      budget for MIN_TP_ARCHS, and ``dryrun.run_case`` of llama3.2-1b at
@@ -258,6 +275,7 @@ import contextlib
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -291,6 +309,9 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_backward_reference, attention_reference)
 from repro_torch.kernels.bucketing import pow2_bucket  # noqa: E402
+from repro_torch.kernels.categorical import (  # noqa: E402
+    CATEGORICAL_KERNEL, categorical, prng_key)
+from repro_torch.kernels.categorical import ref as categorical_ref  # noqa: E402,E501
 from repro_torch.kernels.gittins.ops import (  # noqa: E402
     GITTINS_KERNEL, gittins_attained, gittins_attained_op, padded_rows)
 from repro_torch.kernels.gittins.ref import (  # noqa: E402
@@ -336,6 +357,34 @@ FLASH_SPLIT_KERNEL = getattr(flash_kernel, "FLASH_SPLIT_KERNEL", None)
 # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet, dense);
 # the HBM rate and the bf16 tensor peak are roofline.HW's
 F32_FLOPS = 67e12
+# H100 SXM INT32 operations a second: 64 int32 lanes an SM a clock, half
+# its 128 f32 lanes, an integer op counting one where an f32 FMA counts
+# two in F32_FLOPS
+INT32_OPS = F32_FLOPS / 4
+# the sampling kernel: integer operations a sampled column, counted in the
+# source, not in the built SASS: threefry's 20 rounds of add, rotate and
+# xor (60), the 10 of its 12 key injections that cost an add (x0 = 0 + k0
+# is a move; x1's first add folds into the column counter the loop steps
+# anyway; each later k + c is a per-lane constant) and the uniform's xor,
+# shift and or (3).  The compiler may fuse an injection's add into the
+# next round's (IADD3) or issue adds on the FMA pipe (IMAD), so the card's
+# floor may lie below this bound.  And a lane's key (two fold_ins)
+CATEGORICAL_COLUMN_OPS = 73
+CATEGORICAL_KEY_OPS = 2 * 72
+# a lane's token may differ from the plain version's only where the plain
+# version's two best scores lie within this fraction of max(1, |best|)
+# (tests/test_torch_sampling.py's NEAR_TIE); where the tokens agree, the
+# values are held within the same bound
+CATEGORICAL_NEAR_TIE = 4e-6
+# phase 3's sampling shapes: lanes x vocab (gpt-neox's 50304, llama3's
+# 128256, qwen2's 151936), and a vocab shard of qwen2-1.5b at tp 4 (the
+# third of four parts); the main path's shape (8 lanes, the fused step's
+# lane floor, over llama3.2-1b's vocab, every lane sampled) is timed into
+# the row
+CATEGORICAL_LANES = (1, 16, 64)
+CATEGORICAL_VOCABS = (50304, 128256, 151936)
+CATEGORICAL_SHARD = (16, 151936 // 4, 2)
+CATEGORICAL_MAIN = (8, 128256)
 BF16_TOL = 2e-2          # bf16 kernel vs plain version (tests/test_kernels.py)
 # attention kernels: BF16_TOL, but the absolute part never above this
 # fraction of the compared output's RMS (a wide softmax over thousands of
@@ -362,7 +411,8 @@ WIDE = (("nemotron-4-340b", dict(n_layers=2)),
 # graphed and eager) held the same way
 EAGER_HELD = ("llama3.2-1b", "mamba2-2.7b", "olmoe-1b-7b")
 SAMPLED_HELD = ("llama3.2-1b",)
-SAMPLED_T = 0.8
+# the paper's default sampling temperature (repro/serving/request.py:27)
+SAMPLED_T = 0.6
 # phase 4b: (label, tp, parallel, step modes); tp None = no mesh
 TP_ARCH = "qwen2-1.5b"
 TP_DRIVES = (("a", None, "exact", ("fused",)),
@@ -1439,6 +1489,111 @@ def phase_wide_heads(dev, gen, rows: dict, kernels_only: bool) -> None:
     torch.cuda.empty_cache()
 
 
+def categorical_case(dev, gen, lanes: int, n: int, *, offset: int = 0,
+                     mixed: bool = True):
+    """bf16 logits (std 3) of ``lanes`` rows over the columns offset ..
+    offset + n - 1, temperatures cycling 0.6, 1.0, 0.3 (with ``mixed``
+    every fourth lane greedy), request seeds over all of uint32 and
+    positions up to 4096: the op's arguments."""
+    logits = (torch.randn(lanes, n, generator=gen, device=dev) * 3).to(
+        torch.bfloat16)
+    temps = torch.tensor([0.6, 1.0, 0.3], device=dev).repeat(lanes)[:lanes]
+    greedy = (torch.arange(lanes, device=dev) % 4 == 1) if mixed \
+        else torch.zeros(lanes, dtype=torch.bool, device=dev)
+    safe_t = torch.where(greedy, torch.ones_like(temps), temps)
+    seeds = torch.randint(0, 2**32, (lanes,), generator=gen, device=dev)
+    counters = torch.randint(0, 4097, (lanes,), generator=gen, device=dev)
+    return logits, safe_t, greedy, prng_key(0), seeds, counters
+
+
+def categorical_scores(logits, safe_t, greedy, base, seeds, counters,
+                       offset: int = 0):
+    """The plain version's scores of every column (lanes, n)."""
+    keys = categorical_ref.lane_keys(base, seeds, counters)
+    noise = categorical_ref.gumbel(keys, logits.shape[-1], offset)
+    x = logits.float()
+    return torch.where(greedy[:, None], x, x / safe_t[:, None] + noise)
+
+
+def categorical_bound(logits, greedy):
+    """(bytes, integer operations) the draw needs: the logits read once,
+    the small inputs and the (value, index) out; each sampled column's
+    threefry and uniform, each sampled lane's key."""
+    lanes, n = logits.shape
+    sampled = int((~greedy).sum())
+    n_bytes = logits.numel() * logits.element_size() + lanes * (
+        4 + 1 + 8 + 8) + lanes * (4 + 8)
+    ops = sampled * (n * CATEGORICAL_COLUMN_OPS + CATEGORICAL_KEY_OPS)
+    return n_bytes, ops
+
+
+def phase_categorical(dev) -> dict:
+    """The sampling kernel against its plain version on the card (after
+    every earlier draw, from a generator of its own): mixed greedy and
+    sampled lanes at CATEGORICAL_LANES x CATEGORICAL_VOCABS, a tp 4 vocab
+    shard at its offset, and the main path's shape.  Tokens equal on every
+    lane but a near tie of the plain version's scores (counted and
+    printed; 0 expected), values within CATEGORICAL_NEAR_TIE where the
+    tokens agree; the kernel timed on the device beside its plain version
+    (eager) and its bound (no library call: torch has no threefry)."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    cases = [(lanes, n, 0, True) for lanes in CATEGORICAL_LANES
+             for n in CATEGORICAL_VOCABS]
+    lanes, part, k = CATEGORICAL_SHARD
+    cases.append((lanes, part, k * part, True))
+    cases.append(CATEGORICAL_MAIN + (0, False))
+    row = {"name": "categorical", "route": "cuda",
+           "source": "src/repro_torch/csrc/categorical.cu",
+           "replaces": "src/repro/serving/engine.py:314 "
+                       "(jax.random.categorical by XLA; no Pallas kernel)",
+           "max_abs_err": 0.0, "library_ms": None, "near_tie_lanes": 0}
+    for lanes, n, offset, mixed in cases:
+        args = categorical_case(dev, gen, lanes, n, offset=offset,
+                                mixed=mixed)
+        before = CATEGORICAL_KERNEL.launches
+        value, index = categorical(*args, offset=offset)
+        torch.cuda.synchronize()
+        if CATEGORICAL_KERNEL.launches != before + 1:
+            raise SystemExit("FAIL categorical: the op did not count one "
+                             "launch")
+        want_v, want_i = categorical_ref.categorical(*args, offset=offset)
+        top2 = categorical_scores(*args, offset=offset).topk(2).values
+        bar = CATEGORICAL_NEAR_TIE * top2[:, 0].abs().clamp(min=1.0)
+        same = index == want_i
+        near = (top2[:, 0] - top2[:, 1]) <= bar
+        bad = int((~same & ~near).sum())
+        ties = int((~same).sum())
+        err = (value - want_v).abs()
+        worst = float(err[same].max()) if bool(same.any()) else 0.0
+        bad += int((err[same] > bar[same]).sum())
+        label = (f"categorical {lanes} lanes x {n}"
+                 f"{f' at offset {offset}' if offset else ''}"
+                 f"{' (every fourth greedy)' if mixed else ' (all sampled)'}")
+        print(f"  {label}: tokens {int(same.sum())}/{lanes} equal, "
+              f"{ties} near-tie lanes, value max_abs_err {worst:.3e} "
+              f"{'OK' if bad == 0 else f'{bad} lanes out of tolerance'}")
+        if bad:
+            raise SystemExit(f"FAIL {label}: the kernel disagrees with its "
+                             f"plain version")
+        row["max_abs_err"] = max(row["max_abs_err"], worst)
+        row["near_tie_lanes"] += ties
+        ms = device_ms(lambda: categorical(*args, offset=offset))
+        plain_ms = cuda_ms(lambda: categorical_ref.categorical(
+            *args, offset=offset), iters=3, warmup=1)
+        n_bytes, ops = categorical_bound(args[0], args[2])
+        bnd, by = bound_ms(n_bytes, ops, INT32_OPS)
+        print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bnd:.5f} ms ({by}: {ops / 1e6:.1f} M int32 ops, "
+              f"{n_bytes / 1e6:.2f} MB)")
+        if (lanes, n) == CATEGORICAL_MAIN and not mixed:
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+        del args, value, index, want_v, want_i, top2
+    print(f"  categorical: {row['near_tie_lanes']} near-tie lanes in all "
+          f"(0 expected)")
+    torch.cuda.empty_cache()
+    return row
+
+
 # --------------------------------------------------------------- phase 4
 
 class ShapeRecordingBackend(CudaPriorityBackend):
@@ -1621,23 +1776,26 @@ def phase_serve(cfg, dev, params=None) -> tuple[dict, tuple, dict]:
         drives.append(("fused", False, 0.0))
     if cfg.name in SAMPLED_HELD:
         drives += [("fused", True, SAMPLED_T), ("fused", False, SAMPLED_T)]
-    streams, launches, max_shape = {}, {}, (0, 0)
+    streams, launches, rates, max_shape = {}, {}, {}, (0, 0)
     for mode, graphs, temp in drives:
         label = f"{mode}, {'graphs' if graphs else 'eager'}" + (
             f", T {temp}" if temp else "")
-        for kern in kernels:
+        # a sampled drive's path draws through the sampling kernel too
+        drive_kernels = kernels + ((CATEGORICAL_KERNEL,) if temp else ())
+        for kern in drive_kernels:
             kern.launches = 0
         torch.cuda.reset_peak_memory_stats()
         engine, reqs, secs, backend = serve(cfg, params, dev, mode,
                                             graphs=graphs, temperature=temp)
         replay, grew = replay_wave(engine, reqs)
-        launches[label] = {k.symbol: k.launches for k in kernels}
+        launches[label] = {k.symbol: k.launches for k in drive_kernels}
         streams[label] = [r.output_tokens for r in reqs]
         streams[label + ", replay"] = [r.output_tokens for r in replay]
         m = engine.metrics.summary(reqs)
         gen_tokens = sum(r.generated for r in reqs)
         ttft = np.array([r.ttft for r in reqs])
         ttlt = np.array([r.ttlt for r in reqs])
+        rates[label] = gen_tokens / secs
         print(f"  serve[{label}] {torch.cuda.get_device_name(0)}: "
               f"{len(reqs)}/{len(reqs)} finished, {gen_tokens} tokens in "
               f"{secs:.3f} s = {gen_tokens / secs:.1f} tok/s, TTFT p50 "
@@ -1684,6 +1842,17 @@ def phase_serve(cfg, dev, params=None) -> tuple[dict, tuple, dict]:
         if {k: launches[label].get(k, 0) for k in want} != want:
             raise SystemExit(f"FAIL serve[{label}]: launches "
                              f"{launches[label]}, the path calls {want}")
+        if temp:
+            # every lane sampled: one draw a decode iteration of the
+            # fused step, the third wave's included
+            want_draws = engine.metrics.decode_iterations
+            got_draws = launches[label][CATEGORICAL_KERNEL.symbol]
+            print(f"    sampling kernel launches {got_draws}, one a fused "
+                  f"decode iteration {want_draws} (held)")
+            if got_draws != want_draws:
+                raise SystemExit(f"FAIL serve[{label}]: {got_draws} "
+                                 f"sampling launches, the path draws "
+                                 f"{want_draws} times")
         print(f"    launches as the path calls them (held): {want}")
         if not graphs:
             twin = label.replace("eager", "graphs")
@@ -1703,7 +1872,9 @@ def phase_serve(cfg, dev, params=None) -> tuple[dict, tuple, dict]:
     if sampled is not None:
         differ = sum(a != b for a, b in zip(sampled, fused))
         print(f"  sampled vs greedy (graphs): {differ}/{len(fused)} streams "
-              f"differ (the noise is drawn)")
+              f"differ (the noise is drawn); fused tok/s at T {SAMPLED_T} "
+              f"{rates[f'fused, graphs, T {SAMPLED_T}']:.1f} against "
+              f"greedy {rates['fused, graphs']:.1f}")
         if differ == 0:
             raise SystemExit("FAIL serve: the sampled streams equal the "
                              "greedy ones")
@@ -1712,6 +1883,10 @@ def phase_serve(cfg, dev, params=None) -> tuple[dict, tuple, dict]:
     total = {s: launches["fused, graphs"][s]
              + launches["orchestrated, graphs"][s]
              for s in launches["fused, graphs"]}
+    # the sampling kernel's launches: the graphed sampled drive's
+    draws = launches.get(f"fused, graphs, T {SAMPLED_T}", {})
+    if CATEGORICAL_KERNEL.symbol in draws:
+        total[CATEGORICAL_KERNEL.symbol] = draws[CATEGORICAL_KERNEL.symbol]
     return total, max_shape, streams
 
 
@@ -3281,15 +3456,105 @@ def train_drive(label, cfg, params, dev, *, steps, batch, seq, lr):
     return params, state, losses, auxes, times, launches
 
 
-def grad_check(cfg, params, dev) -> dict:
+def grad_configs() -> list:
+    """The configs ``phase_train`` holds by ``grad_check``: llama3.2-1b at
+    full width and depth, TRAIN_WIDE's MoE and TRAIN_RECURRENT's families
+    cut to GRAD_CUT_LAYERS, in the order it checks them."""
+    cfgs = [get_config(TRAIN_ARCH)]
+    cfgs += [c for c in (get_config(arch).with_overrides(**cut)
+                         for arch, cut, _, _ in TRAIN_WIDE)
+             if c.family == "moe"]
+    cfgs += [get_config(arch).with_overrides(n_layers=GRAD_CUT_LAYERS)
+             for arch, *_ in TRAIN_RECURRENT]
+    return cfgs
+
+
+class HostGradients:
+    """The CPU's side of every ``grad_check`` (the plain versions' loss and
+    gradients at GRAD_BATCH), computed in turn on one daemon host thread
+    from the kernels' build on, while the card runs the phases before 6c.
+    The thread first draws each config's weights on the card as
+    ``phase_train`` draws them (seed 0) and copies them to the CPU; the
+    main thread waits for that (``wait_drawn``) before it drives the card.
+    ``take`` holds the card's weights bit-identical to that copy before it
+    hands the CPU's result over.  The thread runs at the lowest priority
+    (nice 19) on half of torch's CPU threads, so that nvcc and the main
+    thread's host-bound drives keep their cores."""
+
+    def __init__(self, dev, cfgs):
+        self.threads = max(1, torch.get_num_threads() // 2)
+        jobs = [(c, {}, threading.Event()) for c in cfgs]
+        self._jobs = {(job[0].name, job[0].n_layers): job for job in jobs}
+        self._drawn = threading.Event()
+        self._error = None
+        threading.Thread(target=self._run, args=(dev, jobs),
+                         name="host-gradients", daemon=True).start()
+
+    def _run(self, dev, jobs) -> None:
+        with contextlib.suppress(OSError):
+            os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+        torch.set_num_threads(self.threads)
+        try:
+            for cfg, out, _ in jobs:
+                params = build_model(cfg).init(
+                    torch.Generator(device=dev).manual_seed(0))
+                out["params"] = tree_unflatten(
+                    params, [t.cpu() for t in tree_leaves(params)])
+                del params
+                b, s = GRAD_BATCH[cfg.name]
+                out["batch"] = next(train_batches(cfg, torch.device("cpu"),
+                                                  b, s))
+            torch.cuda.empty_cache()
+        except BaseException as e:  # noqa: BLE001 - raised in wait_drawn()
+            self._error = e
+        self._drawn.set()
+        for cfg, out, done in jobs:
+            if "params" in out:
+                try:
+                    t0 = time.perf_counter()
+                    loss, _, grads = loss_and_grads(
+                        build_model(cfg), out["params"], out["batch"])
+                    out["result"] = (loss, grads, time.perf_counter() - t0)
+                except BaseException as e:  # noqa: BLE001 - raised in take()
+                    out["error"] = e
+            done.set()
+
+    def wait_drawn(self) -> None:
+        """Wait until the thread has drawn every config's weights on the
+        card (it touches the card no more after that)."""
+        self._drawn.wait()
+        if self._error is not None:
+            raise SystemExit(f"FAIL drawing the gradient checks' weights: "
+                             f"{self._error!r}")
+
+    def take(self, cfg, params):
+        """(loss, grads, CPU seconds, seconds waited) of ``cfg`` at
+        ``params`` (on the card)."""
+        _, out, done = self._jobs.pop((cfg.name, cfg.n_layers))
+        if not all(torch.equal(a.cpu(), b) for a, b in
+                   zip(tree_leaves(params), tree_leaves(out["params"]))):
+            raise SystemExit(f"FAIL {cfg.name} gradients: the card's "
+                             f"weights differ from those of the CPU's side")
+        t0 = time.perf_counter()
+        done.wait()
+        if "error" in out:
+            raise SystemExit(f"FAIL {cfg.name} gradients on the CPU: "
+                             f"{out['error']!r}")
+        loss, grads, secs = out["result"]
+        return loss, grads, secs, time.perf_counter() - t0
+
+
+def grad_check(cfg, params, dev, host: HostGradients) -> dict:
     """The gradients of ``cfg``'s loss on the card (the flash and SSD
     kernels forward and backward) against the CPU's (the plain versions) on the
     same bf16 weights and a GRAD_BATCH batch: the loss within 1e-3
     relative, every leaf within GRAD_REL_BAR (GRAD_REL_BAR_MOE for an MoE,
     GRAD_REL_BAR_SSM for the recurrent families) in relative norm
-    (``grad_rel_errors``).  A missing or sign-flipped
-    attention gradient is off by about 1 or 2 on every leaf below
-    attention (tests/test_torch_gpu.py).  Returns the card's launches."""
+    (``grad_rel_errors``).  The CPU's side is ``host``'s, taken on a host
+    thread beforehand.  A missing or
+    sign-flipped attention gradient is off by about 1 or 2 on every leaf
+    below attention (tests/test_torch_gpu.py).  Returns the card's
+    launches."""
     b, s = GRAD_BATCH[cfg.name]
     bar = {"moe": GRAD_REL_BAR_MOE, "ssm": GRAD_REL_BAR_SSM,
            "hybrid": GRAD_REL_BAR_SSM}.get(cfg.family, GRAD_REL_BAR)
@@ -3301,10 +3566,7 @@ def grad_check(cfg, params, dev) -> dict:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = hold_train_counts(f"{cfg.name} gradients", cfg, 1)
-    cpu = tree_unflatten(params, [t.cpu() for t in tree_leaves(params)])
-    lc, _, g_cpu = loss_and_grads(model, cpu, {k: v.cpu()
-                                               for k, v in mb.items()})
-    t2 = time.perf_counter()
+    lc, g_cpu, cpu_s, waited = host.take(cfg, params)
     errs = grad_rel_errors(g_card, g_cpu)
     names = ["/".join(p) for p, _ in tree_items(params)]
     worst = max(range(len(errs)), key=errs.__getitem__)
@@ -3321,7 +3583,7 @@ def grad_check(cfg, params, dev) -> dict:
           f"{len(errs)} leaves): loss {float(lg):.6f} vs {float(lc):.6f}; "
           f"largest relative error {errs[worst]:.3e} ({names[worst]}), "
           f"{', '.join(parts)} (bar {bar:g}); card {t1 - t0:.2f} s, CPU "
-          f"{t2 - t1:.1f} s")
+          f"{cpu_s:.1f} s on the host thread, {waited:.1f} s waited for")
     if not abs(float(lg) - float(lc)) <= 1e-3 * abs(float(lc)):
         raise SystemExit(f"FAIL {cfg.name} gradients: loss {float(lg)} on "
                          f"the card vs {float(lc)} on the CPU")
@@ -3398,7 +3660,7 @@ def tree_equal(a, b) -> bool:
         for (_, x), (_, y) in zip(ia, ib))
 
 
-def phase_train(dev) -> dict:
+def phase_train(dev, host: HostGradients) -> dict:
     """Phase 6c (b)-(e): training on the card.  (b) llama3.2-1b at full
     width and depth (seed 0, bf16 weights, f32 moments): its gradients
     against the CPU's (``grad_check``), then TRAIN's steps at
@@ -3415,7 +3677,8 @@ def phase_train(dev) -> dict:
     version (``ssd_plain_check``), and cut to GRAD_CUT_LAYERS against the
     CPU's (``grad_check``), then its steps (the SSD kernels forward and
     backward, exact launches), the loss falling by the case's least fall,
-    s/step, tokens/s, peak GiB and the model-FLOP share printed.  Returns
+    s/step, tokens/s, peak GiB and the model-FLOP share printed.  The
+    CPU's gradients are ``host``'s (``grad_configs``).  Returns
     the summed launches."""
     total = {}
 
@@ -3432,7 +3695,7 @@ def phase_train(dev) -> dict:
           f"KV{cfg.n_kv_heads}, vocab {cfg.vocab_size}, {n_params / 1e9:.4f} "
           f"B parameters, remat {cfg.remat}), B {b} x S {s}, {steps} steps, "
           f"lr {TRAIN['lr']:g}")
-    add(grad_check(cfg, params, dev))
+    add(grad_check(cfg, params, dev, host))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params, state, losses, _, times, launches = train_drive(
@@ -3480,7 +3743,7 @@ def phase_train(dev) -> dict:
         params = build_model(wcfg).init(
             torch.Generator(device=dev).manual_seed(0))
         if wcfg.family == "moe":
-            add(grad_check(wcfg, params, dev))
+            add(grad_check(wcfg, params, dev, host))
         # train_drive returns new tensors: params stays the initial weights
         _, _, losses, auxes, times, launches = train_drive(
             wcfg.name, wcfg, params, dev, steps=wsteps, batch=b, seq=s,
@@ -3524,7 +3787,7 @@ def phase_train(dev) -> dict:
             torch.Generator(device=dev).manual_seed(0))
         print(f"  {rcfg.name} cut to {GRAD_CUT_LAYERS} layers for the "
               f"gradients against the CPU's")
-        add(grad_check(ccfg, cut, dev))
+        add(grad_check(ccfg, cut, dev, host))
         del cut
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3612,6 +3875,13 @@ def main() -> int:
 
     def stamp(done: str) -> None:
         print(f"  [{done} done at {time.perf_counter() - start:.1f} s]")
+    host = None
+    if not (trace or kernels_only):
+        cfgs = grad_configs()
+        host = HostGradients(dev, cfgs)
+        which = ", ".join(f"{c.name} at {c.n_layers} layers" for c in cfgs)
+        print(f"phase 6c's CPU gradients ({which}) started on a host thread "
+              f"(nice 19, {host.threads} CPU threads)")
     parent_builds = [BuildThread(target=f) for f in
                      (build_parent_ssd, build_parent_gittins,
                       build_parent_flash_bwd)]
@@ -3646,6 +3916,8 @@ def main() -> int:
                   f"{arch} under torch.profiler")
             phase_trace(get_config(arch), dev)
         return 0
+    if host is not None:
+        host.wait_drawn()   # the card is the main thread's from here on
     cfg = get_config("llama3.2-1b")
     gen = torch.Generator(device=dev).manual_seed(1234)
     print("phase 3: attention and SSD scan kernels vs plain versions")
@@ -3660,6 +3932,8 @@ def main() -> int:
     rows.append(phase_lse(dev, gen))
     phase_wide_heads(dev, gen, {r["name"]: r for r in rows}, kernels_only)
     phase_moe_heads(dev, gen, {r["name"]: r for r in rows})
+    print("phase 3 (categorical): the sampling kernel vs its plain version")
+    rows.append(phase_categorical(dev))
     stamp("phase 3")
     if kernels_only:
         print("phase 6: gittins kernel (no serve drive: main-path shape "
@@ -3761,7 +4035,7 @@ def main() -> int:
     rows.append(phase_train_kernels(dev, gen))
     print("phase 6c (a'): the SSD scan backward kernel vs its plain version")
     rows.append(phase_train_ssd_kernels(dev, gen))
-    for sym, n in phase_train(dev).items():
+    for sym, n in phase_train(dev, host).items():
         launches[sym] = launches.get(sym, 0) + n
     print(f"  phase 6c took {time.perf_counter() - t6c:.1f} s")
     print("phase 6d: the dry-run and the roofline on H100 peaks (meta "
@@ -3775,7 +4049,8 @@ def main() -> int:
                "ssd_scan": SSD_SCAN_KERNEL.symbol,
                "decode_attention_paged_lse": PAGED_LSE_KERNEL.symbol,
                "flash_attention_backward": FLASH_BACKWARD_KERNEL.symbol,
-               "ssd_scan_backward": SSD_BACKWARD_KERNEL.symbol}
+               "ssd_scan_backward": SSD_BACKWARD_KERNEL.symbol,
+               "categorical": CATEGORICAL_KERNEL.symbol}
     for row in rows:
         row["launches"] = launches[symbols[row["name"]]]
     # the flash kernel's two entry points: one launch a call each
@@ -3805,7 +4080,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "split_launches", "lse_launches", "instances", "op_ms",
             "refresh_ms",
-            "staged_copies")
+            "staged_copies", "near_tie_lanes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,10 @@ device sees.
         6. sample and feed completions back to the scheduler.
 
 ``step_mode="fused"`` (default) runs stages 5-6 as one device step over
-``decode_steps`` tokens: argmax (or Gumbel-max) sampling and the per-lane
-length / EOS bookkeeping stay on the device, and the host gets one
-(tokens, emitted, finished) transfer per call.
+``decode_steps`` tokens: argmax (or the reference's threefry Gumbel-max
+draw, ``kernels.categorical``) sampling and the per-lane length / EOS
+bookkeeping stay on the device, and the host gets one (tokens, emitted,
+finished) transfer per call.
 ``step_mode="orchestrated"`` ships logits to the host every token and
 samples with numpy, as the reference's parity oracle does.
 
@@ -96,6 +97,7 @@ import torch
 from ..core.scheduler import Scheduler
 from ..kernels.bucketing import ladder_size as _ladder_size
 from ..kernels.bucketing import pow2_bucket as _pow2_bucket
+from ..kernels.categorical import categorical, prng_key
 from ..models import Model
 from ..simulator.service_model import ServiceModel
 from .kv_cache import SCRATCH_BLOCK, KVCacheManager
@@ -105,9 +107,6 @@ from .sharded import ShardingPlan, estimate_device_bytes
 from .step_graphs import StepGraphs, StepRunner
 
 __all__ = ["ServingEngine", "EngineStallError"]
-
-_MASK32 = 0xFFFFFFFF
-
 
 class EngineStallError(RuntimeError):
     """``run_until_done`` exhausted its step budget with work still live.
@@ -126,34 +125,6 @@ def _rid_seed(request_id: str) -> int:
     position), never on slot assignment or preemption history, so swap
     and recompute schedules sample identical streams."""
     return zlib.crc32(request_id.encode())
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """32-bit integer finaliser on int64 tensors holding values < 2**32
-    (every product stays below 2**63, so no signed overflow)."""
-    x = x & _MASK32
-    x = x ^ (x >> 16)
-    x = (x * 0x45D9F3B) & _MASK32
-    x = x ^ (x >> 16)
-    x = (x * 0x45D9F3B) & _MASK32
-    return x ^ (x >> 16)
-
-
-def gumbel_noise(seed: int, rid_seeds: torch.Tensor, positions: torch.Tensor,
-                 vocab: int, offset: int = 0) -> torch.Tensor:
-    """(lanes, vocab) f32 Gumbel noise from a counter-based hash of
-    (engine seed, request seed, position, token id) for the token ids
-    offset .. offset + vocab - 1: plain integer torch ops, so the CPU and
-    the card draw the same numbers, a lane's draw does not depend on its
-    slot, and a vocab shard draws exactly its columns of the whole row."""
-    dev = rid_seeds.device
-    key = _mix32(_mix32(rid_seeds.long() ^ (seed & _MASK32))
-                 ^ positions.long())
-    col = _mix32(torch.arange(offset, offset + vocab, device=dev,
-                              dtype=torch.int64) + 0x632BE5AB)
-    h = _mix32(key[:, None] ^ col[None, :])
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))     # (0, 1)
-    return -torch.log(-torch.log(u))
 
 
 @dataclass
@@ -247,6 +218,7 @@ class ServingEngine:
             self.service_model = ServiceModel()
         self.metrics = EngineMetrics()
         self._rng = np.random.default_rng(self.seed)
+        self._base_key = prng_key(self.seed)
         self._cache = self.model.init_paged_cache(
             self.kv.pool_blocks, self.block_size, self.n_slots,
             device=self.device, conv_dtype=compute_dtype)
@@ -993,16 +965,14 @@ class ServingEngine:
             if isinstance(logits, list):
                 tok = self._sample_sharded(logits, greedy, safe_t, seeds,
                                            counters + i, all_greedy)
-            else:
+            elif all_greedy:
                 tok = torch.argmax(logits, dim=-1)
-                if not all_greedy:
-                    # Gumbel-max draws keyed by (request seed, position):
-                    # invariant to slot and preemption history
-                    noise = gumbel_noise(self.seed, seeds, counters + i,
-                                         logits.shape[-1])
-                    st_tok = torch.argmax(logits.float() / safe_t[:, None]
-                                          + noise, dim=-1)
-                    tok = torch.where(greedy, tok, st_tok)
+            else:
+                # the reference's categorical draw, keyed by (request
+                # seed, position): invariant to slot and preemption
+                # history; greedy lanes take their argmax
+                _, tok = categorical(logits, safe_t, greedy, self._base_key,
+                                     seeds, counters + i)
             emitted = emitted + act.long()
             fin = fin | (act & ((tok == eos) | (emitted >= caps)))
             last = torch.where(act, tok, last)
@@ -1012,23 +982,21 @@ class ServingEngine:
 
     def _sample_sharded(self, parts, greedy, safe_t, seeds, positions,
                         all_greedy: bool) -> torch.Tensor:
-        """Argmax / Gumbel-max over vocab-sharded logits, partitioned: each
-        shard takes the winner of its columns (the noise of each global
-        token id, so the draw is the unsharded one) and the largest value
-        wins, ties to the lowest global id, as ``torch.argmax`` over the
-        whole row picks.  Only (value, id) per lane crosses shards."""
+        """Argmax / the categorical draw over vocab-sharded logits,
+        partitioned: each shard takes the winner of its columns (drawn at
+        their global ids, so the draw is the unsharded one) and the largest
+        value wins, ties to the lowest global id, as ``torch.argmax`` over
+        the whole row picks.  Only (value, id) per lane crosses shards."""
         best_v = best_i = None
         off = 0
         for part in parts:
             dev = part.device
-            score = part.float()
-            if not all_greedy:
-                noise = gumbel_noise(self.seed, seeds.to(dev),
-                                     positions.to(dev), part.shape[-1],
-                                     offset=off)
-                score = torch.where(greedy.to(dev)[:, None], score,
-                                    score / safe_t.to(dev)[:, None] + noise)
-            v, i = score.max(dim=-1)
+            if all_greedy:
+                v, i = part.float().max(dim=-1)
+            else:
+                v, i = categorical(part, safe_t.to(dev), greedy.to(dev),
+                                   self._base_key, seeds.to(dev),
+                                   positions.to(dev), offset=off)
             v, i = v.to(self.device), i.to(self.device) + off
             if best_v is None:
                 best_v, best_i = v, i

@@ -1,14 +1,16 @@
 """Serving engine of the port (repro_torch.serving) against the reference
 (repro.serving), and the port's own invariants.
 
-The same greedy requests, scheduler and weights (the reference's, upcast
-to f32 on both sides) go through both engines: token streams and the
-preemption / swap counters must be identical, in both step modes and both
-preemption modes, for the dense llama3.2-1b and the recurrent
-mamba2-2.7b (SSM) and zamba2-1.2b (hybrid).  Inside the port: fused ==
-orchestrated, swap == recompute, multi-step == single-step, and for
-temperature > 0 the fused path's Gumbel draws are invariant to preemption
-mode and slot.
+The same requests, scheduler and weights (the reference's, upcast to f32
+on both sides) go through both engines: token streams and the preemption /
+swap counters must be identical, in both step modes and both preemption
+modes, for the dense llama3.2-1b and the recurrent mamba2-2.7b (SSM) and
+zamba2-1.2b (hybrid), greedy and at the paper's temperature 0.6 (the fused
+step draws the reference's threefry categorical, ``kernels.categorical``;
+the orchestrated step samples on the host as the reference does).  Inside
+the port: fused == orchestrated, swap == recompute, multi-step ==
+single-step, and for temperature > 0 the fused path's draws are invariant
+to preemption mode and slot.
 
 The reference's fused step cannot run the recurrent families with f32
 weights as it stands: its decode returns the conv tail in the compute
@@ -33,7 +35,8 @@ from repro.models import build_model as ref_build_model
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
 from repro_torch.models.bridge import params_from_numpy
-from repro_torch.serving.engine import gumbel_noise
+from repro_torch.kernels.categorical import categorical, prng_key
+from repro_torch.kernels.categorical.ref import fold_in, gumbel, lane_keys
 
 # one intra-op thread: the suite runs files in parallel workers, and
 # torch's default thread pool per worker would oversubscribe the CPU
@@ -118,19 +121,45 @@ REF = (ref_core, ref_serving, ref_get_config, ref_build_model)
 PORT = (port_core, port_serving, get_config, build_model)
 
 
-@pytest.mark.parametrize("preemption_mode", ["swap", "recompute"])
-@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
-def test_streams_and_counters_match_reference(weights, step_mode,
-                                              preemption_mode):
-    ref_params, params = weights
-    er, want = _run(REF, ref_params, step_mode=step_mode,
-                    preemption_mode=preemption_mode)
-    ep, got = _run(PORT, params, step_mode=step_mode,
-                   preemption_mode=preemption_mode)
+# the paper's default sampling temperature (repro/serving/request.py:27)
+PAPER_TEMPERATURE = 0.6
+
+
+def _hold_to_reference(ref_params, params, **kw):
+    """Both engines on one workload: streams and counters equal, and the
+    scheduler preempted (swapped, in swap mode, for the recurrent
+    families)."""
+    er, want = _run(REF, ref_params, **kw)
+    ep, got = _run(PORT, params, **kw)
     assert got == want
     assert er.metrics.preemptions > 0
     for name in COUNTERS:
         assert getattr(ep.metrics, name) == getattr(er.metrics, name), name
+    return er
+
+
+@pytest.mark.parametrize("preemption_mode", ["swap", "recompute"])
+@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
+def test_streams_and_counters_match_reference(weights, step_mode,
+                                              preemption_mode):
+    _hold_to_reference(*weights, step_mode=step_mode,
+                       preemption_mode=preemption_mode)
+
+
+@pytest.mark.parametrize("preemption_mode", ["swap", "recompute"])
+@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
+def test_sampled_streams_and_counters_match_reference(weights, step_mode,
+                                                      preemption_mode):
+    """At the paper's temperature: the fused step's threefry draws and the
+    orchestrated step's host draws give the reference's streams."""
+    _hold_to_reference(*weights, step_mode=step_mode,
+                       preemption_mode=preemption_mode,
+                       temperature=PAPER_TEMPERATURE)
+
+
+def _recurrent_kw(arch, step_mode, preemption_mode):
+    return dict(step_mode=step_mode, preemption_mode=preemption_mode,
+                arch=arch, chunk=None, mtps=None)
 
 
 @pytest.mark.parametrize("preemption_mode", ["swap", "recompute"])
@@ -140,16 +169,21 @@ def test_recurrent_streams_and_counters_match_reference(
     """SSM and hybrid: atomic padded prefill, slot-positional fused lanes
     with frozen inactive state, the recurrent state in the swap payload."""
     arch, ref_params, params = recurrent
-    kw = dict(step_mode=step_mode, preemption_mode=preemption_mode,
-              arch=arch, chunk=None, mtps=None)
-    er, want = _run(REF, ref_params, **kw)
-    ep, got = _run(PORT, params, **kw)
-    assert got == want
-    assert er.metrics.preemptions > 0
+    er = _hold_to_reference(ref_params, params,
+                            **_recurrent_kw(arch, step_mode, preemption_mode))
     if preemption_mode == "swap":
         assert er.metrics.swap_outs > 0
-    for name in COUNTERS:
-        assert getattr(ep.metrics, name) == getattr(er.metrics, name), name
+
+
+@pytest.mark.parametrize("preemption_mode", ["swap", "recompute"])
+@pytest.mark.parametrize("step_mode", ["fused", "orchestrated"])
+def test_recurrent_sampled_streams_and_counters_match_reference(
+        recurrent, step_mode, preemption_mode):
+    """The recurrent families at the paper's temperature."""
+    arch, ref_params, params = recurrent
+    _hold_to_reference(ref_params, params,
+                       temperature=PAPER_TEMPERATURE,
+                       **_recurrent_kw(arch, step_mode, preemption_mode))
 
 
 def test_recurrent_swap_and_recompute_mirror_reference(recurrent):
@@ -287,15 +321,30 @@ def test_sampled_streams_swap_recompute_and_slot_invariant(weights):
 
 
 def test_gumbel_noise_is_a_pure_function_of_its_keys():
+    """The fused step's noise (the reference's threefry keys, folded with
+    the request seed and the position): a lane's draw does not depend on
+    the other lanes, the engine seed moves it, and it is a standard
+    Gumbel."""
     seeds = torch.tensor([5, 2**32 - 1, 12345], dtype=torch.int64)
     pos = torch.tensor([0, 7, 7], dtype=torch.int64)
-    a = gumbel_noise(0, seeds, pos, 1000)
+    keys = lane_keys(prng_key(0), seeds, pos)
+    a = gumbel(keys, 1000)
     assert a.shape == (3, 1000) and torch.isfinite(a).all()
-    assert torch.equal(a[1:2], gumbel_noise(0, seeds[1:2], pos[1:2], 1000))
-    assert not torch.equal(a, gumbel_noise(1, seeds, pos, 1000))
+    assert torch.equal(a[1:2], gumbel(lane_keys(prng_key(0), seeds[1:2],
+                                                pos[1:2]), 1000))
+    assert not torch.equal(a, gumbel(lane_keys(prng_key(1), seeds, pos),
+                                     1000))
+    assert torch.equal(keys, fold_in(fold_in(prng_key(0), seeds), pos))
     # a standard Gumbel: mean = Euler-Mascheroni constant, var = pi^2 / 6
     assert abs(float(a.mean()) - 0.5772) < 0.1
     assert abs(float(a.var()) - 1.6449) < 0.3
+    # the op's sampled pick is the argmax of logits / t + this noise
+    logits = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (3, 1000)).astype(np.float32))
+    t = torch.tensor([0.6, 0.6, 1.0])
+    _, tok = categorical(logits, t, torch.zeros(3, dtype=torch.bool),
+                         prng_key(0), seeds, pos)
+    assert torch.equal(tok, torch.argmax(logits / t[:, None] + a, dim=-1))
 
 
 def test_unported_options_refuse():

@@ -7,11 +7,14 @@ and a stall raises with its diagnosis.
 Each engine scenario runs on both packages with the same inputs and
 weights (tests/torch_parity.py), asserts the reference test's own claims
 on each, and holds request states, reasons, streams and engine counters
-equal.  The requests are greedy (the reference's tests sample at the
-default temperature 0.6; the port's sampled draws are its own).  The
-predictor, scheduler, cluster and workload scenarios are host numpy in
-both packages and are held bit-identical.
+equal.  The requests are greedy, and the swap-in fault also runs at the
+paper's temperature 0.6 (the reference's tests' default), where the fused
+step draws the reference's threefry categorical.  The predictor,
+scheduler, cluster and workload scenarios are host numpy in both packages
+and are held bit-identical.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -50,7 +53,7 @@ def _req(pkg, i, prompt="p", max_new=6, n_prompt=6, **kw):
                                eos_token=0, temperature=0.0, **kw)
 
 
-def _swap_engine(pkg):
+def _swap_engine(pkg, temperature=0.0):
     """Tight-capacity swap-mode engine stepped until some request is
     parked in SWAPPED state (capacity-forced preemption)."""
     core, serving, testing, _, _ = pkg
@@ -69,7 +72,7 @@ def _swap_engine(pkg):
                                              int(rng.integers(6, 14)))]
         reqs.append(serving.ServeRequest(
             request_id=f"f{i}", prompt=f"p{i}", prompt_tokens=toks,
-            max_new_tokens=8 + 3 * i, eos_token=1, temperature=0.0,
+            max_new_tokens=8 + 3 * i, eos_token=1, temperature=temperature,
             arrival=float(i) * 1e-3))
     eng.submit_batch(reqs)
     swapped = None
@@ -217,20 +220,29 @@ def test_run_until_done_exhaustion_raises_diagnostic():
 
 # ------------------------------------------------ injected KV faults
 
-def test_swap_in_fault_falls_back_to_recompute():
-    def scenario(pkg):
-        _, serving, testing, _, _ = pkg
-        eng, _, reqs = _swap_engine(pkg)
-        with testing.inject_kv_fault(eng.kv, "swap_in", at_call=0,
-                                     n_calls=1) as stats:
-            eng.run_until_done(max_steps=2000)
-        assert stats["faults"] == 1
-        assert eng.metrics.swap_in_faults == 1
-        assert all(r.state == serving.RequestState.FINISHED for r in reqs)
-        testing.assert_engine_quiesced(eng)
-        return _record(eng, reqs, dict(stats))
+def _swap_in_fault(pkg, temperature=0.0):
+    _, serving, testing, _, _ = pkg
+    eng, _, reqs = _swap_engine(pkg, temperature)
+    with testing.inject_kv_fault(eng.kv, "swap_in", at_call=0,
+                                 n_calls=1) as stats:
+        eng.run_until_done(max_steps=2000)
+    assert stats["faults"] == 1
+    assert eng.metrics.swap_in_faults == 1
+    assert all(r.state == serving.RequestState.FINISHED for r in reqs)
+    testing.assert_engine_quiesced(eng)
+    return _record(eng, reqs, dict(stats))
 
-    _both(scenario)
+
+def test_swap_in_fault_falls_back_to_recompute():
+    _both(_swap_in_fault)
+
+
+def test_swap_in_fault_sampled_at_the_paper_temperature():
+    """The same fault at temperature 0.6: the recompute fallback draws
+    each position from the same (request, position) key, so the records
+    are the reference's, and they are not the greedy ones."""
+    _both(functools.partial(_swap_in_fault, temperature=0.6))
+    assert _swap_in_fault(PORT, 0.6)[0] != _swap_in_fault(PORT)[0]
 
 
 def test_grow_fault_is_absorbed_by_pressure_relief():

@@ -5,11 +5,13 @@ inputs and weights (tests/torch_parity.py), asserts the reference test's
 own claims on each, and holds verdicts, dispositions and reasons, request
 states, streams and engine counters equal.
 
-The requests are greedy (the reference's tests sample at the default
-temperature 0.6): the port's sampled draws are its own (ROADMAP, Port
-conventions, Sampling), and a greedy stream is the one the reference can
-be held to.
+The requests are greedy, and the bounded-queue scenario also runs at the
+paper's temperature 0.6 (the reference's tests' default), where the fused
+step draws the reference's threefry categorical (ROADMAP, Port
+conventions, Sampling).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -35,12 +37,13 @@ def _engine(pkg, n_slots=2, predictor=None, policy="fcfs", **kw):
                   max_seq_len=96, seed=0, **kw)
 
 
-def _req(pkg, i, prompt="p", max_new=6, n_prompt=6, **kw):
+def _req(pkg, i, prompt="p", max_new=6, n_prompt=6, temperature=0.0,
+         **kw):
     rng = np.random.default_rng(i)
     toks = [int(t) for t in rng.integers(3, VOCAB, n_prompt)]
     return pkg[1].ServeRequest(request_id=f"g{i}", prompt=prompt,
                                prompt_tokens=toks, max_new_tokens=max_new,
-                               eos_token=0, temperature=0.0, **kw)
+                               eos_token=0, temperature=temperature, **kw)
 
 
 def _record(gw, eng, reqs, verdicts=()):
@@ -55,29 +58,38 @@ def _both(scenario):
     assert got == want
 
 
-def test_gateway_verdicts_and_bounded_queues():
-    def scenario(pkg):
-        _, serving, testing, _, _ = pkg
-        V = serving.Verdict
-        eng = _engine(pkg, n_slots=1)
-        gw = serving.Gateway(eng, serving.GatewayConfig(
-            max_inflight=2, max_queue_per_tenant=2, max_total_queue=2,
-            max_retries=0, shed_policy="tail"))
-        reqs = [_req(pkg, i) for i in range(6)]
-        verdicts = gw.offer_batch(reqs)
-        assert verdicts == [V.ACCEPT, V.ACCEPT, V.QUEUE, V.QUEUE, V.SHED,
-                            V.SHED]
-        assert eng.metrics.shed == 2
-        gw.run_until_drained(max_steps=2000)
-        gw.assert_all_terminal()
-        kinds = sorted(k for k, _ in gw.dispositions.values())
-        assert kinds == ["FINISHED"] * 4 + ["SHED"] * 2
-        assert all(reason == "queue_full" for k, reason in
-                   gw.dispositions.values() if k == "SHED")
-        testing.assert_engine_quiesced(eng)
-        return _record(gw, eng, reqs, verdicts)
+def _bounded_queues(pkg, temperature=0.0):
+    _, serving, testing, _, _ = pkg
+    V = serving.Verdict
+    eng = _engine(pkg, n_slots=1)
+    gw = serving.Gateway(eng, serving.GatewayConfig(
+        max_inflight=2, max_queue_per_tenant=2, max_total_queue=2,
+        max_retries=0, shed_policy="tail"))
+    reqs = [_req(pkg, i, temperature=temperature) for i in range(6)]
+    verdicts = gw.offer_batch(reqs)
+    assert verdicts == [V.ACCEPT, V.ACCEPT, V.QUEUE, V.QUEUE, V.SHED,
+                        V.SHED]
+    assert eng.metrics.shed == 2
+    gw.run_until_drained(max_steps=2000)
+    gw.assert_all_terminal()
+    kinds = sorted(k for k, _ in gw.dispositions.values())
+    assert kinds == ["FINISHED"] * 4 + ["SHED"] * 2
+    assert all(reason == "queue_full" for k, reason in
+               gw.dispositions.values() if k == "SHED")
+    testing.assert_engine_quiesced(eng)
+    return _record(gw, eng, reqs, verdicts)
 
-    _both(scenario)
+
+def test_gateway_verdicts_and_bounded_queues():
+    _both(_bounded_queues)
+
+
+def test_gateway_sampled_at_the_paper_temperature():
+    """The bounded-queue scenario with every request at temperature 0.6:
+    the records are the reference's, and the streams are not the greedy
+    ones."""
+    _both(functools.partial(_bounded_queues, temperature=0.6))
+    assert _bounded_queues(PORT, 0.6)[2] != _bounded_queues(PORT)[2]
 
 
 def test_gateway_round_robin_protects_tenants():

@@ -28,6 +28,10 @@ with and without a plan.  The SSD scan's backward kernel is held to its
 plain version, and reduced-depth mamba2 and zamba2 gradients on the card
 to the CPU's, a check shown failing with the scan's gradient zeroed.
 
+The sampling kernel (the fused step's threefry categorical) is held to
+its plain version on the card, with a vocab shard's offset, and a graphed
+sampled drive at the paper's temperature to its eager twin.
+
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -43,6 +47,11 @@ import repro_torch.core as port_core
 import repro_torch.serving as port_serving
 import repro_torch.testing as port_testing
 from repro_torch.configs import get_config
+from repro_torch.kernels.categorical.ops import (CATEGORICAL_KERNEL,
+                                                 categorical, prng_key)
+from repro_torch.kernels.categorical.ref import \
+    categorical as categorical_reference
+from repro_torch.kernels.categorical.ref import gumbel, lane_keys
 from repro_torch.kernels.decode_attention.ops import (
     DENSE_DECODE_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
     MMA_MIN_REP, SPLIT_UNIT, SPLIT_UNITS, decode_attention_op,
@@ -1213,10 +1222,75 @@ def test_cuda_engine_lse_split_launches(cuda):
     assert PAGED_DECODE_KERNEL.launches == p0
 
 
+# ------------------------------------------------ the categorical draw
+
+# the card's IEEE logf and torch's log on the card: expected bit-equal; a
+# token may differ only where the plain version's two best scores lie
+# within this fraction of max(1, |best|)
+NEAR_TIE = 4e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,vocab,offset,dtype", [
+    (3, 1000, 0, torch.float32), (16, 50304, 0, torch.bfloat16),
+    (8, 32064, 3 * 32064, torch.bfloat16)])
+def test_cuda_categorical_vs_plain(cuda, lanes, vocab, offset, dtype):
+    """The kernel against its plain version on the same card tensors:
+    mixed greedy and sampled lanes, request seeds up to 2**32 - 1, one
+    vocab shard at its offset; the values bit-equal where the tokens
+    are."""
+    gen = torch.Generator(device=cuda).manual_seed(lanes)
+    logits = (torch.randn(lanes, vocab, generator=gen, device=cuda)
+              * 3).to(dtype)
+    temps = torch.tensor([0.6, 1.0, 0.3] * lanes, device=cuda)[:lanes]
+    greedy = torch.arange(lanes, device=cuda) % 4 == 1
+    safe_t = torch.where(greedy, torch.ones_like(temps), temps)
+    seeds = torch.tensor([0, 2**32 - 1, 12345, 2**31] * lanes,
+                         device=cuda)[:lanes]
+    counters = torch.arange(lanes, device=cuda) * 97
+    args = (logits, safe_t, greedy, prng_key(5), seeds, counters)
+    before = CATEGORICAL_KERNEL.launches
+    v, i = categorical(*args, offset=offset)
+    torch.cuda.synchronize()
+    assert CATEGORICAL_KERNEL.launches == before + 1
+    want_v, want_i = categorical_reference(*args, offset=offset)
+    same = i == want_i
+    assert torch.equal(v[same], want_v[same])
+    for lane in torch.nonzero(~same).flatten().tolist():
+        score = logits[lane].float()
+        if not greedy[lane]:
+            keys = lane_keys(prng_key(5), seeds[lane:lane + 1],
+                             counters[lane:lane + 1])
+            score = score / safe_t[lane] + gumbel(keys, vocab, offset)[0]
+        top2 = score.topk(2).values
+        assert float(top2[0] - top2[1]) <= NEAR_TIE * max(
+            1.0, abs(float(top2[0])))
+    v2, i2 = categorical(*args, offset=offset)
+    assert torch.equal(v, v2) and torch.equal(i, i2)       # deterministic
+
+
+@pytest.mark.gpu
+def test_cuda_graphed_sampled_drive_equals_eager_at_paper_temperature(
+        cuda):
+    """A reduced llama3.2-1b drive with every request at temperature 0.6,
+    fused over 4 tokens a call: graphed == eager token for token and
+    launch for launch, each drive drawing through the sampling kernel
+    once a fused decode iteration."""
+    cfg = get_config(ARCH, reduced=True)
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    before = CATEGORICAL_KERNEL.launches
+    eng = _hold_graphed_to_eager(cuda, cfg, params, step_mode="fused",
+                                 decode_steps=4, temperature=0.6)
+    assert eng.metrics.decode_iterations > 0
+    assert CATEGORICAL_KERNEL.launches - before \
+        == 2 * eng.metrics.decode_iterations
+
+
 # ------------------------------------------- decode steps as CUDA graphs
 
 ENGINE_KERNELS = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, PAGED_LSE_KERNEL,
-                  FLASH_PREFILL_KERNEL, SSD_SCAN_KERNEL)
+                  FLASH_PREFILL_KERNEL, SSD_SCAN_KERNEL, CATEGORICAL_KERNEL)
 
 
 def _graph_drive(cuda, cfg, params, *, graphs, step_mode, temperature,

@@ -49,9 +49,11 @@ def test_every_module_imports_with_jax_blocked():
         "FLASH_PREFILL_KERNEL\n"
         "from repro_torch.kernels.ssd_scan.kernel import SSD_SCAN_KERNEL, "
         "SSD_BACKWARD_KERNEL\n"
+        "from repro_torch.kernels.categorical.kernel import "
+        "CATEGORICAL_KERNEL\n"
         "for k in (GITTINS_KERNEL, PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL,\n"
         "          SSD_SCAN_KERNEL, DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL,\n"
-        "          SSD_BACKWARD_KERNEL):\n"
+        "          SSD_BACKWARD_KERNEL, CATEGORICAL_KERNEL):\n"
         "    assert k._lib is None, k.symbol\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -81,11 +83,16 @@ def test_module_names_mirror_the_reference():
     reference's jit needs no module for, and kernels.grad_guard, the
     refusal of a kernel op without a backward under autograd, which XLA's
     autodiff needs none of, and tree, the nested-dict walks that
-    ``jax.tree`` gives the reference)."""
+    ``jax.tree`` gives the reference, and kernels.categorical, the fused
+    step's sampled draw, which the reference takes from ``jax.random``)."""
     own = {"repro_torch.kernels.build", "repro_torch.models.bridge",
            "repro_torch.launch", "repro_torch.testing.generate",
            "repro_torch.serving.step_graphs",
-           "repro_torch.kernels.grad_guard", "repro_torch.tree"}
+           "repro_torch.kernels.grad_guard", "repro_torch.tree",
+           "repro_torch.kernels.categorical",
+           "repro_torch.kernels.categorical.kernel",
+           "repro_torch.kernels.categorical.ops",
+           "repro_torch.kernels.categorical.ref"}
     ref = {p.relative_to(ROOT / "src").with_suffix("").as_posix()
            .replace("/", ".").removesuffix(".__init__")
            for p in (ROOT / "src" / "repro").rglob("*.py")}

@@ -31,6 +31,8 @@ from repro.models.attention import decode_attention_paged \
     as jax_decode_paged
 from repro.models.attention import encoder_attention as jax_encoder_attn
 from repro.models.attention import gqa_attention as jax_gqa
+from repro_torch.kernels.categorical import (CATEGORICAL_KERNEL, categorical,
+                                             prng_key)
 from repro_torch.kernels.decode_attention.ops import (
     DENSE_DECODE_KERNEL, LSE_SPLIT_UNITS, MMA_MAX_HEADS, MMA_MIN_REP,
     PAGED_DECODE_KERNEL,
@@ -721,11 +723,18 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     with pytest.raises(ValueError, match="unsupported device"):
         decode_attention_op(q[:, 0], cache, cache,
                             torch.empty(1, dtype=torch.int32, device=meta))
+    lanes = torch.empty(2, dtype=torch.int64, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        categorical(torch.empty(2, 16, device=meta),
+                    torch.empty(2, device=meta),
+                    torch.empty(2, dtype=torch.bool, device=meta),
+                    prng_key(0), lanes, lanes)
 
 
 def test_cpu_calls_launch_nothing():
     kernels = (GITTINS_KERNEL, PAGED_DECODE_KERNEL, FLASH_PREFILL_KERNEL,
-               FLASH_SPLIT_KERNEL, DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL)
+               FLASH_SPLIT_KERNEL, DENSE_DECODE_KERNEL, PAGED_LSE_KERNEL,
+               CATEGORICAL_KERNEL)
     before = [k.launches for k in kernels]
     rng = np.random.default_rng(0)
     q, kp, vp, tables, cl = _paged_case(rng, 2, 4, 2, 64, 8, 8, 2)
@@ -745,6 +754,9 @@ def test_cpu_calls_launch_nothing():
     kv = torch.zeros(1, 1024, 2, 64)     # one query over 1024 keys
     flash_attention(x[:, :1], kv, kv, pos[:1],
                     torch.arange(1024, dtype=torch.int32), causal=False)
+    lanes = torch.zeros(2, dtype=torch.int64)
+    categorical(torch.zeros(2, 16), torch.ones(2),
+                torch.tensor([False, True]), prng_key(0), lanes, lanes)
     assert before == [k.launches for k in kernels]
 
 

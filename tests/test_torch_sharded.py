@@ -13,10 +13,10 @@ XLA host devices, which this suite does not set up), so the port's
 sharded engines are held to the reference's single-device engine on the
 same weights (upcast to f32 on both sides): exact mode token-identical,
 efficient mode within ``assert_tokens_close`` (bit-identical at tp = 1).
-The reference's matrix samples at temperature 0.7; the port's Gumbel
-draws are not the reference's threefry draws (ROADMAP, Port conventions),
-so the port is held to the reference on greedy streams and to its own
-no-mesh engine on sampled ones.  The reference's engine starts its conv
+The reference's matrix samples at temperature 0.7: the port's fused step
+draws the reference's threefry categorical (``kernels.categorical``, each
+vocab shard its own columns), so the exact plan's sampled streams are held
+to the reference's and to the port's own no-mesh engine.  The reference's engine starts its conv
 cache in f32 for the recurrent families (tests/test_torch_engine.py, R4).
 """
 
@@ -43,7 +43,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build_model
 from repro_torch.models.bridge import params_from_numpy
-from repro_torch.serving.engine import gumbel_noise
+from repro_torch.kernels.categorical import prng_key
+from repro_torch.kernels.categorical.ref import gumbel, lane_keys
 from repro_torch.serving.sharded import ShardingPlan, estimate_device_bytes
 from repro_torch.sharding import context
 from repro_torch.sharding.partitioning import (decode_rule_table,
@@ -125,10 +126,13 @@ def _run(pkg, *, tp=None, parallel="exact", step_mode="fused",
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(step_mode="fused", pmode="swap", chunk=8, ov=OV, arch=ARCH):
-    """The reference's single-device greedy streams, once per cell."""
+def _reference(step_mode="fused", pmode="swap", chunk=8, ov=OV, arch=ARCH,
+               temperature=0.0):
+    """The reference's single-device streams (greedy by default), once per
+    cell."""
     eng, streams = _run("ref", step_mode=step_mode, pmode=pmode,
-                        chunk=chunk, ov=ov, arch=arch)
+                        chunk=chunk, ov=ov, arch=arch,
+                        temperature=temperature)
     assert eng.metrics.preemptions > 0
     return streams
 
@@ -229,9 +233,9 @@ def test_plan_cuts_the_megatron_axes():
 def test_gumbel_noise_of_a_vocab_shard_is_its_column_slice():
     seeds = torch.tensor([5, 77], dtype=torch.int64)
     pos = torch.tensor([3, 9], dtype=torch.int64)
-    whole = gumbel_noise(0, seeds, pos, 40)
-    assert torch.equal(gumbel_noise(0, seeds, pos, 15, offset=25),
-                       whole[:, 25:])
+    keys = lane_keys(prng_key(0), seeds, pos)
+    whole = gumbel(keys, 40)
+    assert torch.equal(gumbel(keys, 15, offset=25), whole[:, 25:])
 
 
 @pytest.mark.parametrize("all_greedy", [True, False])
@@ -255,7 +259,7 @@ def test_partitioned_sampling_equals_the_unsharded_pick(all_greedy):
                               safe_t, seeds, pos, all_greedy)
     want = torch.argmax(logits, dim=-1)
     if not all_greedy:
-        noise = gumbel_noise(eng.seed, seeds, pos, 512)
+        noise = gumbel(lane_keys(prng_key(eng.seed), seeds, pos), 512)
         st = torch.argmax(logits.float() / safe_t[:, None] + noise, dim=-1)
         want = torch.where(greedy, want, st)
     assert torch.equal(got, want)
@@ -348,6 +352,18 @@ def test_exact_mesh_sampled_streams_match_no_mesh(fam, tp):
     _, want = _run("port", temperature=0.7, arch=arch, ov=ov)
     _, got = _run("port", tp=tp, temperature=0.7, arch=arch, ov=ov)
     assert got == want
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+@pytest.mark.parametrize("fam", sorted(FAMILIES))
+def test_exact_mesh_sampled_streams_match_reference(fam, tp):
+    """Sampled streams (temperature 0.7, the reference matrix's): the exact
+    plan's fused draws equal the reference's single-device engine's."""
+    arch, ov = FAMILIES[fam]
+    want = _reference(arch=arch, ov=ov, temperature=0.7)
+    _, got = _run("port", tp=tp, temperature=0.7, arch=arch, ov=ov)
+    assert got == want, f"{fam}/tp={tp} diverged"
+    assert want != _reference(arch=arch, ov=ov)    # the noise is drawn
 
 
 @pytest.mark.parametrize("tp", WIDTHS)

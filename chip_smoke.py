@@ -62,10 +62,16 @@ Phases:
      step's threefry categorical, ``csrc/categorical.cu``) against its
      plain version at 1, 16 and 64 lanes over 50304, 128256 and 151936
      columns (every fourth lane greedy), a qwen2 tp-4 vocab shard at its
-     offset and the main path's 8 sampled lanes over 128256: tokens equal
-     on every lane but a near tie of the plain scores (counted, printed),
-     each timed beside its plain version and its bound (INT32 operations
-     or bytes).  Kernels and library
+     offset, the main path's 8 sampled lanes and 256 sampled lanes over
+     128256, each at a std-3 draw and a flat one: tokens equal on every
+     lane but a near tie of the plain scores (counted, printed), each
+     timed in turns beside the kernel it replaced
+     (``tools/categorical_variants/two_launch.cu``), with its plain
+     version and its bound (instructions, integer operations or bytes,
+     counted in its SASS); then f32 logits, the hand-made rows of
+     ``repro_torch.testing.sampling``, and the kernel's division and noise
+     against the library's over every input.
+     Kernels and library
      calls are timed on the device (``device_ms``: calls captured in a
      CUDA graph and replayed), plain versions eagerly (``cuda_ms``);
   4. serve at full width, from random weights of a seed, llama3.2-1b,
@@ -361,15 +367,22 @@ F32_FLOPS = 67e12
 # its 128 f32 lanes, an integer op counting one where an f32 FMA counts
 # two in F32_FLOPS
 INT32_OPS = F32_FLOPS / 4
-# the sampling kernel: integer operations a sampled column, counted in the
-# source, not in the built SASS: threefry's 20 rounds of add, rotate and
-# xor (60), the 10 of its 12 key injections that cost an add (x0 = 0 + k0
-# is a move; x1's first add folds into the column counter the loop steps
-# anyway; each later k + c is a per-lane constant) and the uniform's xor,
-# shift and or (3).  The compiler may fuse an injection's add into the
-# next round's (IADD3) or issue adds on the FMA pipe (IMAD), so the card's
-# floor may lie below this bound.  And a lane's key (two fold_ins)
-CATEGORICAL_COLUMN_OPS = 73
+# H100 SXM instructions issued a second: 4 schedulers an SM, each one warp
+# instruction (32 lanes) a clock, at the clock of INT32_OPS
+ISSUE_RATE = 2 * INT32_OPS
+# the sampling kernel's work a sampled column, counted in its built SASS
+# (tools/categorical_variants.py: cuobjdump of the main path's instance, a
+# pair of columns' straight-line draw over two: threefry, the two logs,
+# the add and the compare; the column's load and its division's three
+# FFMA are left out, so the bound stays below the work; CUDA 12 nvcc for
+# sm_90a): integer ALU-pipe operations (IADD3, LOP3, SHF, LEA, ISETP, SEL,
+# ...; IMAD and VIADD issue on the FMA pipe and count only as
+# instructions), and all instructions.  The draw's bound is the largest of
+# the ALU ops over INT32_OPS, the instructions over ISSUE_RATE and the
+# logits' bytes over the HBM rate; phase 3 prints a recount beside these.
+# And a lane's key (two fold_ins, counted in the source)
+CATEGORICAL_COLUMN_OPS = 51.625
+CATEGORICAL_COLUMN_INSTRS = 120.375
 CATEGORICAL_KEY_OPS = 2 * 72
 # a lane's token may differ from the plain version's only where the plain
 # version's two best scores lie within this fraction of max(1, |best|)
@@ -377,14 +390,21 @@ CATEGORICAL_KEY_OPS = 2 * 72
 # values are held within the same bound
 CATEGORICAL_NEAR_TIE = 4e-6
 # phase 3's sampling shapes: lanes x vocab (gpt-neox's 50304, llama3's
-# 128256, qwen2's 151936), and a vocab shard of qwen2-1.5b at tp 4 (the
-# third of four parts); the main path's shape (8 lanes, the fused step's
-# lane floor, over llama3.2-1b's vocab, every lane sampled) is timed into
-# the row
+# 128256, qwen2's 151936), a vocab shard of qwen2-1.5b at tp 4 (the third
+# of four parts), the main path's shape (8 lanes, the fused step's lane
+# floor, over llama3.2-1b's vocab, every lane sampled; timed into the row)
+# and a large sampled batch (256 lanes, 65.7 MB of bf16)
 CATEGORICAL_LANES = (1, 16, 64)
 CATEGORICAL_VOCABS = (50304, 128256, 151936)
 CATEGORICAL_SHARD = (16, 151936 // 4, 2)
 CATEGORICAL_MAIN = (8, 128256)
+CATEGORICAL_LARGE = (256, 128256)
+# the draws phase 3 times at every shape: (name, logit std, temperatures
+# cycled over the lanes): std 3 at T 0.6 / 1.0 / 0.3, and a flat draw
+# (std 0.9: llama3.2-1b's logit spread at the repo's random init, 0.02 x
+# sqrt(2048), at the paper's T 0.6) as the smoke drives give it
+CATEGORICAL_DRAWS = (("std 3", 3.0, (0.6, 1.0, 0.3)),
+                     ("flat std 0.9", 0.9, (0.6,)))
 BF16_TOL = 2e-2          # bf16 kernel vs plain version (tests/test_kernels.py)
 # attention kernels: BF16_TOL, but the absolute part never above this
 # fraction of the compared output's RMS (a wide softmax over thousands of
@@ -608,6 +628,29 @@ def build_parent_gittins() -> None:
         return
     run, log = gittins_variants.build(["warp_row"])["warp_row"]
     PARENT_GITTINS.update(run=run, log=log)
+
+
+# the sampling kernel this one replaced (tools/categorical_variants/
+# two_launch.cu), built beside the package and timed in phase 3, and the
+# checks of the kernel's division and noise against the library's over
+# every input (exact_check.cu); empty where the checkout has no
+# tools/categorical_variants.py
+PARENT_CATEGORICAL: dict = {}
+# the package kernels' nvcc output (phase 2's build), for phases that
+# print a kernel's registers again
+BUILD_LOGS: dict = {}
+
+
+def build_parent_categorical() -> None:
+    try:
+        from tools import categorical_variants
+    except ImportError:
+        return
+    built = categorical_variants.build(["two_launch", "exact_check"])
+    run, log = built["two_launch"]
+    PARENT_CATEGORICAL.update(
+        run=run, log=log, exact_check=built["exact_check"][0],
+        temperatures=len(categorical_variants.DIVIDE_TEMPS))
 
 
 def print_ptxas(log: str) -> None:
@@ -1490,20 +1533,34 @@ def phase_wide_heads(dev, gen, rows: dict, kernels_only: bool) -> None:
 
 
 def categorical_case(dev, gen, lanes: int, n: int, *, offset: int = 0,
-                     mixed: bool = True):
-    """bf16 logits (std 3) of ``lanes`` rows over the columns offset ..
-    offset + n - 1, temperatures cycling 0.6, 1.0, 0.3 (with ``mixed``
-    every fourth lane greedy), request seeds over all of uint32 and
-    positions up to 4096: the op's arguments."""
-    logits = (torch.randn(lanes, n, generator=gen, device=dev) * 3).to(
-        torch.bfloat16)
-    temps = torch.tensor([0.6, 1.0, 0.3], device=dev).repeat(lanes)[:lanes]
+                     mixed: bool = True, std: float = 3.0,
+                     temps=(0.6, 1.0, 0.3), dtype=torch.bfloat16):
+    """Logits (``dtype``, ``std``) of ``lanes`` rows over the columns
+    offset .. offset + n - 1, the temperatures ``temps`` cycled over the
+    lanes (with ``mixed`` every fourth lane greedy), request seeds over
+    all of uint32 and positions up to 4096: the op's arguments."""
+    logits = (torch.randn(lanes, n, generator=gen, device=dev) * std).to(
+        dtype)
+    temps = torch.tensor(temps, device=dev).repeat(lanes)[:lanes]
     greedy = (torch.arange(lanes, device=dev) % 4 == 1) if mixed \
         else torch.zeros(lanes, dtype=torch.bool, device=dev)
     safe_t = torch.where(greedy, torch.ones_like(temps), temps)
     seeds = torch.randint(0, 2**32, (lanes,), generator=gen, device=dev)
     counters = torch.randint(0, 4097, (lanes,), generator=gen, device=dev)
     return logits, safe_t, greedy, prng_key(0), seeds, counters
+
+
+def categorical_shapes() -> list:
+    """Phase 3's sampling cases (lanes, n, offset, every fourth lane
+    greedy): CATEGORICAL_LANES x CATEGORICAL_VOCABS, the tp 4 shard at its
+    offset, the main path's shape and the large batch (all sampled)."""
+    cases = [(lanes, n, 0, True) for lanes in CATEGORICAL_LANES
+             for n in CATEGORICAL_VOCABS]
+    lanes, part, k = CATEGORICAL_SHARD
+    cases.append((lanes, part, k * part, True))
+    cases.append(CATEGORICAL_MAIN + (0, False))
+    cases.append(CATEGORICAL_LARGE + (0, False))
+    return cases
 
 
 def categorical_scores(logits, safe_t, greedy, base, seeds, counters,
@@ -1515,79 +1572,178 @@ def categorical_scores(logits, safe_t, greedy, base, seeds, counters,
     return torch.where(greedy[:, None], x, x / safe_t[:, None] + noise)
 
 
+def categorical_agrees(label: str, got, args, offset: int = 0) -> tuple:
+    """A draw (value, index) against the plain version's on the same
+    inputs: tokens equal on every lane but a near tie of the plain
+    version's scores (within CATEGORICAL_NEAR_TIE), values within the same
+    bar where the tokens agree (NaN where the plain value is NaN).
+    Returns (worst value error, near-tie lanes); fails the run
+    otherwise."""
+    value, index = got
+    torch.cuda.synchronize()
+    want_v, want_i = categorical_ref.categorical(*args, offset=offset)
+    top2 = categorical_scores(*args, offset=offset).topk(2).values
+    bar = CATEGORICAL_NEAR_TIE * top2[:, 0].abs().clamp(min=1.0)
+    same = index == want_i
+    near = (top2[:, 0] - top2[:, 1]) <= bar
+    bad = int((~same & ~near).sum())
+    ties = int((~same).sum())
+    nan = want_v.isnan()
+    bad += int((same & (nan != value.isnan())).sum())
+    finite = same & ~nan & torch.isfinite(want_v)
+    err = (value - want_v).abs()
+    worst = float(err[finite].max()) if bool(finite.any()) else 0.0
+    bad += int((err[finite] > bar[finite]).sum())
+    bad += int((same & ~nan & ~torch.isfinite(want_v)
+                & (value != want_v)).sum())
+    lanes = index.numel()
+    print(f"  {label}: tokens {int(same.sum())}/{lanes} equal, {ties} "
+          f"near-tie lanes, value max_abs_err {worst:.3e} "
+          f"{'OK' if bad == 0 else f'{bad} lanes out of tolerance'}")
+    if bad:
+        raise SystemExit(f"FAIL {label}: the kernel disagrees with its plain "
+                         f"version")
+    return worst, ties
+
+
 def categorical_bound(logits, greedy):
-    """(bytes, integer operations) the draw needs: the logits read once,
-    the small inputs and the (value, index) out; each sampled column's
-    threefry and uniform, each sampled lane's key."""
+    """(bytes, integer ALU operations, instructions) the draw needs: the
+    logits read once, the small inputs and the (value, index) out; each
+    sampled column's draw as the built SASS counts it, each
+    sampled lane's key."""
     lanes, n = logits.shape
     sampled = int((~greedy).sum())
     n_bytes = logits.numel() * logits.element_size() + lanes * (
         4 + 1 + 8 + 8) + lanes * (4 + 8)
     ops = sampled * (n * CATEGORICAL_COLUMN_OPS + CATEGORICAL_KEY_OPS)
-    return n_bytes, ops
+    instrs = sampled * (n * CATEGORICAL_COLUMN_INSTRS + CATEGORICAL_KEY_OPS)
+    return n_bytes, ops, instrs
+
+
+def categorical_bound_ms(logits, greedy):
+    """The draw's bound (ms, by): the largest of its bytes over the HBM
+    rate, its integer ALU operations over INT32_OPS and its instructions
+    over ISSUE_RATE."""
+    n_bytes, ops, instrs = categorical_bound(logits, greedy)
+    terms = {"bytes": n_bytes / HW["hbm_bw"] * 1e3,
+             "operations": ops / INT32_OPS * 1e3,
+             "instructions": instrs / ISSUE_RATE * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def phase_categorical(dev) -> dict:
     """The sampling kernel against its plain version on the card (after
-    every earlier draw, from a generator of its own): mixed greedy and
-    sampled lanes at CATEGORICAL_LANES x CATEGORICAL_VOCABS, a tp 4 vocab
-    shard at its offset, and the main path's shape.  Tokens equal on every
-    lane but a near tie of the plain version's scores (counted and
-    printed; 0 expected), values within CATEGORICAL_NEAR_TIE where the
-    tokens agree; the kernel timed on the device beside its plain version
-    (eager) and its bound (no library call: torch has no threefry)."""
+    every earlier draw, from a generator of its own): at each of
+    CATEGORICAL_DRAWS, mixed greedy and sampled lanes at
+    CATEGORICAL_LANES x CATEGORICAL_VOCABS, a tp 4 vocab shard at its
+    offset, the main path's shape and a large batch; then f32 logits and
+    the hand-made rows (``repro_torch.testing.sampling``) in f32 and bf16;
+    first the kernel's division and noise against the library's over
+    every input (tools/categorical_variants/exact_check.cu).
+    Tokens equal on every lane but a near tie of the plain
+    version's scores (counted and printed; 0 expected), values within
+    CATEGORICAL_NEAR_TIE where the tokens agree; one counted launch a call
+    (tests/test_torch_gpu.py holds it to one device kernel under
+    torch.profiler).  At every shape
+    and draw the kernel is timed on the device in turns with the parent's
+    (tools/categorical_variants/two_launch.cu) beside its bound; the plain
+    version eagerly at the std-3 draw (no library call: torch has no
+    threefry)."""
+    from repro_torch.testing.sampling import edge_rows
     gen = torch.Generator(device=dev).manual_seed(27)
-    cases = [(lanes, n, 0, True) for lanes in CATEGORICAL_LANES
-             for n in CATEGORICAL_VOCABS]
-    lanes, part, k = CATEGORICAL_SHARD
-    cases.append((lanes, part, k * part, True))
-    cases.append(CATEGORICAL_MAIN + (0, False))
     row = {"name": "categorical", "route": "cuda",
            "source": "src/repro_torch/csrc/categorical.cu",
            "replaces": "src/repro/serving/engine.py:314 "
                        "(jax.random.categorical by XLA; no Pallas kernel)",
            "max_abs_err": 0.0, "library_ms": None, "near_tie_lanes": 0}
-    for lanes, n, offset, mixed in cases:
-        args = categorical_case(dev, gen, lanes, n, offset=offset,
-                                mixed=mixed)
+    if "categorical" in BUILD_LOGS:
+        print("  the kernel (ptxas):")
+        print_ptxas(BUILD_LOGS["categorical"])
+    if "log" in PARENT_CATEGORICAL:
+        print("  the parent's kernel "
+              "(tools/categorical_variants/two_launch.cu, ptxas):")
+        print_ptxas(PARENT_CATEGORICAL["log"])
+    try:
+        from tools import categorical_variants
+        from repro_torch.kernels.build import CSRC_DIR, _library_path
+        counts = categorical_variants.sass_counts(
+            _library_path(CSRC_DIR / "categorical.cu"))
+        print("  SASS recount: " + categorical_variants.format_counts(counts)
+              + f" (pinned: {CATEGORICAL_COLUMN_OPS} ALU ops, "
+              f"{CATEGORICAL_COLUMN_INSTRS} instructions a column)")
+    except (ImportError, RuntimeError, OSError,
+            subprocess.SubprocessError) as e:
+        print(f"  SASS recount: not counted ({e})")
+    if "exact_check" in PARENT_CATEGORICAL:
+        fast, bad, bad_noise = PARENT_CATEGORICAL["exact_check"]()
+        print(f"  the kernel's division over every f32 x at "
+              f"{PARENT_CATEGORICAL['temperatures']} temperatures: {fast} on "
+              f"its fast path, {bad} differ from __fdiv_rn; its noise over "
+              f"all 2**23 uniforms: {bad_noise} differ from "
+              f"-logf(-logf(u))")
+        if bad or bad_noise:
+            raise SystemExit("FAIL categorical: the kernel's division or "
+                             "noise differs from the library's")
+    else:
+        print("  the kernel's division and noise: not checked against the "
+              "library's (no tools/categorical_variants.py)")
+
+    def one_launch(label, args, offset=0):
         before = CATEGORICAL_KERNEL.launches
-        value, index = categorical(*args, offset=offset)
-        torch.cuda.synchronize()
+        got = categorical(*args, offset=offset)
         if CATEGORICAL_KERNEL.launches != before + 1:
-            raise SystemExit("FAIL categorical: the op did not count one "
-                             "launch")
-        want_v, want_i = categorical_ref.categorical(*args, offset=offset)
-        top2 = categorical_scores(*args, offset=offset).topk(2).values
-        bar = CATEGORICAL_NEAR_TIE * top2[:, 0].abs().clamp(min=1.0)
-        same = index == want_i
-        near = (top2[:, 0] - top2[:, 1]) <= bar
-        bad = int((~same & ~near).sum())
-        ties = int((~same).sum())
-        err = (value - want_v).abs()
-        worst = float(err[same].max()) if bool(same.any()) else 0.0
-        bad += int((err[same] > bar[same]).sum())
-        label = (f"categorical {lanes} lanes x {n}"
-                 f"{f' at offset {offset}' if offset else ''}"
-                 f"{' (every fourth greedy)' if mixed else ' (all sampled)'}")
-        print(f"  {label}: tokens {int(same.sum())}/{lanes} equal, "
-              f"{ties} near-tie lanes, value max_abs_err {worst:.3e} "
-              f"{'OK' if bad == 0 else f'{bad} lanes out of tolerance'}")
-        if bad:
-            raise SystemExit(f"FAIL {label}: the kernel disagrees with its "
-                             f"plain version")
+            raise SystemExit(f"FAIL {label}: the op did not count one "
+                             f"launch")
+        worst, ties = categorical_agrees(label, got, args, offset)
         row["max_abs_err"] = max(row["max_abs_err"], worst)
         row["near_tie_lanes"] += ties
-        ms = device_ms(lambda: categorical(*args, offset=offset))
-        plain_ms = cuda_ms(lambda: categorical_ref.categorical(
-            *args, offset=offset), iters=3, warmup=1)
-        n_bytes, ops = categorical_bound(args[0], args[2])
-        bnd, by = bound_ms(n_bytes, ops, INT32_OPS)
-        print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bnd:.5f} ms ({by}: {ops / 1e6:.1f} M int32 ops, "
-              f"{n_bytes / 1e6:.2f} MB)")
-        if (lanes, n) == CATEGORICAL_MAIN and not mixed:
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
-        del args, value, index, want_v, want_i, top2
+
+    for draw, std, temps in CATEGORICAL_DRAWS:
+        for lanes, n, offset, mixed in categorical_shapes():
+            args = categorical_case(dev, gen, lanes, n, offset=offset,
+                                    mixed=mixed, std=std, temps=temps)
+            kind = " (every fourth greedy)" if mixed else " (all sampled)"
+            label = (f"categorical {draw}, {lanes} lanes x {n}"
+                     f"{f' at offset {offset}' if offset else ''}{kind}")
+            one_launch(label, args, offset)
+            fns = {"kernel": lambda: categorical(*args, offset=offset)}
+            if "run" in PARENT_CATEGORICAL:
+                fns["parent"] = lambda: PARENT_CATEGORICAL["run"](
+                    *args, offset=offset)
+            times = in_turns(fns)
+            ms = times["kernel"]
+            plain_ms = None
+            if std == CATEGORICAL_DRAWS[0][1]:
+                plain_ms = cuda_ms(lambda: categorical_ref.categorical(
+                    *args, offset=offset), iters=3, warmup=1)
+            n_bytes, ops, instrs = categorical_bound(args[0], args[2])
+            bnd, by = categorical_bound_ms(args[0], args[2])
+            print(f"    kernel {ms:.5f} ms, {versus_parent(times)}"
+                  f"{f', plain {plain_ms:.4f} ms' if plain_ms else ''}; "
+                  f"bound {bnd:.5f} ms ({by}: {ops / 1e6:.1f} M ALU ops, "
+                  f"{instrs / 1e6:.1f} M instructions, {n_bytes / 1e6:.2f} "
+                  f"MB)")
+            if (lanes, n) == CATEGORICAL_MAIN and not mixed:
+                key = "" if std == CATEGORICAL_DRAWS[-1][1] else "_std3"
+                row.update({f"ms{key}": ms,
+                            f"parent_ms{key}": times.get("parent")})
+                if key == "":
+                    row.update(bound_ms=bnd, bound_by=by)
+                if plain_ms is not None:
+                    row["plain_ms"] = plain_ms
+            del args
+    args = categorical_case(dev, gen, 16, 50304, dtype=torch.float32)
+    one_launch("categorical f32, 16 lanes x 50304 (every fourth greedy)",
+               args)
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = edge_rows(dev, dtype)
+        one_launch(f"categorical hand-made rows, {dtype}", rows.args)
+        _, index = categorical(*rows.args)
+        for lane, col in rows.want.items():
+            if lane != 5 and int(index[lane]) != col:   # 5: the CPU's tie
+                raise SystemExit(f"FAIL categorical hand-made lane {lane}: "
+                                 f"column {int(index[lane])}, not {col}")
     print(f"  categorical: {row['near_tie_lanes']} near-tie lanes in all "
           f"(0 expected)")
     torch.cuda.empty_cache()
@@ -3884,7 +4040,7 @@ def main() -> int:
               f"(nice 19, {host.threads} CPU threads)")
     parent_builds = [BuildThread(target=f) for f in
                      (build_parent_ssd, build_parent_gittins,
-                      build_parent_flash_bwd)]
+                      build_parent_flash_bwd, build_parent_categorical)]
     for t in parent_builds:
         t.start()          # their nvcc beside the package's
     built = build_all()
@@ -3893,6 +4049,7 @@ def main() -> int:
           f"{ {k: round(v[0], 2) for k, v in built.items()} })")
     for _, log in built.values():
         print_ptxas(log)
+    BUILD_LOGS.update({k: log for k, (_, log) in built.items()})
     for t in parent_builds:
         t.join()
     if "log" in PARENT_SSD:
@@ -4080,7 +4237,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "split_launches", "lse_launches", "instances", "op_ms",
             "refresh_ms",
-            "staged_copies", "near_tie_lanes")
+            "staged_copies", "near_tie_lanes", "parent_ms", "ms_std3",
+            "parent_ms_std3")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,9 @@ _p, _i, _l, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_uint
 
 # categorical_sample(logits, is_bf16, ld, temps, greedy, seeds, counters,
-#                    base0, base1, part_v, part_i, blocks, value, index,
-#                    lanes, n, offset, stream): two launches (the column
-#                    blocks' partials, their merge), counted as one call
+#                    base0, base1, partials, blocks, value, index, lanes,
+#                    n, offset, stream): one launch (the column blocks of
+#                    each lane, the last of which merges them)
 CATEGORICAL_KERNEL = CudaKernel(
     "categorical", "categorical_sample",
-    [_p, _i, _l, _p, _p, _p, _p, _u, _u, _p, _p, _i, _p, _p, _i, _i, _l, _p])
+    [_p, _i, _l, _p, _p, _p, _p, _u, _u, _p, _i, _p, _p, _i, _i, _l, _p])

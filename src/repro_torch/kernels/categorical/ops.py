@@ -7,9 +7,17 @@ offset + n - 1 of the whole row (a vocab shard of a plan passes its own),
 and returns each lane's (value, column) winner: for a sampled lane the
 largest ``logits.float() / temps + gumbel`` with the reference's threefry
 keys, for a greedy lane the largest raw logit, ties to the lowest column.
-The kernel is two launches (the row's fixed column blocks, their merge),
-counted as one, on ``torch.cuda.current_stream``, so a CUDA graph captures
-it; its scratch is allocated here.
+The kernel is one launch (COLUMN_BLOCKS fixed column blocks a lane, the
+last of which merges the lane's partials), on
+``torch.cuda.current_stream``, so a CUDA graph captures it; its partials
+are allocated here, each written before it is read.
+
+The kernel counts each lane's finished blocks in counters of its own on
+the device, which the merging block sets back to 0, so two calls on one
+device must not run at once.  The engine's cannot: it draws from its one
+decode loop, eagerly or as a replay of a step graph, on the device's
+current stream, and each draw waits in stream order for the one before.
+A caller that draws on several streams orders them itself.
 """
 
 from __future__ import annotations
@@ -22,9 +30,12 @@ from .ref import MASK32, categorical as categorical_reference, prng_key
 
 __all__ = ["categorical", "prng_key", "CATEGORICAL_KERNEL", "COLUMN_BLOCKS"]
 
-# column blocks a lane: the kernel's grid and the scratch's width (a count
+# column blocks a lane: the kernel's grid and the partials' width (a count
 # that depends neither on the batch nor on the table width)
 COLUMN_BLOCKS = 64
+# the widest block of logits the kernel takes: 16 columns a thread of 256,
+# in each of COLUMN_BLOCKS blocks (every vocabulary of the configs)
+MAX_COLUMNS = COLUMN_BLOCKS * 16 * 256
 
 
 def categorical(logits: torch.Tensor, temps: torch.Tensor,
@@ -61,21 +72,23 @@ def categorical(logits: torch.Tensor, temps: torch.Tensor,
     if base_key.device.type != "cpu" or base_key.shape != (2,):
         raise ValueError("categorical: base_key must be prng_key(seed), a "
                          "(2,) tensor on the CPU")
+    if n > MAX_COLUMNS:
+        raise ValueError(f"categorical: {n} columns, the kernel takes at "
+                         f"most {MAX_COLUMNS}")
     if offset < 0 or offset + n > MASK32 + 1:
         raise ValueError(f"categorical: columns {offset}..{offset + n} "
                          f"exceed the uint32 counter")
     k0, k1 = (int(w) & MASK32 for w in base_key.tolist())
-    part_v = torch.empty((lanes, COLUMN_BLOCKS), dtype=torch.float32,
-                         device=dev)
-    part_i = torch.empty((lanes, COLUMN_BLOCKS), dtype=torch.int32,
-                         device=dev)
+    partials = torch.empty((lanes, COLUMN_BLOCKS, 2), dtype=torch.int32,
+                           device=dev)
     value = torch.empty(lanes, dtype=torch.float32, device=dev)
     index = torch.empty(lanes, dtype=torch.int64, device=dev)
     CATEGORICAL_KERNEL(
         logits.data_ptr(), int(logits.dtype == torch.bfloat16),
         logits.stride(0), temps.data_ptr(), greedy.data_ptr(),
-        rid_seeds.data_ptr(), counters.data_ptr(), k0, k1, part_v.data_ptr(),
-        part_i.data_ptr(), COLUMN_BLOCKS, value.data_ptr(), index.data_ptr(),
-        lanes, n, offset, torch.cuda.current_stream(dev).cuda_stream)
+        rid_seeds.data_ptr(), counters.data_ptr(), k0, k1,
+        partials.data_ptr(), COLUMN_BLOCKS, value.data_ptr(),
+        index.data_ptr(), lanes, n, offset,
+        torch.cuda.current_stream(dev).cuda_stream)
     CATEGORICAL_KERNEL.launches += 1
     return value, index

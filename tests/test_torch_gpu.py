@@ -29,8 +29,12 @@ plain version, and reduced-depth mamba2 and zamba2 gradients on the card
 to the CPU's, a check shown failing with the scan's gradient zeroed.
 
 The sampling kernel (the fused step's threefry categorical) is held to
-its plain version on the card, with a vocab shard's offset, and a graphed
-sampled drive at the paper's temperature to its eager twin.
+its plain version on the card, with a vocab shard's offset, on hand-made
+rows (NaN, -inf, +inf, ties), at 256 lanes in bf16 and f32 and on
+unaligned rows; one call is one kernel node of a CUDA graph, graphed as
+eager; its division and noise are the library's bit for bit over every
+input; and a graphed sampled drive at the paper's temperature is held to
+its eager twin.
 
 Every test here carries the ``gpu`` marker and skips without a card; the
 check runs when the test runs, never at import or collection.  This file
@@ -78,6 +82,7 @@ from repro_torch.models.attention import decode_attention_paged
 from repro_torch.models.layers import init_from_template
 from repro_torch.models.moe import moe_ffn, moe_template
 from repro_torch.testing import assert_tokens_close
+from repro_torch.testing.sampling import edge_rows
 from repro_torch.testing.generate import (dense_cache_from_prefill,
                                           greedy_generate,
                                           teacher_forced_check)
@@ -1267,6 +1272,149 @@ def test_cuda_categorical_vs_plain(cuda, lanes, vocab, offset, dtype):
             1.0, abs(float(top2[0])))
     v2, i2 = categorical(*args, offset=offset)
     assert torch.equal(v, v2) and torch.equal(i, i2)       # deterministic
+
+
+def _hold_draw_to_plain(args, offset=0):
+    """The kernel's draw against the plain version's on the same card
+    tensors, with one counted launch: tokens equal but on a near tie of the
+    plain scores, values bit-equal (NaN where the plain value is NaN) where
+    the tokens are.  Returns the kernel's (value, index)."""
+    before = CATEGORICAL_KERNEL.launches
+    v, i = categorical(*args, offset=offset)
+    torch.cuda.synchronize()
+    assert CATEGORICAL_KERNEL.launches == before + 1
+    want_v, want_i = categorical_reference(*args, offset=offset)
+    same = i == want_i
+    torch.testing.assert_close(v[same], want_v[same], rtol=0, atol=0,
+                               equal_nan=True)
+    logits, safe_t, greedy, base, seeds, counters = args
+    for lane in torch.nonzero(~same).flatten().tolist():
+        score = logits[lane].float()
+        if not greedy[lane]:
+            keys = lane_keys(base, seeds[lane:lane + 1],
+                             counters[lane:lane + 1])
+            score = score / safe_t[lane] + gumbel(
+                keys, logits.shape[1], offset)[0]
+        top2 = score.topk(2).values
+        assert float(top2[0] - top2[1]) <= NEAR_TIE * max(
+            1.0, abs(float(top2[0])))
+    return v, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_categorical_hand_made_rows(cuda, dtype):
+    """The hand-made rows (``repro_torch.testing.sampling``): a clear
+    winner, NaN columns on sampled and greedy lanes, all -inf rows, ties of
+    raw logits and of exact scores, +inf columns: the kernel picks what the
+    plain version picks on the card, and the columns the rows were made
+    for (lane 5's exact tie is the CPU's noise, so it is held to the plain
+    version only)."""
+    rows = edge_rows(cuda, dtype)
+    _, index = _hold_draw_to_plain(rows.args)
+    for lane, col in rows.want.items():
+        if lane != 5:
+            assert int(index[lane]) == col, (lane, int(index[lane]), col)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,vocab,dtype,std", [
+    (256, 128256, torch.bfloat16, 3.0), (256, 50304, torch.float32, 3.0),
+    (256, 128256, torch.bfloat16, 0.9), (5, 77, torch.float32, 3.0)])
+def test_cuda_categorical_batches(cuda, lanes, vocab, dtype, std):
+    """A large sampled batch (256 lanes) in bf16 and f32, at a std-3 and a
+    flat std-0.9 draw, and rows of fewer columns than the kernel's column
+    blocks (some blocks empty): the kernel against its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(lanes + vocab)
+    logits = (torch.randn(lanes, vocab, generator=gen, device=cuda)
+              * std).to(dtype)
+    temps = torch.tensor([0.6, 1.0, 0.3] * lanes, device=cuda)[:lanes]
+    greedy = torch.arange(lanes, device=cuda) % 8 == 5
+    safe_t = torch.where(greedy, torch.ones_like(temps), temps)
+    seeds = torch.randint(0, 2**32, (lanes,), generator=gen, device=cuda)
+    counters = torch.randint(0, 4097, (lanes,), generator=gen, device=cuda)
+    _hold_draw_to_plain((logits, safe_t, greedy, prng_key(9), seeds,
+                         counters))
+
+
+@pytest.mark.gpu
+def test_cuda_categorical_unaligned_rows(cuda):
+    """Rows whose start is not 16-byte aligned (a column slice of a wider
+    table, at its offset): the same picks as the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    wide = (torch.randn(6, 3001, generator=gen, device=cuda) * 3).bfloat16()
+    logits = wide[:, 3:]
+    lanes = logits.shape[0]
+    args = (logits, torch.full((lanes,), 0.6, device=cuda),
+            torch.zeros(lanes, dtype=torch.bool, device=cuda), prng_key(1),
+            torch.arange(lanes, device=cuda) * 7,
+            torch.arange(lanes, device=cuda))
+    _hold_draw_to_plain(args, offset=3)
+
+
+def _graph_node_types(graph) -> list:
+    """The node types of a captured, kept graph (``keep_graph=True``),
+    through the driver API (CU_GRAPH_NODE_TYPE_KERNEL is 0)."""
+    import ctypes
+    driver = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert driver.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert driver.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert driver.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                         ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+@pytest.mark.gpu
+def test_cuda_categorical_one_kernel_a_call_and_graphed(cuda):
+    """One call captured in a CUDA graph is one node, a kernel (no merge
+    kernel, no memset), and the graph replayed gives the eager call's
+    (value, index) on new logits written into the same tensor."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    lanes, vocab = 8, 128256
+    logits = (torch.randn(lanes, vocab, generator=gen, device=cuda)
+              * 3).bfloat16()
+    args = (logits, torch.full((lanes,), 0.6, device=cuda),
+            torch.zeros(lanes, dtype=torch.bool, device=cuda), prng_key(0),
+            torch.arange(lanes, device=cuda) * 11,
+            torch.arange(lanes, device=cuda))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        categorical(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        got = categorical(*args)
+    assert _graph_node_types(graph) == [0]
+    graph.instantiate()
+    for k in range(3):
+        logits.copy_((torch.randn(lanes, vocab, generator=gen, device=cuda)
+                      * (1 + k)).bfloat16())
+        graph.replay()
+        torch.cuda.synchronize()
+        want = categorical(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_categorical_arithmetic_is_the_librarys(cuda):
+    """The kernel's own arithmetic, built from its source
+    (``tools/categorical_variants/exact_check.cu`` includes
+    ``csrc/categorical.cu``): its division (t's reciprocal taken once) is
+    ``__fdiv_rn`` bit for bit wherever it takes its fast path, over every
+    f32 x at 64 temperatures, and its noise (``neg_log`` twice) is
+    ``-logf(-logf(u))`` bit for bit over all 2**23 uniforms."""
+    from tools import categorical_variants
+    check = categorical_variants.build(["exact_check"])["exact_check"][0]
+    fast, bad, bad_noise = check()
+    assert fast > 0 and bad == 0 and bad_noise == 0
 
 
 @pytest.mark.gpu

@@ -84,7 +84,8 @@ def test_module_names_mirror_the_reference():
     refusal of a kernel op without a backward under autograd, which XLA's
     autodiff needs none of, and tree, the nested-dict walks that
     ``jax.tree`` gives the reference, and kernels.categorical, the fused
-    step's sampled draw, which the reference takes from ``jax.random``)."""
+    step's sampled draw, which the reference takes from ``jax.random``,
+    and testing.sampling, that draw's hand-made rows)."""
     own = {"repro_torch.kernels.build", "repro_torch.models.bridge",
            "repro_torch.launch", "repro_torch.testing.generate",
            "repro_torch.serving.step_graphs",
@@ -92,7 +93,8 @@ def test_module_names_mirror_the_reference():
            "repro_torch.kernels.categorical",
            "repro_torch.kernels.categorical.kernel",
            "repro_torch.kernels.categorical.ops",
-           "repro_torch.kernels.categorical.ref"}
+           "repro_torch.kernels.categorical.ref",
+           "repro_torch.testing.sampling"}
     ref = {p.relative_to(ROOT / "src").with_suffix("").as_posix()
            .replace("/", ".").removesuffix(".__init__")
            for p in (ROOT / "src" / "repro").rglob("*.py")}

@@ -22,6 +22,7 @@ from repro_torch.kernels.build import shape_pass
 from repro_torch.kernels.categorical import categorical, prng_key
 from repro_torch.kernels.categorical.ref import (fold_in, gumbel, lane_keys,
                                                  threefry2x32, uniform)
+from repro_torch.testing.sampling import EDGE_N, edge_rows
 
 torch.set_num_threads(1)
 
@@ -191,3 +192,62 @@ def test_op_outputs_and_meta_shape_pass():
     with shape_pass():
         v, i = categorical(logits.to("meta"), *meta)
     assert v.shape == (2,) and i.shape == (2,) and i.device.type == "meta"
+
+
+# ------------------------------------------------------- hand-made rows
+
+# (lane, dtype) of each hand-made row the plain version is held to: every
+# named lane in f32, and in bf16 all but lane 5, whose exact tie is made in
+# f32 and rounds away in bf16
+_ROWS = ([(lane, torch.float32) for lane in (0, 1, 2, 3, 4, 5, 6, 7)]
+         + [(lane, torch.bfloat16) for lane in (0, 1, 2, 3, 4, 6, 7)])
+
+
+@pytest.mark.parametrize("lane, dtype", _ROWS)
+def test_hand_made_rows(lane, dtype):
+    """The hand-made rows (``repro_torch.testing.sampling``): the plain
+    version picks the column each lane was made for (a clear winner, the
+    first NaN of a sampled and of a greedy lane, column 0 of an all -inf
+    row, the lower column of a tie of raw logits and of exact scores, the
+    first +inf), with the value that column scores."""
+    rows = edge_rows(dtype=dtype)
+    value, index = categorical(*rows.args)
+    col = rows.want[lane]
+    assert int(index[lane]) == col
+    logits, temps, greedy, base, seeds, counters = rows.args
+    x = logits[lane, col].float()
+    if greedy[lane]:
+        want = x
+    else:
+        keys = lane_keys(base, seeds[lane:lane + 1], counters[lane:lane + 1])
+        want = x / temps[lane] + gumbel(keys, EDGE_N)[0, col]
+    torch.testing.assert_close(value[lane], want, rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+def test_hand_made_rows_on_vocab_shards(parts):
+    """The hand-made rows cut into vocab shards at their offsets, each
+    drawn alone and merged by value, ties to the earlier shard (as the
+    engine's ``_sample_sharded`` merges them): the whole row's (value,
+    column) on every lane without a NaN (the merge lets a later shard's
+    NaN lose, the whole row's argmax lets it win)."""
+    rows = edge_rows()
+    want_v, want_i = categorical(*rows.args)
+    logits = rows.args[0]
+    bounds = np.linspace(0, EDGE_N, parts + 1).astype(int)
+    best_v = best_i = None
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        v, i = categorical(logits[:, lo:hi], *rows.args[1:], offset=int(lo))
+        i = i + int(lo)
+        if best_v is None:
+            best_v, best_i = v, i
+        else:
+            better = v > best_v
+            best_v = torch.where(better, v, best_v)
+            best_i = torch.where(better, i, best_i)
+    lanes = [k for k in range(logits.shape[0])
+             if not bool(logits[k].isnan().any())]
+    assert len(lanes) == 8
+    assert torch.equal(best_i[lanes], want_i[lanes])
+    assert torch.equal(best_v[lanes], want_v[lanes])

@@ -1,0 +1,7 @@
+"""Per-layer metric ``device_idle_pct.open``: see ``servebench/readers.py``."""
+
+from servebench import readers
+
+
+def read(w):
+    return readers.device_idle_pct(w)

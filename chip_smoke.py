@@ -1,11 +1,6 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # one H100; exits non-zero on any failure
-    python3 chip_smoke.py --trace    # phases 1-2, then a graphed and an
-                                     # eager fused drive of each served
-                                     # model under torch.profiler: device
-                                     # busy share and the largest
-                                     # device-time entries
     python3 chip_smoke.py --kernels  # phases 1-3, 6, 6c (a), (a') only: every
                                      # kernel check and time, no drive and
                                      # no result line
@@ -3144,38 +3139,6 @@ def phase_dryrun() -> None:
     print(f"  phase 6d took {time.perf_counter() - t0:.1f} s")
 
 
-def phase_trace(cfg, dev) -> None:
-    """Device busy share of a graphed and an eager fused serve drive, each
-    from a torch.profiler trace of the card's activity, and the largest
-    device-time entries of each."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_us(e) -> float:
-        return float(getattr(e, "self_device_time_total", 0.0)
-                     or getattr(e, "self_cuda_time_total", 0.0))
-
-    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
-    for graphs in (True, False):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            engine, reqs, secs, _ = serve(cfg, params, dev, "fused",
-                                          graphs=graphs)
-        report = graph_report(engine)
-        del engine
-        torch.cuda.empty_cache()
-        events = sorted(prof.key_averages(), key=device_us, reverse=True)
-        busy_s = sum(device_us(e) for e in events) / 1e6
-        print(f"  traced fused drive of {cfg.name} "
-              f"({'graphs' if graphs else 'eager'}): wall {secs:.3f} s "
-              f"(profiler on), device busy {busy_s:.3f} s = "
-              f"{100 * busy_s / secs:.1f}% of wall, "
-              f"{sum(r.generated for r in reqs)} tokens; {report}")
-        for e in events[:12]:
-            print(f"    {device_us(e) / 1e3:10.3f} ms  {e.count:7d} x  "
-                  f"{e.key[:90]}")
-    del params
-    torch.cuda.empty_cache()
-
-
 # -------------------------------------------------------------- phase 6c
 
 # the backward kernel's shapes: (label, B, Sq, H, KV, dh, causal, window,
@@ -4007,10 +3970,9 @@ def accum_check(cfg, params, dev) -> dict:
 
 
 def main() -> int:
-    trace = sys.argv[1:] == ["--trace"]
     kernels_only = sys.argv[1:] == ["--kernels"]
-    if sys.argv[1:] and not (trace or kernels_only):
-        print(f"usage: {sys.argv[0]} [--trace | --kernels]", file=sys.stderr)
+    if sys.argv[1:] and not kernels_only:
+        print(f"usage: {sys.argv[0]} [--kernels]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run "
@@ -4032,7 +3994,7 @@ def main() -> int:
     def stamp(done: str) -> None:
         print(f"  [{done} done at {time.perf_counter() - start:.1f} s]")
     host = None
-    if not (trace or kernels_only):
+    if not kernels_only:
         cfgs = grad_configs()
         host = HostGradients(dev, cfgs)
         which = ", ".join(f"{c.name} at {c.n_layers} layers" for c in cfgs)
@@ -4067,12 +4029,6 @@ def main() -> int:
               "(tools/gittins_variants/warp_row.cu):")
         print_ptxas(PARENT_GITTINS["log"])
 
-    if trace:
-        for arch in SERVED:
-            print(f"trace: a graphed and an eager fused serve drive of "
-                  f"{arch} under torch.profiler")
-            phase_trace(get_config(arch), dev)
-        return 0
     if host is not None:
         host.wait_drawn()   # the card is the main thread's from here on
     cfg = get_config("llama3.2-1b")

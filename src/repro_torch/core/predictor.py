@@ -25,6 +25,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..tracing import span
 from .cost_model import quantile_index
 from .embedding import PromptEmbedder
 from .history import HistoryStore
@@ -233,27 +234,30 @@ class SemanticHistoryPredictor(Predictor):
                 r = uniq[p] = len(order)
                 order.append(p)
             rows[j] = r
-        embs = np.stack([self._embed(p) for p in order])
-        hist = self.history
-        sims = hist.similarity_batch(embs)
-        glob_dist = None
-        preds: list[LengthDistribution] = []
-        for r in range(len(order)):
-            tau = self.similarity_threshold
-            idx = hist.threshold_matches(sims[r], embs[r], tau)
-            while idx.size < self.min_matches and tau > 0.3:
-                tau -= 0.1  # progressive relaxation on the cached sims
+        with span("predict.embed"):
+            embs = np.stack([self._embed(p) for p in order])
+        with span("predict.retrieve"):
+            hist = self.history
+            sims = hist.similarity_batch(embs)
+            glob_dist = None
+            preds: list[LengthDistribution] = []
+            for r in range(len(order)):
+                tau = self.similarity_threshold
                 idx = hist.threshold_matches(sims[r], embs[r], tau)
-            if idx.size >= 1:
-                preds.append(empirical_distribution(
-                    hist.output_lengths(idx), self.max_support))
-                continue
-            if glob_dist is None:  # footnote-3 fallback, computed once
-                glob = hist.global_output_lengths()
-                glob_dist = empirical_distribution(glob, self.max_support) \
-                    if glob.size > 0 else LengthDistribution(
-                        np.array([self.default_length]), np.array([1.0]))
-            preds.append(glob_dist)
+                while idx.size < self.min_matches and tau > 0.3:
+                    tau -= 0.1  # progressive relaxation on the cached sims
+                    idx = hist.threshold_matches(sims[r], embs[r], tau)
+                if idx.size >= 1:
+                    preds.append(empirical_distribution(
+                        hist.output_lengths(idx), self.max_support))
+                    continue
+                if glob_dist is None:  # footnote-3 fallback, computed once
+                    glob = hist.global_output_lengths()
+                    glob_dist = empirical_distribution(
+                        glob, self.max_support) if glob.size > 0 \
+                        else LengthDistribution(
+                            np.array([self.default_length]), np.array([1.0]))
+                preds.append(glob_dist)
         return [preds[r] for r in rows]
 
     def observe(self, prompt: str, input_len: int, output_len: int) -> None:

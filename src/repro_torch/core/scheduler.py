@@ -52,6 +52,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..tracing import span
 from .backends import (BatchView, NumpyPriorityBackend,
                        make_priority_backend)
 from .cost_model import (CostDistribution, CostModel, ResourceBoundCost,
@@ -447,9 +448,10 @@ class Scheduler:
             # this predictor class, else a scalar-predict loop (honors
             # subclasses that override only the scalar method)
             try:
-                preds = self.predictor.predict_many(
-                    [prompts[j] for j in missing],
-                    [input_lens[j] for j in missing])
+                with span("sched.predict"):
+                    preds = self.predictor.predict_many(
+                        [prompts[j] for j in missing],
+                        [input_lens[j] for j in missing])
                 # exit hysteresis: one healthy call after an outage must
                 # not flap the degraded flag (and with it the gateway's
                 # static limits); require a streak of clean predictions
@@ -500,8 +502,9 @@ class Scheduler:
             length_dists = [ld.mix_uniform(self.noise_weight,
                                            self.noise_max_len)
                             for ld in length_dists]
-        cost_dists = self.cost_model.distribution_batch(input_lens,
-                                                        length_dists)
+        with span("sched.cost"):
+            cost_dists = self.cost_model.distribution_batch(input_lens,
+                                                            length_dists)
         q = self._posterior_q
         srs: list[ScheduledRequest] = []
         for j in range(b):
@@ -567,7 +570,8 @@ class Scheduler:
             next_refreshes=nrefresh, priorities=np.zeros(b),
             base_priorities=np.zeros(b), node_ids=node_ids)
         st.posterior_cut[idx] = [sr.posterior_cut for sr in srs]
-        base, prio = self._admission_priorities(srs, idx)
+        with span("sched.priority"):
+            base, prio = self._admission_priorities(srs, idx)
         st.base_priority[idx] = base
         st.priority[idx] = prio
         for sr, p in zip(srs, prio):
@@ -709,45 +713,47 @@ class Scheduler:
         d = st.dirty[:st.n]
         if not d.any():
             return 0
-        pol = self.policy
-        idx = np.flatnonzero(d)
-        if getattr(pol, "rank_based", False):
-            # rank blending is a function of the whole live set — one
-            # dirty row means every rank can shift
-            idx = np.arange(st.n)
-        st.dirty[:st.n] = False
-        st.attained[idx] = self.cost_model.attained_batch(
-            st.input_len[idx], st.generated[idx])
-        if self._posterior_q is not None:
-            self._posterior_update(idx)
-        if pol.has_batch:
-            view = st.view(idx)
-            if getattr(pol, "time_varying", False) \
-                    and hasattr(pol, "base_priority_batch"):
-                base = pol.base_priority_batch(view, self.backend)
-                st.base_priority[idx] = base
-                st.priority[idx] = pol.apply_age(base, st.arrival[idx],
-                                                 self._now)
+        with span("sched.refresh"):
+            pol = self.policy
+            idx = np.flatnonzero(d)
+            if getattr(pol, "rank_based", False):
+                # rank blending is a function of the whole live set — one
+                # dirty row means every rank can shift
+                idx = np.arange(st.n)
+            st.dirty[:st.n] = False
+            st.attained[idx] = self.cost_model.attained_batch(
+                st.input_len[idx], st.generated[idx])
+            if self._posterior_q is not None:
+                self._posterior_update(idx)
+            if pol.has_batch:
+                view = st.view(idx)
+                if getattr(pol, "time_varying", False) \
+                        and hasattr(pol, "base_priority_batch"):
+                    base = pol.base_priority_batch(view, self.backend)
+                    st.base_priority[idx] = base
+                    st.priority[idx] = pol.apply_age(base, st.arrival[idx],
+                                                     self._now)
+                else:
+                    st.priority[idx] = pol.priority_batch(view, self.backend)
             else:
-                st.priority[idx] = pol.priority_batch(view, self.backend)
-        else:
-            # scalar fallback: custom policies without a batch path
-            for i in idx:
-                sr = self._live[st.ids[i]]
-                sr.generated = int(st.generated[i])
-                sr.attained_cost = float(st.attained[i])
-                st.priority[i] = pol.priority(sr)
-        if not pol.has_boundary_batch:
-            # custom scalar boundary without a batch override: honor it
-            for i in idx:
-                sr = self._live[st.ids[i]]
-                sr.generated = int(st.generated[i])
-                st.next_refresh[i] = pol.next_boundary(sr, self.bucket_size)
-        else:
-            st.next_refresh[idx] = pol.next_boundary_batch(
-                st.generated[idx], self.bucket_size)
-        self.stats["refreshes"] += int(idx.size)
-        return int(idx.size)
+                # scalar fallback: custom policies without a batch path
+                for i in idx:
+                    sr = self._live[st.ids[i]]
+                    sr.generated = int(st.generated[i])
+                    sr.attained_cost = float(st.attained[i])
+                    st.priority[i] = pol.priority(sr)
+            if not pol.has_boundary_batch:
+                # custom scalar boundary without a batch override: honor it
+                for i in idx:
+                    sr = self._live[st.ids[i]]
+                    sr.generated = int(st.generated[i])
+                    st.next_refresh[i] = pol.next_boundary(
+                        sr, self.bucket_size)
+            else:
+                st.next_refresh[idx] = pol.next_boundary_batch(
+                    st.generated[idx], self.bucket_size)
+            self.stats["refreshes"] += int(idx.size)
+            return int(idx.size)
 
     # ------------------------------------------------- mid-flight posteriors
 
@@ -870,20 +876,26 @@ class Scheduler:
         """Request finished: feed the predictor's history, grade the
         admission-time prediction (calibration window + hedge weights)
         and drop state."""
-        sr = self._live.pop(request_id)
-        self.predictor.observe(sr.prompt, sr.input_len, output_len)
-        if sr.pred_dist is not None:
-            self.calibration.observe(sr.tenant, sr.pred_dist, output_len)
-        if hasattr(self.policy, "observe_outcome"):
-            # hedging controllers race their experts on realized error;
-            # pred_dist=None (degraded-mode prior) is a no-op for them
-            self.policy.observe_outcome(sr.pred_dist, output_len)
-            self.stats["hedge"] = self.policy.snapshot()
-        if self._state is not None:
-            self._state.remove(request_id)
-            if getattr(self.policy, "rank_based", False) and self._state.n:
-                self._state.dirty[:self._state.n] = True
-        self.stats["completions"] += 1
+        with span("sched.complete", request_id):
+            sr = self._live.pop(request_id)
+            with span("sched.observe"):
+                self.predictor.observe(sr.prompt, sr.input_len, output_len)
+            with span("sched.calibrate"):
+                if sr.pred_dist is not None:
+                    self.calibration.observe(sr.tenant, sr.pred_dist,
+                                             output_len)
+                if hasattr(self.policy, "observe_outcome"):
+                    # hedging controllers race their experts on realized
+                    # error; pred_dist=None (degraded-mode prior) is a
+                    # no-op for them
+                    self.policy.observe_outcome(sr.pred_dist, output_len)
+                    self.stats["hedge"] = self.policy.snapshot()
+            if self._state is not None:
+                self._state.remove(request_id)
+                if getattr(self.policy, "rank_based", False) \
+                        and self._state.n:
+                    self._state.dirty[:self._state.n] = True
+            self.stats["completions"] += 1
 
     def on_abort(self, request_id: str) -> None:
         if self._live.pop(request_id, None) is not None \
@@ -934,7 +946,8 @@ class Scheduler:
         """Per-tenant rolling calibration table (see
         ``robust.CalibrationMonitor.summary``) — the surface the engine
         metrics and the gateway summary re-export."""
-        return self.calibration.summary()
+        with span("sched.summary"):
+            return self.calibration.summary()
 
     def set_now(self, now: float) -> None:
         """Inject the current (sim or wall) time; time-varying policies
@@ -983,36 +996,39 @@ class Scheduler:
         masked lexsort over the cluster-shared state (ignored when
         ``request_ids`` is given explicitly).
         """
-        st = self._state
-        if st is None:
-            return self._order_object(request_ids, running, hysteresis,
-                                      pin_running, node_id)
-        self.refresh()
-        if request_ids is None and node_id is not None:
-            nidx = np.flatnonzero(st.node_id[:st.n] == node_id)
-            ids = [st.ids[i] for i in nidx]
-            prio = st.priority[nidx]
-            arr = st.arrival[nidx]
-        elif request_ids is None:
-            ids = st.ids[:st.n]
-            prio = st.priority[:st.n].copy()
-            arr = st.arrival[:st.n]
-        else:
-            ids = list(request_ids)
-            idx = np.fromiter((st.index[r] for r in ids), np.int64, len(ids))
-            prio = st.priority[idx]
-            arr = st.arrival[idx]
-        if running:
-            rmask = np.fromiter((r in running for r in ids), bool, len(ids))
-            if pin_running:
-                prio[rmask] = -np.inf
+        with span("sched.order"):
+            st = self._state
+            if st is None:
+                return self._order_object(request_ids, running, hysteresis,
+                                          pin_running, node_id)
+            self.refresh()
+            if request_ids is None and node_id is not None:
+                nidx = np.flatnonzero(st.node_id[:st.n] == node_id)
+                ids = [st.ids[i] for i in nidx]
+                prio = st.priority[nidx]
+                arr = st.arrival[nidx]
+            elif request_ids is None:
+                ids = st.ids[:st.n]
+                prio = st.priority[:st.n].copy()
+                arr = st.arrival[:st.n]
             else:
-                prio[rmask] *= hysteresis
-        # permute through an object array: ~10x faster than indexing a
-        # python list with numpy int64 scalars at 10k-deep queues
-        id_arr = np.empty(len(ids), object)
-        id_arr[:] = ids
-        return id_arr[np.lexsort((arr, prio))].tolist()
+                ids = list(request_ids)
+                idx = np.fromiter((st.index[r] for r in ids), np.int64,
+                                  len(ids))
+                prio = st.priority[idx]
+                arr = st.arrival[idx]
+            if running:
+                rmask = np.fromiter((r in running for r in ids), bool,
+                                    len(ids))
+                if pin_running:
+                    prio[rmask] = -np.inf
+                else:
+                    prio[rmask] *= hysteresis
+            # permute through an object array: ~10x faster than indexing a
+            # python list with numpy int64 scalars at 10k-deep queues
+            id_arr = np.empty(len(ids), object)
+            id_arr[:] = ids
+            return id_arr[np.lexsort((arr, prio))].tolist()
 
     def eviction_order(self, request_ids, *, held_tokens,
                        swap_cost=None, memory_weight: float = 0.0

@@ -100,6 +100,7 @@ from ..kernels.bucketing import pow2_bucket as _pow2_bucket
 from ..kernels.categorical import categorical, prng_key
 from ..models import Model
 from ..simulator.service_model import ServiceModel
+from ..tracing import span
 from .kv_cache import SCRATCH_BLOCK, KVCacheManager
 from .metrics import EngineMetrics
 from .request import RequestState, ServeRequest
@@ -118,6 +119,14 @@ class EngineStallError(RuntimeError):
 def _pad_len(n: int, quantum: int = 64) -> int:
     """pow2 bucket with a floor — prefill chunk/prefix padding ladder."""
     return _pow2_bucket(n, floor=quantum)
+
+
+def _nbytes(tensors) -> int:
+    """Bytes of a swap payload's host tensors: its K / V pages, or a
+    dict of recurrent state."""
+    if isinstance(tensors, dict):
+        return sum(t.nbytes for t in tensors.values())
+    return tensors.nbytes
 
 
 def _rid_seed(request_id: str) -> int:
@@ -324,20 +333,23 @@ class ServingEngine:
         Unstamped arrivals (``arrival == 0.0``) share one clock reading."""
         if not requests:
             return
-        now = self.clock()
-        arrivals = [now if r.arrival == 0.0 else r.arrival
-                    for r in requests]
-        # admit first: admit_batch rejects duplicates before mutating any
-        # state, so a failed burst leaves no ghost entries in _requests
-        self.scheduler.admit_batch(
-            [r.request_id for r in requests],
-            [r.prompt for r in requests],
-            [r.input_len for r in requests],
-            arrivals=arrivals, length_dists=length_dists,
-            tenants=[r.tenant for r in requests])
-        for r, arrival in zip(requests, arrivals):
-            r.arrival = arrival
-            self._requests[r.request_id] = r
+        with span("engine.submit"):
+            now = self.clock()
+            arrivals = [now if r.arrival == 0.0 else r.arrival
+                        for r in requests]
+            # admit first: admit_batch rejects duplicates before mutating
+            # any state, so a failed burst leaves no ghost entries in
+            # _requests
+            with span("sched.admit_batch"):
+                self.scheduler.admit_batch(
+                    [r.request_id for r in requests],
+                    [r.prompt for r in requests],
+                    [r.input_len for r in requests],
+                    arrivals=arrivals, length_dists=length_dists,
+                    tenants=[r.tenant for r in requests])
+            for r, arrival in zip(requests, arrivals):
+                r.arrival = arrival
+                self._requests[r.request_id] = r
 
     def abort(self, request_id: str, reason: str = "abort") -> None:
         """Terminate a request in any non-terminal state, releasing its
@@ -402,71 +414,78 @@ class ServingEngine:
             "last_token": int(self._last_token[slot]),
             "prefill_pos": r.prefill_pos,
         }
-        if self._has_kv:
-            idx = self._to_dev(np.asarray(blocks, np.int64))
-            if self._sharded:
-                # full-head host payload: the shards' slices gathered
-                payload["k"], payload["v"] = self.plan.gather_blocks(
-                    self._cache, idx)
-            else:
-                payload["k"] = self._cache["k"][:, idx].cpu()
-                payload["v"] = self._cache["v"][:, idx].cpu()
-        if self._slot_state and self._sharded:
-            # full-head host copies: the shards' heads gathered
-            payload["ssm"] = self.plan.gather_state(self._cache, slot)
-        elif self._slot_state:
-            # a copy even on the CPU, where .cpu() would return a view of
-            # the live state that the next decode step overwrites
-            payload["ssm"] = {name: t[:, slot].to("cpu", copy=True)
-                              for name, t in self._cache["ssm"].items()}
+        with span("kv.swap_out", r.request_id):
+            if self._has_kv:
+                idx = self._to_dev(np.asarray(blocks, np.int64))
+                if self._sharded:
+                    # full-head host payload: the shards' slices gathered
+                    payload["k"], payload["v"] = self.plan.gather_blocks(
+                        self._cache, idx)
+                else:
+                    payload["k"] = self._cache["k"][:, idx].cpu()
+                    payload["v"] = self._cache["v"][:, idx].cpu()
+            if self._slot_state and self._sharded:
+                # full-head host copies: the shards' heads gathered
+                payload["ssm"] = self.plan.gather_state(self._cache, slot)
+            elif self._slot_state:
+                # a copy even on the CPU, where .cpu() would return a view
+                # of the live state that the next decode step overwrites
+                payload["ssm"] = {name: t[:, slot].to("cpu", copy=True)
+                                  for name, t in self._cache["ssm"].items()}
+        self.metrics.swapped_out_bytes += sum(
+            _nbytes(payload[k]) for k in ("k", "v", "ssm") if k in payload)
         return payload
 
     def _restore_payload(self, r: ServeRequest, payload: dict) -> None:
         slot = r.slot
         blocks = self.kv.block_table(r.request_id)
         skip = self.kv.adopted_blocks_of(r.request_id)
-        if self._has_kv and len(blocks) > skip:
-            idx = self._to_dev(np.asarray(blocks[skip:], np.int64))
-            # in place: the saved pages go straight back into the pool
-            if self._sharded:
-                self.plan.write_blocks(self._cache, idx,
-                                       payload["k"][:, skip:],
-                                       payload["v"][:, skip:])
-            else:
-                self._cache["k"][:, idx] = \
-                    payload["k"][:, skip:].to(self.device)
-                self._cache["v"][:, idx] = \
-                    payload["v"][:, skip:].to(self.device)
-        if self._slot_state and self._sharded:
-            self.plan.write_state(self._cache, slot, payload["ssm"])
-        elif self._slot_state:
-            for name, t in self._cache["ssm"].items():
-                t[:, slot] = payload["ssm"][name].to(self.device)
+        moved = 0
+        with span("kv.swap_in", r.request_id):
+            if self._has_kv and len(blocks) > skip:
+                idx = self._to_dev(np.asarray(blocks[skip:], np.int64))
+                ks, vs = payload["k"][:, skip:], payload["v"][:, skip:]
+                moved += ks.nbytes + vs.nbytes
+                # in place: the saved pages go straight back into the pool
+                if self._sharded:
+                    self.plan.write_blocks(self._cache, idx, ks, vs)
+                else:
+                    self._cache["k"][:, idx] = ks.to(self.device)
+                    self._cache["v"][:, idx] = vs.to(self.device)
+            if self._slot_state:
+                moved += _nbytes(payload["ssm"])
+                if self._sharded:
+                    self.plan.write_state(self._cache, slot, payload["ssm"])
+                else:
+                    for name, t in self._cache["ssm"].items():
+                        t[:, slot] = payload["ssm"][name].to(self.device)
+        self.metrics.swapped_in_bytes += moved
         self._cache_len[slot] = payload["cache_len"]
         self._last_token[slot] = payload["last_token"]
         r.prefill_pos = payload["prefill_pos"]
 
     def _preempt(self, r: ServeRequest) -> None:
         rid = r.request_id
-        swapped = False
-        if (self.preemption_mode == "swap" and self.kv.holds(rid)
-                and self.kv.can_swap_out(rid)):
-            blocks = self.kv.block_table(rid)
-            payload = self._gather_payload(r, blocks)
-            tokens = self.kv.swap_out(rid, payload)
-            self.metrics.swap_outs += 1
-            self.metrics.swapped_out_tokens += tokens
-            self.metrics.modeled_swap_s += self.service_model.swap_time(
-                tokens, self.kv.block_size)
-            swapped = True
-        elif self.kv.holds(rid):
-            self.kv.release(rid)
-        if not swapped:
-            r.prefill_pos = 0      # recompute mode: replay the context
-        self._clear_slot(r)
-        r.state = RequestState.SWAPPED
-        r.n_preemptions += 1
-        self.metrics.preemptions += 1
+        with span("engine.preempt", rid):
+            swapped = False
+            if (self.preemption_mode == "swap" and self.kv.holds(rid)
+                    and self.kv.can_swap_out(rid)):
+                blocks = self.kv.block_table(rid)
+                payload = self._gather_payload(r, blocks)
+                tokens = self.kv.swap_out(rid, payload)
+                self.metrics.swap_outs += 1
+                self.metrics.swapped_out_tokens += tokens
+                self.metrics.modeled_swap_s += self.service_model.swap_time(
+                    tokens, self.kv.block_size)
+                swapped = True
+            elif self.kv.holds(rid):
+                self.kv.release(rid)
+            if not swapped:
+                r.prefill_pos = 0      # recompute mode: replay the context
+            self._clear_slot(r)
+            r.state = RequestState.SWAPPED
+            r.n_preemptions += 1
+            self.metrics.preemptions += 1
 
     # --------------------------------------------------------------- select
 
@@ -544,34 +563,36 @@ class ServingEngine:
 
     def _admit(self, r: ServeRequest) -> None:
         rid = r.request_id
-        if self.preemption_mode == "swap" and self.kv.is_swapped(rid):
-            try:
-                slot, payload = self.kv.swap_in(rid)
-            except RuntimeError:
-                # capacity shortfalls resolve next step (re-raise); a
-                # failure while the pool HAD room is a faulty payload:
-                # drop the host copy and recompute instead of livelocking
-                need = self.kv.blocks_for(self.kv.swapped_tokens_of(rid))
-                if self.kv.free_slots == 0 or need > self.kv.free_blocks:
-                    raise
-                self.metrics.swap_in_faults += 1
-                self.kv.drop_swapped(rid)
-                r.prefill_pos = 0
+        with span("engine.admit", rid):
+            if self.preemption_mode == "swap" and self.kv.is_swapped(rid):
+                try:
+                    slot, payload = self.kv.swap_in(rid)
+                except RuntimeError:
+                    # capacity shortfalls resolve next step (re-raise); a
+                    # failure while the pool HAD room is a faulty payload:
+                    # drop the host copy and recompute instead of livelocking
+                    need = self.kv.blocks_for(self.kv.swapped_tokens_of(rid))
+                    if self.kv.free_slots == 0 or need > self.kv.free_blocks:
+                        raise
+                    self.metrics.swap_in_faults += 1
+                    self.kv.drop_swapped(rid)
+                    r.prefill_pos = 0
+                else:
+                    self._restore_swapped(r, slot, payload)
+                    return
+            self.kv.drop_swapped(rid)
+            ctx_len = r.context_len      # replay prompt + outputs on recompute
+            matched, shared, hashes = self._match_prompt(r)
+            if matched:
+                slot = self.kv.allocate_shared(rid, ctx_len, shared, hashes)
+                # chunks resume at the divergence point
+                r.prefill_pos = matched
+                self.metrics.prefill_tokens_reused += matched
             else:
-                self._restore_swapped(r, slot, payload)
-                return
-        self.kv.drop_swapped(rid)
-        ctx_len = r.context_len      # replay prompt + outputs on recompute
-        matched, shared, hashes = self._match_prompt(r)
-        if matched:
-            slot = self.kv.allocate_shared(rid, ctx_len, shared, hashes)
-            r.prefill_pos = matched  # chunks resume at the divergence point
-            self.metrics.prefill_tokens_reused += matched
-        else:
-            slot = self.kv.allocate(rid, ctx_len)
-            r.prefill_pos = 0
-        self._bind_slot(r, slot)
-        self._cache_len[slot] = -1   # not decode-ready until prefilled
+                slot = self.kv.allocate(rid, ctx_len)
+                r.prefill_pos = 0
+            self._bind_slot(r, slot)
+            self._cache_len[slot] = -1   # not decode-ready until prefilled
 
     def _restore_swapped(self, r: ServeRequest, slot: int,
                          payload: dict) -> None:
@@ -636,26 +657,28 @@ class ServingEngine:
         runner per (chunk bucket, prefix bucket), the reference's jit key;
         the start rides as a device scalar, so one graph serves every
         start of its key."""
-        ctx = r.prompt_tokens + r.output_tokens
-        s0, s1 = r.prefill_pos, r.prefill_pos + take
-        cpad = _pad_len(take)
-        past_pad = _pad_len(s0) if s0 else 0   # no prefix: an empty gather
-        toks = np.zeros((1, cpad), np.int64)
-        toks[0, :take] = ctx[s0:s1]
-        runner = self._prefill_runner(("chunk", cpad, past_pad), {
-            "tokens": ((1, cpad), torch.int64),
-            "past": ((past_pad,), torch.int64),
-            "out": ((cpad,), torch.int64),
-            "start": ((), torch.int64)})
-        runner(self._chunk_body, tokens=toks,
-               past=self._phys_positions(r, 0, s0, past_pad),
-               out=self._phys_positions(r, s0, s1, cpad),
-               start=np.asarray(s0))
-        r.prefill_pos = s1
-        self.metrics.prefill_chunks += 1
-        self.metrics.prefill_tokens += take  # tokens actually computed
-        if s1 >= len(ctx):
-            self._finalize_prefill(r, ctx)
+        with span("engine.prefill", r.request_id):
+            ctx = r.prompt_tokens + r.output_tokens
+            s0, s1 = r.prefill_pos, r.prefill_pos + take
+            cpad = _pad_len(take)
+            # no prefix: an empty gather
+            past_pad = _pad_len(s0) if s0 else 0
+            toks = np.zeros((1, cpad), np.int64)
+            toks[0, :take] = ctx[s0:s1]
+            runner = self._prefill_runner(("chunk", cpad, past_pad), {
+                "tokens": ((1, cpad), torch.int64),
+                "past": ((past_pad,), torch.int64),
+                "out": ((cpad,), torch.int64),
+                "start": ((), torch.int64)})
+            runner(self._chunk_body, tokens=toks,
+                   past=self._phys_positions(r, 0, s0, past_pad),
+                   out=self._phys_positions(r, s0, s1, cpad),
+                   start=np.asarray(s0))
+            r.prefill_pos = s1
+            self.metrics.prefill_chunks += 1
+            self.metrics.prefill_tokens += take  # tokens actually computed
+            if s1 >= len(ctx):
+                self._finalize_prefill(r, ctx)
 
     def _chunk_body(self, x: dict) -> None:
         """A prefill chunk on its runner's static inputs: the prefix
@@ -674,25 +697,26 @@ class ServingEngine:
         The slot's recurrent state is written in place; the hybrid's KV is
         scattered into the pool for valid positions only (pad positions
         land in scratch)."""
-        ctx = r.prompt_tokens + r.output_tokens
-        n = len(ctx)
-        spad = _pad_len(n, quantum=32)
-        toks = np.zeros((1, spad), np.int64)
-        toks[0, :n] = ctx
-        inputs = {"tokens": ((1, spad), torch.int64),
-                  "lengths": ((1,), torch.int64),
-                  "slot": ((), torch.int64)}
-        arrays = {"tokens": toks, "lengths": np.asarray([n]),
-                  "slot": np.asarray(r.slot)}
-        if self._has_kv:
-            inputs["phys"] = ((spad,), torch.int64)
-            arrays["phys"] = self._phys_positions(r, 0, n, spad)
-        self._prefill_runner(("atomic", spad), inputs)(self._atomic_body,
-                                                       **arrays)
-        r.prefill_pos = n
-        self.metrics.prefill_chunks += 1
-        self.metrics.prefill_tokens += n
-        self._finalize_prefill(r, ctx)
+        with span("engine.prefill", r.request_id):
+            ctx = r.prompt_tokens + r.output_tokens
+            n = len(ctx)
+            spad = _pad_len(n, quantum=32)
+            toks = np.zeros((1, spad), np.int64)
+            toks[0, :n] = ctx
+            inputs = {"tokens": ((1, spad), torch.int64),
+                      "lengths": ((1,), torch.int64),
+                      "slot": ((), torch.int64)}
+            arrays = {"tokens": toks, "lengths": np.asarray([n]),
+                      "slot": np.asarray(r.slot)}
+            if self._has_kv:
+                inputs["phys"] = ((spad,), torch.int64)
+                arrays["phys"] = self._phys_positions(r, 0, n, spad)
+            self._prefill_runner(("atomic", spad), inputs)(self._atomic_body,
+                                                           **arrays)
+            r.prefill_pos = n
+            self.metrics.prefill_chunks += 1
+            self.metrics.prefill_tokens += n
+            self._finalize_prefill(r, ctx)
 
     def _atomic_body(self, x: dict) -> None:
         """The recurrent families' prefill on its runner's static inputs:
@@ -743,44 +767,47 @@ class ServingEngine:
     # ------------------------------------------------------------- pressure
 
     def _finish(self, r: ServeRequest, reason: str = "eos") -> None:
-        r.state = RequestState.FINISHED
-        r.finish_reason = reason
-        r.ttlt = self.clock() - r.arrival
-        self._release(r)
-        self.scheduler.on_complete(r.request_id, r.generated)
-        self.metrics.completed += 1
-        if hasattr(self.scheduler, "calibration_summary"):
-            self.metrics.calibration = self.scheduler.calibration_summary()
+        with span("engine.finish", r.request_id):
+            r.state = RequestState.FINISHED
+            r.finish_reason = reason
+            r.ttlt = self.clock() - r.arrival
+            self._release(r)
+            self.scheduler.on_complete(r.request_id, r.generated)
+            self.metrics.completed += 1
+            if hasattr(self.scheduler, "calibration_summary"):
+                self.metrics.calibration = \
+                    self.scheduler.calibration_summary()
 
     def _relieve_pressure(self) -> None:
         """Decode growth that found no free block forces eviction until it
         fits, victims chosen by the scheduler's memory-aware eviction
         order; a sole resident request that fills the pool is truncated."""
-        while self._needs_grow:
-            rid = next(iter(self._needs_grow))
-            r = self._requests.get(rid)
-            if r is None or r.done or not self.kv.holds(rid):
-                self._needs_grow.discard(rid)
-                continue
-            if self.kv.grow(rid, 1):
-                self._sync_block_table(r)
-                self._needs_grow.discard(rid)
-                continue
-            candidates = [x for x in self._running if self.kv.holds(x)]
-            if candidates == [rid]:
-                self._finish(r, reason="truncated")
-                continue
-            if not candidates:
-                break
-            victims = self.scheduler.eviction_order(
-                candidates,
-                held_tokens={x: self.kv.owned_tokens_of(x)
-                             for x in candidates},
-                swap_cost=lambda t: self.service_model.swap_time(
-                    t, self.kv.block_size),
-                memory_weight=self.memory_weight)
-            self._preempt(self._requests[victims[0]])
-            self.metrics.forced_evictions += 1
+        with span("engine.pressure"):
+            while self._needs_grow:
+                rid = next(iter(self._needs_grow))
+                r = self._requests.get(rid)
+                if r is None or r.done or not self.kv.holds(rid):
+                    self._needs_grow.discard(rid)
+                    continue
+                if self.kv.grow(rid, 1):
+                    self._sync_block_table(r)
+                    self._needs_grow.discard(rid)
+                    continue
+                candidates = [x for x in self._running if self.kv.holds(x)]
+                if candidates == [rid]:
+                    self._finish(r, reason="truncated")
+                    continue
+                if not candidates:
+                    break
+                victims = self.scheduler.eviction_order(
+                    candidates,
+                    held_tokens={x: self.kv.owned_tokens_of(x)
+                                 for x in candidates},
+                    swap_cost=lambda t: self.service_model.swap_time(
+                        t, self.kv.block_size),
+                    memory_weight=self.memory_weight)
+                self._preempt(self._requests[victims[0]])
+                self.metrics.forced_evictions += 1
 
     # ------------------------------------------------------------- sampling
 
@@ -809,61 +836,66 @@ class ServingEngine:
 
     def step(self) -> int:
         """One engine iteration. Returns number of running requests."""
-        now = self.clock()
-        self.scheduler.set_now(now)
-        selected = self._select_running()
-        sel = set(selected)
+        with span("engine.step"):
+            now = self.clock()
+            self.scheduler.set_now(now)
+            with span("engine.select"):
+                selected = self._select_running()
+            sel = set(selected)
 
-        for rid in list(self._running):
-            if rid not in sel:
-                self._preempt(self._requests[rid])
+            for rid in list(self._running):
+                if rid not in sel:
+                    self._preempt(self._requests[rid])
 
-        for rid in selected:
-            r = self._requests[rid]
-            if r.state != RequestState.RUNNING:
-                try:
-                    self._admit(r)
-                except RuntimeError:
-                    if self.kv.blocks_for(r.context_len + 1) \
-                            > self.kv.n_blocks:
-                        # the context can never fit the physical pool
-                        self.abort(rid, reason="infeasible_prompt")
-                    # otherwise a transient shortfall: leave it queued
-                    continue
+            for rid in selected:
+                r = self._requests[rid]
+                if r.state != RequestState.RUNNING:
+                    try:
+                        self._admit(r)
+                    except RuntimeError:
+                        if self.kv.blocks_for(r.context_len + 1) \
+                                > self.kv.n_blocks:
+                            # the context can never fit the physical pool
+                            self.abort(rid, reason="infeasible_prompt")
+                        # otherwise a transient shortfall: leave it queued
+                        continue
 
-        self._relieve_pressure()
-        self._run_prefills()
+            self._relieve_pressure()
+            self._run_prefills()
 
-        if not self._running:
-            return 0
-        ready = [(slot, rid) for slot, rid in sorted(self._slot_rid.items())
-                 if self._cache_len[slot] >= 0
-                 and rid not in self._needs_grow]
-        if not ready:
+            if not self._running:
+                return 0
+            ready = [(slot, rid)
+                     for slot, rid in sorted(self._slot_rid.items())
+                     if self._cache_len[slot] >= 0
+                     and rid not in self._needs_grow]
+            if not ready:
+                return len(self._running)
+
+            with span("engine.decode"):
+                if self.step_mode == "fused":
+                    self._decode_fused(ready)
+                else:
+                    self._decode_orchestrated(ready)
             return len(self._running)
-
-        if self.step_mode == "fused":
-            self._decode_fused(ready)
-        else:
-            self._decode_orchestrated(ready)
-        return len(self._running)
 
     def _decode_orchestrated(self, ready: list[tuple[int, str]]) -> None:
         """One full-width device step, logits shipped to the host,
         sampling and per-slot bookkeeping in numpy.  Slots that are
         mid-prefill (or free) point their table rows at the scratch page
         for this call."""
-        tables_np = self._block_tables
-        not_ready = self._cache_len < 0
-        if not_ready.any():
-            tables_np = tables_np.copy()
-            tables_np[not_ready] = SCRATCH_BLOCK
-        if self._orchestrated_runner is None:
-            n = self.n_slots
-            self._orchestrated_runner = StepRunner(self._step_graphs, {
-                "tokens": ((n,), torch.int64),
-                "cache_len": ((n,), torch.int32),
-                "tables": ((n, self._max_pages), torch.int32)})
+        with span("decode.plan"):
+            tables_np = self._block_tables
+            not_ready = self._cache_len < 0
+            if not_ready.any():
+                tables_np = tables_np.copy()
+                tables_np[not_ready] = SCRATCH_BLOCK
+            if self._orchestrated_runner is None:
+                n = self.n_slots
+                self._orchestrated_runner = StepRunner(self._step_graphs, {
+                    "tokens": ((n,), torch.int64),
+                    "cache_len": ((n,), torch.int32),
+                    "tables": ((n, self._max_pages), torch.int32)})
         logits_np = self._orchestrated_runner(
             self._orchestrated_body, tokens=self._last_token,
             cache_len=np.maximum(self._cache_len, 0), tables=tables_np)
@@ -872,35 +904,38 @@ class ServingEngine:
         slots = [s for s, _ in ready]
         rids = [rid for _, rid in ready]
         temps = np.array([self._requests[rid].temperature for rid in rids])
-        toks = self._sample_batch(logits_np, slots, temps)
+        with span("decode.sample"):
+            toks = self._sample_batch(logits_np, slots, temps)
 
-        progressing, progressed = [], []
-        for slot, rid, tok in zip(slots, rids, toks):
-            r = self._requests[rid]
-            tok = int(tok)
-            self._cache_len[slot] += 1
-            self._last_token[slot] = tok
-            r.output_tokens.append(tok)
-            self.metrics.decode_tokens += 1
-            if np.isnan(r.ttft):
-                r.ttft = self.clock() - r.arrival
-            if tok == r.eos_token:
-                self._finish(r, reason="eos")
-                continue
-            if r.generated >= r.max_new_tokens \
-                    or r.context_len >= self.max_seq_len - 1:
-                self._finish(r, reason="length")
-                continue
-            progressing.append(rid)
-            progressed.append(r.generated)
-            # reserve the next token's block now; a False return is capacity
-            # pressure, relieved by forced eviction at the next select
-            if self.kv.grow(rid, 1):
-                self._sync_block_table(r)
-            else:
-                self.metrics.grow_failures += 1
-                self._needs_grow.add(rid)
-        self.scheduler.on_progress_many(progressing, progressed)
+        with span("decode.book"):
+            progressing, progressed = [], []
+            for slot, rid, tok in zip(slots, rids, toks):
+                r = self._requests[rid]
+                tok = int(tok)
+                self._cache_len[slot] += 1
+                self._last_token[slot] = tok
+                r.output_tokens.append(tok)
+                self.metrics.decode_tokens += 1
+                if np.isnan(r.ttft):
+                    r.ttft = self.clock() - r.arrival
+                if tok == r.eos_token:
+                    self._finish(r, reason="eos")
+                    continue
+                if r.generated >= r.max_new_tokens \
+                        or r.context_len >= self.max_seq_len - 1:
+                    self._finish(r, reason="length")
+                    continue
+                progressing.append(rid)
+                progressed.append(r.generated)
+                # reserve the next token's block now; a False return is
+                # capacity pressure, relieved by forced eviction at the
+                # next select
+                if self.kv.grow(rid, 1):
+                    self._sync_block_table(r)
+                else:
+                    self.metrics.grow_failures += 1
+                    self._needs_grow.add(rid)
+            self.scheduler.on_progress_many(progressing, progressed)
 
     def _orchestrated_body(self, x: dict) -> torch.Tensor:
         """The orchestrated step on its runner's static inputs: (n_slots,
@@ -1016,74 +1051,76 @@ class ServingEngine:
         table width rides its own pow2 ladder (floor 4); the recurrent
         families' lanes are slot-positional (nb = n_slots, lane = slot),
         since their state lives per slot."""
-        n_steps = self.decode_steps
-        plan = []                              # (slot, rid, budget, cap)
-        for slot, rid in ready:
-            r = self._requests[rid]
-            cap = min(r.max_new_tokens - r.generated,
-                      (self.max_seq_len - 1) - r.context_len)
-            cap = max(1, cap)
-            want = min(n_steps, cap)
-            grant = self.kv.grow_upto(rid, want - 1) if want > 1 else 0
-            if grant:
-                self._sync_block_table(r)
-            plan.append((slot, rid, grant + 1, cap))
+        with span("decode.plan"):
+            n_steps = self.decode_steps
+            plan = []                              # (slot, rid, budget, cap)
+            for slot, rid in ready:
+                r = self._requests[rid]
+                cap = min(r.max_new_tokens - r.generated,
+                          (self.max_seq_len - 1) - r.context_len)
+                cap = max(1, cap)
+                want = min(n_steps, cap)
+                grant = self.kv.grow_upto(rid, want - 1) if want > 1 else 0
+                if grant:
+                    self._sync_block_table(r)
+                plan.append((slot, rid, grant + 1, cap))
 
-        if self._slot_state:
-            nb = self.n_slots
-            lane_of = {slot: slot for slot, _ in ready}
-        else:
-            nb = _pow2_bucket(len(ready), floor=8, cap=self.n_slots)
-            lane_of = {slot: j for j, (slot, _) in enumerate(ready)}
-        p_used = max(len(self.kv.block_table(rid)) for _, rid in ready)
-        pb = _pow2_bucket(p_used, floor=4, cap=self._max_pages)
+            if self._slot_state:
+                nb = self.n_slots
+                lane_of = {slot: slot for slot, _ in ready}
+            else:
+                nb = _pow2_bucket(len(ready), floor=8, cap=self.n_slots)
+                lane_of = {slot: j for j, (slot, _) in enumerate(ready)}
+            p_used = max(len(self.kv.block_table(rid)) for _, rid in ready)
+            pb = _pow2_bucket(p_used, floor=4, cap=self._max_pages)
 
-        lanes = np.zeros((7, nb), np.int64)
-        lanes[3] = 1                           # caps
-        lanes[4] = -1                          # eos
-        tables = np.full((nb, pb), SCRATCH_BLOCK, np.int32)
-        temps = np.zeros(nb, np.float32)
-        for slot, rid, budget, cap in plan:
-            r = self._requests[rid]
-            lane = lane_of[slot]
-            lanes[:, lane] = (self._last_token[slot], self._cache_len[slot],
-                              budget, cap, r.eos_token, _rid_seed(rid),
-                              r.generated)
-            tables[lane] = self._block_tables[slot, :pb]
-            temps[lane] = r.temperature
+            lanes = np.zeros((7, nb), np.int64)
+            lanes[3] = 1                           # caps
+            lanes[4] = -1                          # eos
+            tables = np.full((nb, pb), SCRATCH_BLOCK, np.int32)
+            temps = np.zeros(nb, np.float32)
+            for slot, rid, budget, cap in plan:
+                r = self._requests[rid]
+                lane = lane_of[slot]
+                lanes[:, lane] = (self._last_token[slot],
+                                  self._cache_len[slot], budget, cap,
+                                  r.eos_token, _rid_seed(rid), r.generated)
+                tables[lane] = self._block_tables[slot, :pb]
+                temps[lane] = r.temperature
         out = self._fused_steps(lanes, tables, temps, n_steps=n_steps,
                                 all_greedy=bool((temps <= 0.0).all()))
         buf, emitted, fin = out[:, :n_steps], out[:, n_steps], out[:, -1]
         self.metrics.decode_iterations += n_steps
         self.metrics.fused_steps += 1
 
-        progressing, progressed = [], []
-        for slot, rid, _, _ in plan:
-            lane = lane_of[slot]
-            e = int(emitted[lane])
-            if e == 0:
-                continue
-            r = self._requests[rid]
-            toks = [int(t) for t in buf[lane, :e]]
-            r.output_tokens.extend(toks)
-            self._cache_len[slot] += e
-            self._last_token[slot] = toks[-1]
-            self.metrics.decode_tokens += e
-            if np.isnan(r.ttft):
-                r.ttft = self.clock() - r.arrival
-            if fin[lane]:
-                self._finish(r, reason="eos" if toks[-1] == r.eos_token
-                             else "length")
-                continue
-            progressing.append(rid)
-            progressed.append(r.generated)
-            # restore the reserve-one-ahead invariant for the next write
-            if self.kv.grow(rid, 1):
-                self._sync_block_table(r)
-            else:
-                self.metrics.grow_failures += 1
-                self._needs_grow.add(rid)
-        self.scheduler.on_progress_many(progressing, progressed)
+        with span("decode.book"):
+            progressing, progressed = [], []
+            for slot, rid, _, _ in plan:
+                lane = lane_of[slot]
+                e = int(emitted[lane])
+                if e == 0:
+                    continue
+                r = self._requests[rid]
+                toks = [int(t) for t in buf[lane, :e]]
+                r.output_tokens.extend(toks)
+                self._cache_len[slot] += e
+                self._last_token[slot] = toks[-1]
+                self.metrics.decode_tokens += e
+                if np.isnan(r.ttft):
+                    r.ttft = self.clock() - r.arrival
+                if fin[lane]:
+                    self._finish(r, reason="eos" if toks[-1] == r.eos_token
+                                 else "length")
+                    continue
+                progressing.append(rid)
+                progressed.append(r.generated)
+                # restore the reserve-one-ahead invariant for the next write
+                if self.kv.grow(rid, 1):
+                    self._sync_block_table(r)
+                else:
+                    self.metrics.grow_failures += 1
+                    self._needs_grow.add(rid)
+            self.scheduler.on_progress_many(progressing, progressed)
 
     # ------------------------------------------------------ compile bound
 

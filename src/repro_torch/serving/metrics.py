@@ -41,6 +41,8 @@ class EngineMetrics:
     swap_ins: int = 0
     swapped_out_tokens: int = 0
     swapped_in_tokens: int = 0
+    swapped_out_bytes: int = 0   # host payload bytes copied off the card
+    swapped_in_bytes: int = 0    # payload bytes copied back to the card
     modeled_swap_s: float = 0.0  # ServiceModel.swap_time over swap events
     # ----- overload / failure accounting (goodput != throughput) -----
     aborted: int = 0             # requests ended by abort() (any reason)

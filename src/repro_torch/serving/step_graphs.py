@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..kernels.build import launches_withheld
+from ..tracing import span
 
 __all__ = ["StepRunner", "StepGraphs"]
 
@@ -143,24 +144,27 @@ class StepRunner:
             raise ValueError(f"StepRunner: inputs {sorted(arrays)}, "
                              f"expected {sorted(self._staged)}")
         t0 = time.perf_counter()
-        for name, a in arrays.items():
-            self._staged[name][...] = a
-        self._dev.copy_(self._host, non_blocking=True)
-        if self._graph is not None:
-            self._graph.replay()
-            for kern, n in self._launches.items():
-                kern.launches += n
-        elif self._graphs.enabled:
-            t1 = time.perf_counter()
-            self._first_call(step)
-            self._graphs.first_s += time.perf_counter() - t1
-        else:
-            self._write(step(self.inputs))
-        if self._out is not None:
-            self._host_out.copy_(self._out, non_blocking=True)
+        with span("runner.stage"):
+            for name, a in arrays.items():
+                self._staged[name][...] = a
+            self._dev.copy_(self._host, non_blocking=True)
+            if self._graph is not None:
+                self._graph.replay()
+                for kern, n in self._launches.items():
+                    kern.launches += n
+            elif self._graphs.enabled:
+                t1 = time.perf_counter()
+                self._first_call(step)
+                self._graphs.first_s += time.perf_counter() - t1
+            else:
+                self._write(step(self.inputs))
+            if self._out is not None:
+                self._host_out.copy_(self._out, non_blocking=True)
+            if self._done is not None:
+                self._done.record()
         if self._done is not None:
-            self._done.record()
-            self._done.synchronize()
+            with span("runner.wait"):
+                self._done.synchronize()
         if self.calls:
             self.steady_s += time.perf_counter() - t0
         else:

@@ -85,7 +85,8 @@ def test_module_names_mirror_the_reference():
     autodiff needs none of, and tree, the nested-dict walks that
     ``jax.tree`` gives the reference, and kernels.categorical, the fused
     step's sampled draw, which the reference takes from ``jax.random``,
-    and testing.sampling, that draw's hand-made rows)."""
+    and testing.sampling, that draw's hand-made rows, and tracing, the
+    port's span recorder on the device trace's clock)."""
     own = {"repro_torch.kernels.build", "repro_torch.models.bridge",
            "repro_torch.launch", "repro_torch.testing.generate",
            "repro_torch.serving.step_graphs",
@@ -94,7 +95,7 @@ def test_module_names_mirror_the_reference():
            "repro_torch.kernels.categorical.kernel",
            "repro_torch.kernels.categorical.ops",
            "repro_torch.kernels.categorical.ref",
-           "repro_torch.testing.sampling"}
+           "repro_torch.testing.sampling", "repro_torch.tracing"}
     ref = {p.relative_to(ROOT / "src").with_suffix("").as_posix()
            .replace("/", ".").removesuffix(".__init__")
            for p in (ROOT / "src" / "repro").rglob("*.py")}
